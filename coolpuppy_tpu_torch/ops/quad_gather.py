@@ -1,0 +1,357 @@
+"""Quad-sorted window gather + accumulate: the counterpart of
+``coolpuppy_tpu/ops/pallas_gather.py``.
+
+The reference runs a Pallas TPU kernel over snips sorted by their tile quad
+(the 2x2 block of B=128 tiles a window touches). This module keeps the same
+semantics on PyTorch tensors:
+
+1. ``QuadPileupSession`` expands and normalizes the region's tile stack on
+   the device into ONE NaN-encoded stack (``ops/tiles.py``): masked-out
+   pixels are NaN, division-by-zero poison stays +inf.
+2. ``sort_quads`` sorts the packed snip words (``pack_snips``) on the host by
+   (quad, group), so each quad's snips form one run per group, and
+   ``split_runs`` cuts those runs into work items of bounded length.
+3. ``quad_accumulate`` adds every snip's W×W window into per-group
+   accumulators: ``sum[g] += where(v==v, v, 0)`` and
+   ``num[g] += (v==v) & (|v| != inf)``. On a CUDA tensor it launches the
+   hand-written Hopper kernel (``csrc/quad_accumulate.cu``), one block per
+   work item over all items in one launch; on a CPU tensor it runs the plain
+   PyTorch version ``quad_accumulate_plain``.
+
+Flips are handled by the caller with the flip-bank trick
+(``ops/gather.merge_flip_banks``). The reference's fixed call shapes
+(Q_CAP=128 quads, 131072-snip chunks) only pinned Mosaic compiles and are
+not ported: the card takes one launch over all items.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+B_TILE = 128  # tile size; the packed word's 7-bit offsets require it
+W_MAX = 120  # the reference kernel's limit (pallas_gather.py:76)
+C_MAX = 1 << 17  # the packed word's 17-bit group field
+RUN_MAX = 1024  # longest run of snips one kernel block accumulates
+PLAIN_CHUNK = 65536  # snips per gather in the plain version
+
+# launches of the CUDA kernel in this process (quad_accumulate on a CUDA
+# tensor adds one per launch; chip_smoke.py resets and reads it)
+LAUNCHES = 0
+
+
+def pack_snips(o1, o2, cid):
+    """Pack per-snip (row offset < 128, col offset < 128, group id < 2^17)
+    into the kernel's single int32 word: bits [24:31) row offset, [17:24)
+    col offset, [0:17) group. Out-of-range fields would overflow into
+    adjacent fields and decode as wrong offsets/groups with no error — fail
+    loudly instead."""
+    o1 = np.asarray(o1, np.int32)
+    o2 = np.asarray(o2, np.int32)
+    cid = np.asarray(cid, np.int32)
+    if len(o1):
+        assert o1.max(initial=0) < 128 and o1.min(initial=0) >= 0, (
+            "pack_snips: row offset out of the 7-bit field (B must be 128)"
+        )
+        assert o2.max(initial=0) < 128 and o2.min(initial=0) >= 0, (
+            "pack_snips: col offset out of the 7-bit field (B must be 128)"
+        )
+        assert cid.max(initial=0) < (1 << 17) and cid.min(initial=0) >= 0, (
+            "pack_snips: group id out of the 17-bit field"
+        )
+    return (o1 << 24) | (o2 << 17) | cid
+
+
+def sort_quads(r1, r2, cid, tile_map, B):
+    """Sort a snip stream by (tile quad, group) and describe every quad.
+
+    Returns ``(snips, k, qstart, qcount)``: the sorted packed words (int32
+    [n]), each quad's four tile slots ``k`` (int32 [nq, 4], order 00, 01,
+    10, 11), and the span ``[qstart, qstart+qcount)`` of its snips. Within
+    a quad the snips of one group are contiguous; within a group they keep
+    input order."""
+    ncol = tile_map.shape[1]
+    r1a = np.asarray(r1, np.int64)
+    r2a = np.asarray(r2, np.int64)
+    packed = pack_snips(r1a % B, r2a % B, cid)
+    quad = (r1a // B) * ncol + (r2a // B)
+    order = np.argsort((quad << 17) | (packed & 0x1FFFF), kind="stable")
+    snips = packed[order]
+    qs = quad[order]
+    n = len(snips)
+    if n == 0:
+        return (snips, np.zeros((0, 4), np.int32), np.zeros(0, np.int32),
+                np.zeros(0, np.int32))
+    starts = np.concatenate([[0], np.flatnonzero(np.diff(qs)) + 1])
+    counts = np.diff(np.concatenate([starts, [n]]))
+    uq = qs[starts]
+    t1, t2 = uq // ncol, uq % ncol
+    k = np.stack(
+        [tile_map[t1, t2], tile_map[t1, t2 + 1],
+         tile_map[t1 + 1, t2], tile_map[t1 + 1, t2 + 1]],
+        axis=1,
+    ).astype(np.int32)
+    return snips, k, starts.astype(np.int32), counts.astype(np.int32)
+
+
+def split_runs(snips, k, qstart, qcount, run_max=RUN_MAX):
+    """Cut each quad's snips into work items: one per (quad, group) run,
+    and runs longer than ``run_max`` into pieces. Returns ``(k, start,
+    count)`` per item. Every item then holds one group, so the kernel flushes
+    each pixel's sum once per item, and no block walks a whole heavy quad
+    alone."""
+    n = len(snips)
+    if n == 0:
+        return k, qstart, qcount
+    quad_of = np.repeat(np.arange(len(qstart)), qcount)
+    g = snips & 0x1FFFF
+    brk = np.ones(n, bool)
+    brk[1:] = (g[1:] != g[:-1]) | (quad_of[1:] != quad_of[:-1])
+    rs = np.flatnonzero(brk)
+    rc = np.diff(np.concatenate([rs, [n]]))
+    pieces = -(-rc // run_max)
+    run_of = np.repeat(np.arange(len(rs)), pieces)
+    first = np.repeat(np.cumsum(pieces) - pieces, pieces)
+    off = (np.arange(len(run_of)) - first) * run_max
+    start = rs[run_of] + off
+    count = np.minimum(rc[run_of] - off, run_max)
+    return (k[quad_of[rs[run_of]]], start.astype(np.int32),
+            count.astype(np.int32))
+
+
+def quad_accumulate_plain(stiles, k, qstart, qcount, snips, W, C):
+    """Plain PyTorch version of the quad gather-accumulate, on any device.
+
+    Decodes each snip's packed word, gathers its [W, W] window from the four
+    tiles of its quad by index arithmetic into ``stiles`` ([K, 128, 128]
+    float32), and adds ``where(v==v, v, 0)`` to ``sum[g]`` and ``(v==v) &
+    (|v| != inf)`` to ``num[g]`` with ``index_add_`` in float64, at most
+    PLAIN_CHUNK snips at a time. Returns float64 ``(sum, num)`` [C, W, W]."""
+    device = stiles.device
+    out_sum = torch.zeros((C, W, W), dtype=torch.float64, device=device)
+    out_num = torch.zeros((C, W, W), dtype=torch.float64, device=device)
+    qcount = qcount.to(torch.int64)
+    n = int(qcount.sum())
+    if n == 0:
+        return out_sum, out_num
+    item = torch.repeat_interleave(
+        torch.arange(len(qcount), device=device), qcount
+    )
+    first = torch.cumsum(qcount, 0) - qcount
+    pos = qstart.to(torch.int64)[item] + (
+        torch.arange(n, device=device) - first[item]
+    )
+    flat = stiles.reshape(-1)
+    ar = torch.arange(W, device=device)
+    for lo in range(0, n, PLAIN_CHUNK):
+        sl = slice(lo, min(lo + PLAIN_CHUNK, n))
+        w = snips[pos[sl]].to(torch.int64)
+        a, b, g = w >> 24, (w >> 17) & 0x7F, w & 0x1FFFF
+        r = a[:, None] + ar[None, :]  # [m, W]
+        c = b[:, None] + ar[None, :]
+        slot = (r >= B_TILE)[:, :, None] * 2 + (c >= B_TILE)[:, None, :]
+        kk = k[item[sl]].to(torch.int64)
+        tile = torch.gather(kk, 1, slot.reshape(len(w), -1))
+        tile = tile.reshape(slot.shape)
+        idx = (tile * B_TILE + (r % B_TILE)[:, :, None]) * B_TILE + (
+            c % B_TILE
+        )[:, None, :]
+        v = flat[idx]
+        fin = v == v
+        out_sum.index_add_(0, g, torch.where(fin, v, 0.0).to(torch.float64))
+        out_num.index_add_(
+            0, g, (fin & (v.abs() != torch.inf)).to(torch.float64)
+        )
+    return out_sum, out_num
+
+
+def _check_kernel_args(stiles, k, qstart, qcount, snips, W, C):
+    if not 1 <= W <= W_MAX:
+        raise ValueError(f"quad_accumulate: W={W} outside [1, {W_MAX}]")
+    if not 1 <= C <= C_MAX:
+        raise ValueError(f"quad_accumulate: C={C} outside [1, {C_MAX}]")
+    if stiles.dtype != torch.float32 or stiles.dim() != 3 or tuple(
+        stiles.shape[1:]
+    ) != (B_TILE, B_TILE):
+        raise ValueError(
+            "quad_accumulate: stiles must be float32 [K, 128, 128], got "
+            f"{stiles.dtype} {tuple(stiles.shape)}"
+        )
+    nq = qstart.shape[0]
+    if tuple(k.shape) != (nq, 4) or tuple(qcount.shape) != (nq,):
+        raise ValueError(
+            "quad_accumulate: k must be [nq, 4] and qstart/qcount [nq], got "
+            f"{tuple(k.shape)}, {tuple(qstart.shape)}, {tuple(qcount.shape)}"
+        )
+    for name, t in (("stiles", stiles), ("k", k), ("qstart", qstart),
+                    ("qcount", qcount), ("snips", snips)):
+        if t.device != stiles.device:
+            raise ValueError(f"quad_accumulate: {name} on {t.device}, "
+                             f"stiles on {stiles.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"quad_accumulate: {name} is not contiguous")
+        if name != "stiles" and t.dtype != torch.int32:
+            raise ValueError(f"quad_accumulate: {name} must be int32, "
+                             f"got {t.dtype}")
+
+
+def quad_accumulate(stiles, k, qstart, qcount, snips, W, C):
+    """Per-group window sums and finite counts over quad-sorted snips.
+
+    ``stiles`` float32 [K, 128, 128] (NaN-encoded), ``k`` int32 [nq, 4] tile
+    slots per item, ``qstart``/``qcount`` int32 [nq] spans into ``snips``
+    (int32 packed words, ``pack_snips``). Every item's snips must share one
+    group, as ``split_runs`` makes them: the CUDA kernel adds a whole item to
+    the group of its first word. Returns float64 ``(sum, num)`` [C, W, W] on
+    ``stiles.device``.
+
+    A CPU tensor runs ``quad_accumulate_plain``. A CUDA tensor launches the
+    CUDA kernel (built at first use) and raises on any failure."""
+    global LAUNCHES
+    _check_kernel_args(stiles, k, qstart, qcount, snips, W, C)
+    if stiles.device.type == "cpu":
+        return quad_accumulate_plain(stiles, k, qstart, qcount, snips, W, C)
+    if stiles.device.type != "cuda":
+        raise ValueError(f"quad_accumulate: no kernel for {stiles.device}")
+    from ..kernels.build import load_kernels
+
+    lib = load_kernels()
+    out_sum = torch.zeros((C, W, W), dtype=torch.float32, device=stiles.device)
+    out_num = torch.zeros((C, W, W), dtype=torch.int32, device=stiles.device)
+    nq = int(qstart.shape[0])
+    if nq:
+        err = lib.quad_accumulate_launch(
+            stiles.data_ptr(), k.data_ptr(), qstart.data_ptr(),
+            qcount.data_ptr(), snips.data_ptr(), nq, W, C,
+            out_sum.data_ptr(), out_num.data_ptr(),
+            torch.cuda.current_stream(stiles.device).cuda_stream,
+            stiles.device.index,
+        )
+        if err != 0:
+            msg = lib.quad_accumulate_error_string(err).decode()
+            raise RuntimeError(
+                f"quad_accumulate: kernel launch failed, CUDA error {err} "
+                f"({msg})"
+            )
+        LAUNCHES += 1
+    return out_sum.to(torch.float64), out_num.to(torch.float64)
+
+
+class QuadPileupSession:
+    """Device-resident state for repeated accumulations over one region
+    (counterpart of ``PallasPileupSession`` for ``SymTileStack`` and
+    ``TileStack`` inputs): the raw tiles are uploaded once, expanded and
+    normalized on ``device``; each ``run_many`` quad-sorts one snip stream
+    on the host and accumulates it on the device. ``finalize`` reduces the
+    collected outputs to float64 numpy totals plus the poison plane.
+
+    ``cfg_kw`` holds ``W`` and ``capacity`` (C, the accumulator rows) and
+    the normalization keys ``ooe``, ``cis``, ``ignore_diags`` and
+    ``frame_shift``. The reference's ``tile_f16`` (its f16/int8 wire) is
+    accepted and ignored: the port always ships float32.
+    ``fold_weights=True`` raises NotImplementedError."""
+
+    def __init__(self, tile_stack, valid1, valid2, evec, cfg_kw, device):
+        from .tiles import SymTileStack, TileStack, expand_sym, normalize_tiles
+
+        cfg_kw = dict(cfg_kw)
+        self.W = int(cfg_kw.pop("W"))
+        self.C = int(cfg_kw.pop("capacity"))
+        norm = dict(
+            ooe=bool(cfg_kw.pop("ooe", False)),
+            cis=bool(cfg_kw.pop("cis", True)),
+            ignore_diags=int(cfg_kw.pop("ignore_diags", 2)),
+            frame_shift=int(cfg_kw.pop("frame_shift", 0)),
+            fold_weights=bool(cfg_kw.pop("fold_weights", False)),
+        )
+        cfg_kw.pop("tile_f16", None)
+        if cfg_kw:
+            raise TypeError(
+                f"QuadPileupSession: unknown cfg_kw {sorted(cfg_kw)}"
+            )
+        if tile_stack.B != B_TILE:
+            raise ValueError(f"QuadPileupSession: B must be {B_TILE}")
+        if not 1 <= self.W <= W_MAX:
+            raise ValueError(
+                f"QuadPileupSession: W={self.W} outside [1, {W_MAX}]"
+            )
+        if not 1 <= self.C <= C_MAX:
+            raise ValueError(f"QuadPileupSession: capacity={self.C} outside "
+                             f"[1, {C_MAX}]")
+        self.device = torch.device(device)
+        self.tile_stack = tile_stack
+        if isinstance(tile_stack, SymTileStack):
+            tiles = expand_sym(tile_stack, self.device)
+        elif isinstance(tile_stack, TileStack):
+            tiles = torch.from_numpy(
+                np.ascontiguousarray(tile_stack.tiles, np.float32)
+            ).to(self.device)
+        else:
+            raise TypeError(
+                f"QuadPileupSession: unsupported {type(tile_stack).__name__}"
+            )
+        self.stiles = normalize_tiles(
+            tiles, tile_stack.tile_map, B_TILE, valid1, valid2, evec=evec,
+            **norm,
+        )
+
+    def stage(self, r1, r2, cid):
+        """Host quad sort + work-item split, uploaded to the device: the
+        ``(k, qstart, qcount, snips)`` arguments of ``quad_accumulate``."""
+        cid = np.asarray(cid)
+        if len(cid) and (cid.min() < 0 or cid.max() >= self.C):
+            raise ValueError(
+                f"QuadPileupSession: group ids must lie in [0, {self.C})"
+            )
+        # a negative start would wrap around the tile map unnoticed
+        if len(cid) and (np.min(r1) < 0 or np.min(r2) < 0):
+            raise ValueError("QuadPileupSession: negative window start")
+        snips, k, qstart, qcount = sort_quads(
+            r1, r2, cid, self.tile_stack.tile_map, B_TILE
+        )
+        k, qstart, qcount = split_runs(snips, k, qstart, qcount)
+        return tuple(
+            torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(self.device)
+            for a in (k, qstart, qcount, snips)
+        )
+
+    def run_many(self, r1, r2, cid, fetch=True):
+        """All snips in one accumulation. With ``fetch`` false, returns the
+        device accumulators ``{"sum", "num"}`` for ``finalize``."""
+        k, qstart, qcount, snips = self.stage(r1, r2, cid)
+        s, n = quad_accumulate(self.stiles, k, qstart, qcount, snips,
+                               self.W, self.C)
+        out = {"sum": s, "num": n}
+        return self.finalize([out]) if fetch else out
+
+    def run(self, r1, r2, dd0=None, cid=None, fetch=True):
+        """One snip batch (dd0 unused: distance banding is encoded in cid)."""
+        return self.run_many(r1, r2, cid, fetch=fetch)
+
+    @staticmethod
+    def finalize(outs, compact=None):
+        """Reduce a list of ``run_many(fetch=False)`` outputs to float64 numpy
+        totals. ``compact=(G, half)`` keeps rows [0:G] and [half:half+G]
+        (the unflipped and flip banks) before the fetch. Poison rides the
+        sums as +inf; ``poison`` is the explicit 0/1 plane."""
+        total = dict(outs[0])
+        for o in outs[1:]:
+            total = {k: total[k] + o[k] for k in total}
+        if compact is not None:
+            G, half = compact
+            total = {
+                k: torch.cat([v[:G], v[half : half + G]])
+                for k, v in total.items()
+            }
+        res = {k: v.to(torch.float64).cpu().numpy() for k, v in total.items()}
+        res["poison"] = np.isinf(res["sum"]).astype(np.float64)
+        return res
+
+
+def run_quad_pileup(tile_stack, r1, r2, dd0, cid, valid1, valid2, evec,
+                    cfg_kw, device="cpu"):
+    """One-shot wrapper around QuadPileupSession (counterpart of
+    ``run_pallas_pileup``)."""
+    session = QuadPileupSession(tile_stack, valid1, valid2, evec, cfg_kw,
+                                device)
+    return session.run(r1, r2, dd0, cid)

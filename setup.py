@@ -15,8 +15,12 @@ setup(
             # do not install alongside the original coolpuppy
             "coolpuppy",
             "coolpuppy.*",
+            # the PyTorch/CUDA port (imports torch, never jax)
+            "coolpuppy_tpu_torch",
+            "coolpuppy_tpu_torch.*",
         ]
     ),
+    package_data={"coolpuppy_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "numpy",
@@ -26,6 +30,7 @@ setup(
         "jax",
         "matplotlib",
     ],
+    extras_require={"torch": ["torch"]},
     entry_points={
         "console_scripts": [
             "coolpup-tpu = coolpuppy_tpu.cli.coolpup_cli:main",

@@ -1,0 +1,151 @@
+"""The port's whole loop-APA slice against the JAX package's, on the CPU:
+a SymTileStack with flips (cid = gid + half*flip) through the session,
+finalize and merge_flip_banks; the same slice in a process where jax and
+coolpuppy_tpu cannot be imported; and a source scan for such imports."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+from scipy import sparse as sp
+
+from coolpuppy_tpu.ops.gather import merge_flip_banks as ref_merge
+from coolpuppy_tpu.ops.pallas_gather import PallasPileupSession
+from coolpuppy_tpu.ops.tiles import build_tile_stack_sym as ref_build_sym
+from coolpuppy_tpu_torch import (
+    QuadPileupSession,
+    build_tile_stack_sym,
+    from_reference,
+    merge_flip_banks,
+)
+
+REPO = Path(__file__).resolve().parent.parent
+B = 128
+
+
+def _slice_inputs(seed=9, n=900, W=21, S=3000):
+    rng = np.random.default_rng(seed)
+    dense = rng.gamma(1.0, 1.0, (n, n)) * (rng.random((n, n)) < 0.2)
+    dense = np.triu(dense) + np.triu(dense, 1).T
+    coo = sp.coo_matrix(dense)
+    valid = (rng.random(n) > 0.05).astype(np.float32)
+    evec = (4.0 / (1.0 + np.arange(n))).astype(np.float32)
+    r1 = rng.integers(0, n - W, S).astype(np.int32)
+    r2 = np.minimum(r1 + rng.integers(0, 200, S), n - W - 1).astype(np.int32)
+    gid = rng.integers(0, 4, S).astype(np.int32)
+    flip = rng.random(S) < 0.25
+    return coo, valid, evec, r1, r2, gid, flip
+
+
+def test_slice_matches_reference_session():
+    W, half = 21, 4
+    C = 2 * half + 8
+    coo, valid, evec, r1, r2, gid, flip = _slice_inputs(W=W)
+    cid = (gid + half * flip).astype(np.int32)
+    cfg_kw = dict(W=W, capacity=C, cis=True, ignore_diags=2, ooe=True)
+
+    sym_ref = ref_build_sym(coo, B, r1=r1, r2=r2, window1=W, window2=W)
+    ref_sess = PallasPileupSession(sym_ref, valid, valid, evec,
+                                   dict(cfg_kw, interpret=True))
+    want = ref_merge(ref_sess.run_many(r1, r2, cid), half)
+    # one stack for both packages, and the port's own build of it
+    for sym in (from_reference(sym_ref),
+                build_tile_stack_sym(coo, B, r1=r1, r2=r2, window1=W,
+                                     window2=W)):
+        sess = QuadPileupSession(sym, valid, valid, evec, cfg_kw, "cpu")
+        total = sess.finalize([sess.run_many(r1, r2, cid, fetch=False)])
+        got = merge_flip_banks(total, half)
+        for k in ("sum", "num", "poison"):
+            assert got[k].shape == (half, W, W) and got[k].dtype == np.float64
+        np.testing.assert_array_equal(got["num"], want["num"])
+        np.testing.assert_array_equal(got["poison"], want["poison"])
+        np.testing.assert_allclose(got["sum"], want["sum"], rtol=1e-5, atol=0)
+        assert got["num"].sum() > 0
+        # compact keeps the unflipped and flip banks only
+        small = sess.finalize([sess.run_many(r1, r2, cid, fetch=False)],
+                              compact=(half, half))
+        np.testing.assert_array_equal(small["num"], total["num"][: 2 * half])
+
+
+def test_slice_matches_host_oracle():
+    """The session against chip_smoke.py's host oracle (numpy normalize,
+    window cuts, nansum), as the card run checks it at the headline size."""
+    sys.path.insert(0, str(REPO))
+    try:
+        from chip_smoke import host_oracle
+    finally:
+        sys.path.remove(str(REPO))
+    W, C = 21, 8
+    coo, valid, evec, r1, r2, gid, flip = _slice_inputs(seed=4, W=W, S=1200)
+    cid = (gid + 4 * flip).astype(np.int32)
+    sym = build_tile_stack_sym(coo, B, r1=r1, r2=r2, window1=W, window2=W)
+    sess = QuadPileupSession(sym, valid, valid, evec,
+                             dict(W=W, capacity=C, ooe=True), "cpu")
+    got = sess.run_many(r1, r2, cid)
+    stiles, want_s, want_m = host_oracle(sym, r1, r2, cid, valid, evec, W, C)
+    np.testing.assert_array_equal(np.isnan(sess.stiles.numpy()),
+                                  np.isnan(stiles))
+    np.testing.assert_array_equal(got["num"], want_m)
+    np.testing.assert_allclose(got["sum"], want_s, rtol=1e-5, atol=0)
+
+
+_NO_JAX = """
+import sys
+sys.modules["jax"] = None
+sys.modules["coolpuppy_tpu"] = None
+import numpy as np
+from scipy import sparse as sp
+import coolpuppy_tpu_torch as P
+
+rng = np.random.default_rng(0)
+n, W, S, half = 400, 21, 500, 4
+dense = rng.gamma(1.0, 1.0, (n, n)) * (rng.random((n, n)) < 0.2)
+coo = sp.coo_matrix(np.triu(dense) + np.triu(dense, 1).T)
+r1 = rng.integers(0, n - W, S).astype(np.int32)
+r2 = rng.integers(0, n - W, S).astype(np.int32)
+cid = (rng.integers(0, 4, S) + half * (rng.random(S) < 0.25)).astype(np.int32)
+valid = np.ones(n, np.float32)
+evec = (4.0 / (1.0 + np.arange(n))).astype(np.float32)
+sym = P.build_tile_stack_sym(coo, 128, r1=r1, r2=r2, window1=W, window2=W)
+sess = P.QuadPileupSession(sym, valid, valid, evec,
+                           dict(W=W, capacity=16, ooe=True), device="cpu")
+out = P.merge_flip_banks(sess.run_many(r1, r2, cid), half)
+assert out["num"].sum() > 0 and np.isfinite(out["sum"]).all()
+blocked = ("jax", "coolpuppy_tpu")
+loaded = sorted(m for m, v in sys.modules.items()
+                if v is not None and m.split(".")[0] in blocked)
+assert not loaded, loaded
+print("slice ok", int(out["num"].sum()))
+"""
+
+
+def test_slice_runs_without_jax():
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
+    res = subprocess.run(
+        [sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr
+    assert "slice ok" in res.stdout
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_sources_import_no_jax_and_no_reference():
+    files = sorted((REPO / "coolpuppy_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) >= 7
+    for f in files:
+        for mod in _imports(f):
+            top = mod.split(".")[0]
+            assert top != "jax", f"{f} imports {mod}"
+            assert top != "coolpuppy_tpu", f"{f} imports {mod}"
