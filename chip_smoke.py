@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's loop-APA path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's loop-APA path and its ``pileup()`` engine
+once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -6,7 +7,7 @@ Run from the root of a checkout on a machine with a CUDA device, ``nvcc``
 and PyTorch built for CUDA. It needs no network and no JAX. Phases, each
 printing its lines:
 
-1. probe: torch/CUDA versions, the card's name and power limit
+1. probe: torch/CUDA and pandas versions, the card's name and power limit
    (``nvidia-smi``), the ``nvcc`` release, and which of triton, pandas, h5py
    and jax are importable (jax is only looked up, never imported);
 2. build: compiles ``coolpuppy_tpu_torch/csrc/*.cu`` for sm_90a and loads it;
@@ -27,7 +28,22 @@ printing its lines:
    against the host oracle (numpy normalize + window cuts + nansum: ``num``
    exact, ``sum`` rtol 1e-5), then times the kernel, the plain version and
    the whole path (with its phases), and prints the device's busy share of
-   one end-to-end run from ``torch.profiler``.
+   one end-to-end run from ``torch.profiler``;
+5. the engine: ``coolpuppy_tpu_torch.pileup`` on an in-memory ``Cooler``.
+   (a) Every mode of the port (``ENGINE_MODES``) on a toy two-chromosome
+   map with ``device="cuda"`` and with ``device="cpu"`` (the plain
+   version): group keys, ``n``, ``control_n``, ``num`` and ``control_num``
+   exact, ``data`` within rtol 1e-5 / atol 1e-7 with NaN positions equal.
+   (b) ``bench.py``'s ``--engine`` cell (``engine_workload``: a 200 Mb
+   chromosome at 10 kb, 12M zipf contacts, 3% NaN-weight bins, 20,000
+   stranded sites; ``pileup(flank=100_000, maxdist=2_000_000, nshifts=1,
+   seed=0, by_strand=True)``, W = 21): a 1,000-site warm-up, then a checked
+   run that must launch the kernel and record ``cuda_kernel``, the same run
+   with ``quad_accumulate`` swapped for the plain version (0 launches; ``n``,
+   ``control_n`` and ``num`` exact, ``data`` rtol 1e-4), three timed runs
+   (engine snips/s = ROI ``n`` + ``control_n`` of the ``all`` row over the
+   wall, median, with the engine's phase breakdown) and the busy share of
+   one run.
 
 Any failure raises and exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel JSON
@@ -56,6 +72,34 @@ B = 128
 SMALL_TOL = dict(rtol=1e-5, atol=1e-5)
 HEADLINE_RTOL = 1e-4
 REPEATS = 5
+
+# phase 5: the modes of the port's pileup() on the toy map (TOY_KW plus
+# these); "expected_df": True stands for the toy expected table
+TOY_KW = dict(features_format="bed", mindist=0, flank=2_000_000)
+ENGINE_MODES = {
+    "balanced": {},
+    "ooe": {"expected_df": True},
+    "expected_emission": {"expected_df": True, "ooe": False},
+    "controls": {"nshifts": 2, "seed": 7},
+    "by_strand": {"by_strand": True, "nshifts": 1, "seed": 0},
+    "by_distance": {"by_distance": True, "nshifts": 1, "seed": 0},
+    "by_strand_by_distance_edges": {
+        "by_strand": True, "nshifts": 1, "seed": 0,
+        "by_distance": [0] + [50_000 * 2**k for k in range(30)],
+    },
+    "groupby": {"groupby": ["name1", "strand2"]},
+    "ignore_group_order": {"by_strand": True, "ignore_group_order": True},
+    "flip_negative_strand": {"by_strand": True, "flip_negative_strand": True},
+    "local": {"local": True},
+    "coverage_norm": {"clr_weight_name": None, "coverage_norm": True},
+}
+ENGINE_MODES_TOL = dict(rtol=1e-5, atol=1e-7)
+# bench.py --engine (bench_engine): pileup() arguments and warm-up size
+ENGINE_KW = dict(features_format="bed", flank=100_000, maxdist=2_000_000,
+                 nshifts=1, seed=0, by_strand=True)
+ENGINE_WARMUP_SITES = 1_000
+ENGINE_RTOL = 1e-4
+ENGINE_REPEATS = 3
 
 
 def smi_line():
@@ -344,6 +388,280 @@ def check_slice(dev, sync, workload, card):
                 ms=kern_med * 1e3, plain_ms=plain_med * 1e3)
 
 
+def toy_cooler(seed=1, binsize=1_000_000, bad_bin_frac=0.05):
+    """The toy map of ``tests/fixtures.make_toy_cooler`` (two mm9-sized
+    chromosomes at 1 Mb, distance-decaying Poisson cis counts, 30%-dense
+    trans counts, 5% NaN-weight bins), built in memory with the same RNG
+    calls. Returns ``(Cooler, dense, weights)``: ``dense`` maps (chrom1,
+    chrom2) to the full raw block."""
+    from coolpuppy_tpu_torch import Cooler
+
+    chromsizes = {"chr1": 197_195_432, "chr2": 181_748_087}
+    rng = np.random.default_rng(seed)
+    chroms = list(chromsizes)
+    n_per = {c: int(np.ceil(n / binsize)) for c, n in chromsizes.items()}
+    offsets = dict(zip(chroms, np.cumsum([0] + [n_per[c] for c in chroms])))
+    n_bins = sum(n_per.values())
+    weights = rng.uniform(0.5, 1.5, n_bins)
+    weights[rng.random(n_bins) < bad_bin_frac] = np.nan
+    pix1, pix2, cnt, dense = [], [], [], {}
+    for ci, c1 in enumerate(chroms):
+        for c2 in chroms[ci:]:
+            n1, n2 = n_per[c1], n_per[c2]
+            if c1 == c2:
+                i, j = np.triu_indices(n1)
+                vals = rng.poisson(100.0 / (1.0 + np.abs(i - j)) + 0.5)
+                keep = vals > 0
+                i, j, vals = i[keep], j[keep], vals[keep]
+                block = np.zeros((n1, n1))
+                block[i, j] = vals
+                block[j, i] = vals
+            else:
+                i, j = np.nonzero(rng.random((n1, n2)) < 0.3)
+                vals = rng.poisson(2.0, len(i)) + 1
+                block = np.zeros((n1, n2))
+                block[i, j] = vals
+            dense[(c1, c2)] = block
+            pix1.append(i + offsets[c1])
+            pix2.append(j + offsets[c2])
+            cnt.append(vals)
+    clr = Cooler.from_arrays(
+        chromsizes, binsize,
+        (np.concatenate(pix1), np.concatenate(pix2), np.concatenate(cnt)),
+        weights=weights,
+    )
+    return clr, dense, weights
+
+
+def toy_features():
+    """Six stranded BED features on the toy map (the reference's
+    tests/data/toy_features.bed)."""
+    import pandas as pd
+
+    return pd.DataFrame({
+        "chrom": ["chr1", "chr1", "chr1", "chr2", "chr2", "chr2"],
+        "start": [102_000_000, 105_000_000, 108_000_000] * 2,
+        "end": [102_500_000, 105_500_000, 108_500_000] * 2,
+        "name": ["toy"] * 6,
+        "score": [0] * 6,
+        "strand": ["+", "-", "+", "+", "-", "-"],
+    })
+
+
+def toy_regions():
+    """The toy view (the reference's tests/data/CN.mm9.toy_regions.bed)."""
+    import pandas as pd
+
+    return pd.DataFrame({"chrom": ["chr1", "chr2"],
+                         "start": [100_000_000] * 2,
+                         "end": [150_000_000] * 2, "name": ["foo", "bar"]})
+
+
+def toy_expected(clr, dense, weights, view_df):
+    """By-distance balanced expected of each view region (the arithmetic of
+    ``tests/fixtures.toy_expected``): per diagonal, the nansum of balanced
+    counts over the number of pairs of valid bins."""
+    import pandas as pd
+
+    rows = []
+    for _, reg in view_df.iterrows():
+        lo = int(reg["start"] // clr.binsize)
+        hi = int(np.ceil(reg["end"] / clr.binsize))
+        o = clr.offset(reg["chrom"])
+        w = weights[o + lo : o + hi]
+        block = dense[(reg["chrom"], reg["chrom"])][lo:hi, lo:hi]
+        block = block * np.outer(w, w)
+        valid = ~np.isnan(w)
+        for d in range(hi - lo):
+            i = np.arange(hi - lo - d)
+            nv = int((valid[i] & valid[i + d]).sum())
+            s = np.nansum(block[i, i + d])
+            rows.append({"region1": reg["name"], "region2": reg["name"],
+                         "dist": d, "n_valid": nv, "count.sum": np.nan,
+                         "balanced.sum": s,
+                         "balanced.avg": s / nv if nv > 0 else np.nan})
+    return pd.DataFrame(rows)
+
+
+def mode_kwargs(name, expected_df):
+    """``pileup()`` keywords of one ENGINE_MODES entry on the toy map."""
+    kw = dict(TOY_KW, **ENGINE_MODES[name])
+    if kw.get("expected_df") is True:
+        kw["expected_df"] = expected_df
+    return kw
+
+
+def compare_tables(got, want, rtol, atol, what):
+    """Hold two pileup tables row by row: the group keys, ``n``,
+    ``control_n``, ``num`` and ``control_num`` exact; ``data`` within
+    tolerance with NaN positions equal. Returns the largest absolute
+    ``data`` difference."""
+    if list(got["group"]) != list(want["group"]):
+        raise AssertionError(f"{what}: groups {list(got['group'])} != "
+                             f"{list(want['group'])}")
+    for col in ("n", "control_n"):
+        if (col in got) != (col in want):
+            raise AssertionError(f"{what}: column {col} on one side only")
+        if col in want:
+            np.testing.assert_array_equal(got[col].to_numpy(float),
+                                          want[col].to_numpy(float),
+                                          err_msg=f"{what}: {col}")
+    err = 0.0
+    for i in range(len(want)):
+        for col in ("num", "control_num"):
+            if col in want:
+                np.testing.assert_array_equal(
+                    got[col].iloc[i], want[col].iloc[i],
+                    err_msg=f"{what}: {col} of row {i}",
+                )
+        g = np.asarray(got["data"].iloc[i], float)
+        w = np.asarray(want["data"].iloc[i], float)
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol,
+                                   equal_nan=True,
+                                   err_msg=f"{what}: data of row {i}")
+        fin = np.isfinite(w)
+        err = max(err, float(np.abs(g[fin] - w[fin]).max(initial=0.0)))
+    return err
+
+
+def check_engine_modes(dev):
+    """Phase 5a: every mode of the port's pileup() on the toy map, on
+    ``dev`` against the plain version on the CPU."""
+    from coolpuppy_tpu_torch import pileup
+
+    clr, dense, weights = toy_cooler()
+    expected = toy_expected(clr, dense, weights, toy_regions())
+    for name in ENGINE_MODES:
+        kw = mode_kwargs(name, expected)
+        got = pileup(clr, toy_features(), view_df=toy_regions(), device=dev,
+                     **kw)
+        want = pileup(clr, toy_features(), view_df=toy_regions(),
+                      device="cpu", **kw)
+        err = compare_tables(got, want, what=f"engine mode {name}",
+                             **ENGINE_MODES_TOL)
+        routes = (got["accumulate"].iloc[0], want["accumulate"].iloc[0])
+        if routes != ("cuda_kernel", "plain"):
+            raise AssertionError(f"engine mode {name}: routes {routes}")
+        print(f"engine mode {name}: {len(got)} rows, n {list(got['n'])}, "
+              f"route {got['accumulate'].iloc[0]}, max_abs_err {err:.3g} ok")
+
+
+def engine_workload(n_sites=20_000, n_bins=20_000, n_contacts=12_000_000,
+                    binsize=10_000, seed=0):
+    """``bench.py``'s ``bench_engine`` workload, with its RNG calls, as an
+    in-memory Cooler: a 200 Mb chromosome at 10 kb, 12M zipf(1.35)
+    contacts with Poisson(3)+1 counts, 3% NaN-weight bins, and ``n_sites``
+    stranded 1 kb sites. Returns ``(Cooler, features)``."""
+    import pandas as pd
+
+    from coolpuppy_tpu_torch import Cooler
+
+    rng = np.random.default_rng(seed)
+    length = n_bins * binsize
+    d = rng.zipf(1.35, 2 * n_contacts)
+    d = d[d < n_bins][:n_contacts]
+    i = rng.integers(0, n_bins, len(d))
+    j = np.minimum(i + d, n_bins - 1)
+    vals = rng.poisson(3.0, len(d)) + 1
+    keep = i <= j
+    weights = rng.uniform(0.5, 1.5, n_bins)
+    weights[rng.random(n_bins) < 0.03] = np.nan
+    clr = Cooler.from_arrays({"chr1": length}, binsize,
+                             (i[keep], j[keep], vals[keep]), weights=weights)
+    starts = np.sort(rng.choice(length - 10_000, n_sites, replace=False))
+    feats = pd.DataFrame({
+        "chrom": "chr1", "start": starts, "end": starts + 1_000,
+        "name": ".", "score": 0,
+        "strand": rng.choice(["+", "-"], n_sites),
+    })
+    return clr, feats
+
+
+def engine_snips(pups):
+    """ROI n + control_n of the 'all' row (bench_engine's count)."""
+    row = pups.loc[pups["orientation"] == "all"].iloc[0]
+    return int(row["n"]) + int(row["control_n"])
+
+
+def check_engine(dev, sync, card):
+    """Phase 5b: the engine at bench_engine's size. Returns the checked
+    run's kernel launch count."""
+    import coolpuppy_tpu_torch.ops.quad_gather as qg
+    from coolpuppy_tpu_torch import CoordCreator, PileUpper, pileup
+
+    t, (clr, feats) = timed(engine_workload, lambda: None)
+    print(f"engine workload: {clr.n_bins} bins, {clr.n_pixels} pixels, "
+          f"{len(feats)} sites in {t:.1f} s")
+
+    def run(f):
+        return pileup(clr, f, device=dev, **ENGINE_KW)
+
+    t, warm = timed(lambda: run(feats.iloc[:ENGINE_WARMUP_SITES]), sync)
+    print(f"engine warm-up ({ENGINE_WARMUP_SITES} sites): "
+          f"{engine_snips(warm)} snips in {t:.2f} s")
+
+    qg.LAUNCHES = 0
+    t, checked = timed(lambda: run(feats), sync)
+    launches = qg.LAUNCHES
+    route = checked["accumulate"].iloc[0]
+    if launches < 1 or route != "cuda_kernel":
+        raise AssertionError(f"engine run: {launches} launches, route "
+                             f"{route!r}; the kernel did not run")
+    n_snips = engine_snips(checked)
+    data = np.stack(checked["data"].to_list())
+    if data.shape[1:] != (21, 21) or not np.isfinite(data).any():
+        raise AssertionError(f"engine output: shape {data.shape}, finite "
+                             f"{int(np.isfinite(data).sum())}")
+    print(f"engine checked run: {n_snips} snips, {len(checked)} rows "
+          f"({list(checked['orientation'])}), launches {launches}, route "
+          f"{route}, {t:.2f} s")
+
+    kernel = qg.quad_accumulate
+    qg.quad_accumulate = qg.quad_accumulate_plain
+    try:
+        qg.LAUNCHES = 0
+        plain = run(feats)
+        plain_launches = qg.LAUNCHES
+    finally:
+        qg.quad_accumulate = kernel
+    if plain_launches != 0 or plain["accumulate"].iloc[0] != "plain":
+        raise AssertionError(f"plain-swapped run launched {plain_launches}")
+    err = compare_tables(checked, plain, rtol=ENGINE_RTOL, atol=1e-7,
+                         what="engine kernel vs plain")
+    print(f"engine kernel vs plain (whole run): n/control_n/num exact, "
+          f"data max_abs_err {err:.3g} (rtol {ENGINE_RTOL}) ok")
+
+    # the timed runs build the PileUpper that pileup(**ENGINE_KW) builds,
+    # to read its phase timers
+    def run_timed():
+        kw = dict(ENGINE_KW)
+        del kw["by_strand"]
+        nshifts = kw.pop("nshifts")
+        cc = CoordCreator(feats, clr.binsize, nshifts=nshifts, **kw)
+        pu = PileUpper(clr, cc, control=nshifts > 0, device=dev)
+        return pu, pu.pileupsByStrandWithControl()
+
+    walls, phases = [], []
+    for _ in range(ENGINE_REPEATS):
+        t, (pu, pups) = timed(run_timed, sync)
+        if engine_snips(pups) != n_snips:
+            raise AssertionError("timed run counted other snips")
+        walls.append(t)
+        ph = dict(pu.timers.seconds)
+        ph["outside_phases"] = t - sum(ph.values())
+        phases.append(ph)
+    med = statistics.median(walls)
+    mid = phases[int(np.argsort(walls)[len(walls) // 2])]
+    print("engine timing: wall_s " + json.dumps([round(x, 4) for x in walls]))
+    print("engine phases (median run, s): " + json.dumps(
+        {k: round(v, 4) for k, v in sorted(mid.items())}))
+    print("engine device busy share of one run: "
+          + busy_share(lambda: run(feats), sync))
+    print(f"engine snips/s: {n_snips / med:.0f} ({n_snips} snips, median "
+          f"{med:.3f} s of {ENGINE_REPEATS}) on {card}")
+    return launches
+
+
 def main():
     import torch
 
@@ -361,8 +679,11 @@ def main():
     kind = torch.cuda.get_device_name(0)
 
     # -- 1. probe ---------------------------------------------------------
+    import pandas as pd
+
     print(f"probe: python {sys.version.split()[0]} torch {torch.__version__} "
-          f"cuda {torch.version.cuda} device {kind} "
+          f"cuda {torch.version.cuda} pandas {pd.__version__} "
+          f"numpy {np.__version__} device {kind} "
           f"count {torch.cuda.device_count()}")
     print(f"probe: nvidia-smi {card}")
     print(f"probe: nvcc {nvcc_line()}")
@@ -384,6 +705,11 @@ def main():
     print(f"workload: {coo.shape[0]} bins, {coo.nnz} nnz, {len(r1)} snips "
           f"in {t:.1f} s")
     record = check_slice(dev, sync, workload, card)
+    del workload, coo, r1
+
+    # -- 5. the engine: pileup() modes, then bench_engine's size ----------
+    check_engine_modes(dev)
+    record["engine_launches"] = check_engine(dev, sync, card)
 
     # -- result -----------------------------------------------------------
     print(card)

@@ -1,16 +1,20 @@
 """coolpuppy-tpu-torch: the PyTorch/CUDA port of coolpuppy-tpu.
 
-The loop-APA quad-gather path of ``coolpuppy_tpu`` (the JAX package, which
-stays the reference) re-built on PyTorch tensors, with the quad
-gather-accumulate written by hand in CUDA C++ for Hopper (``csrc/``).
+The cis-BED pile-up of ``coolpuppy_tpu`` (the JAX package, which stays the
+reference) re-built on PyTorch tensors: ``pileup()`` and ``PileUpper`` over
+an in-memory ``Cooler``, with the quad gather-accumulate written by hand in
+CUDA C++ for Hopper (``csrc/``).
 
 Importing the package has no side effects: no allocator or thread tuning,
 no kernel build. The kernel is compiled at its first launch on a CUDA
 tensor (``kernels/build.py``).
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
+from .coords import CoordCreator  # noqa: E402,F401
+from .engine import PileUpper, pileup  # noqa: E402,F401
+from .io import Cooler  # noqa: E402,F401
 from .ops.gather import merge_flip_banks  # noqa: E402,F401
 from .ops.quad_gather import (  # noqa: E402,F401
     QuadPileupSession,

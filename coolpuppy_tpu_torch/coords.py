@@ -1,0 +1,517 @@
+"""Vectorized coordinate engine (counterpart of ``coolpuppy_tpu/coords.py``,
+copied as pandas/numpy).
+
+``CoordCreator`` yields *batches* of snip coordinates — DataFrames built by
+vectorized numpy/pandas ops — which the engine lowers to integer index
+arrays. BED pairs are enumerated by the k-th-superdiagonal sweep of the
+reference, vectorized per diagonal with early termination once a diagonal's
+smallest pair distance exceeds ``maxdist``. Only the numpy sweep is ported
+(not the reference's optional C++ one); both yield the identical pair
+sequence, so the keyed control RNG draws the same shifts.
+
+The port's slice covers BED features, cis and local. BEDPE features and
+trans pairs raise ``NotImplementedError`` (ROADMAP Queue 1 item 4).
+"""
+
+from __future__ import annotations
+
+import warnings
+import zlib
+
+import numpy as np
+import pandas as pd
+
+from .genomics.intervals import expand_intervals, natsorted
+
+DEFAULT_BAND_EDGES = np.append([0], 50000 * 2 ** np.arange(30))
+
+
+def _chrom_as_str_categorical(col):
+    """Chromosome column -> categorical with python-str categories in
+    LEXICOGRAPHIC order: equivalent to the reference's ``astype(str)``
+    (coolpup.py:270, 276) for every downstream consumer, but O(unique)
+    instead of O(rows). Distinct values whose str() forms collide (e.g. 1
+    and "1") fall back to the elementwise cast."""
+    if isinstance(col.dtype, pd.CategoricalDtype):
+        cat = col
+    else:
+        cat = col.astype("category")
+    cats = list(cat.cat.categories)
+    strcats = [x if isinstance(x, str) else str(x) for x in cats]
+    if len(set(strcats)) != len(strcats):
+        return col.astype(str).astype("category")
+    if strcats != cats:
+        cat = cat.cat.rename_categories(strcats)
+    if strcats != sorted(strcats):
+        cat = cat.cat.reorder_categories(sorted(strcats))
+    return cat
+
+
+def bin_distance_intervals(intervals, band_edges="default"):
+    """Annotate a 'distance_band' (lo, hi) tuple per row from 'distance'
+    (reference coolpup.py:28–51)."""
+    if isinstance(band_edges, str) and band_edges == "default":
+        band_edges = DEFAULT_BAND_EDGES
+    band_edges = np.asarray(band_edges)
+    edge_ids = np.searchsorted(band_edges, intervals["distance"], side="right")
+    # band tuples materialized per unique edge only (vs one per row)
+    uniq, inv = np.unique(edge_ids, return_inverse=True)
+    categories = [tuple(band_edges[i - 1 : i + 1]) for i in uniq]
+    intervals["distance_band"] = pd.Categorical.from_codes(
+        inv, categories=pd.Index(categories, tupleize_cols=False)
+    )
+    return intervals
+
+
+def assign_groups(intervals, groupby=None):
+    """Add a 'group' column — 'all' or the tuple of groupby values
+    (reference coolpup.py:54–75), stored as a categorical whose tuples are
+    built once per unique value combination."""
+    if not groupby:
+        intervals["group"] = pd.Categorical.from_codes(
+            np.zeros(len(intervals), np.int8), categories=["all"]
+        )
+        return intervals
+    codes, uniques = zip(
+        *(
+            pd.factorize(intervals[col], use_na_sentinel=False)
+            for col in groupby
+        )
+    )
+    sizes = [len(u) for u in uniques]
+    combined = np.ravel_multi_index([np.asarray(c) for c in codes], sizes)
+    ucomb, inv = np.unique(combined, return_inverse=True)
+    percol = np.unravel_index(ucomb, sizes)
+    categories = [
+        tuple(uniques[d][percol[d][i]] for d in range(len(groupby)))
+        for i in range(len(ucomb))
+    ]
+    intervals["group"] = pd.Categorical.from_codes(
+        inv, categories=pd.Index(categories, tupleize_cols=False)
+    )
+    return intervals
+
+
+def flip_mark_intervals(intervals, flipby, flip_negative_strand):
+    """Mark snips to flip: negative strand1, or group order
+    ``flipby1 > flipby2`` (reference coolpup.py:118–125)."""
+    if flip_negative_strand:
+        intervals["flip"] = intervals["strand1"] == "-"
+    else:
+        intervals["flip"] = intervals[f"{flipby}1"] > intervals[f"{flipby}2"]
+    return intervals
+
+
+def swap_paired_columns_for_flipped(intervals, exclude_bases=()):
+    """For rows marked flip=True, swap every paired column base1/base2 (the
+    vectorized snip-dict swap of reference coolpup.py:128–147). Bin
+    coordinates used for gathering are excluded: the gather uses the
+    original orientation plus the flip-bank anti-transpose."""
+    flip = intervals["flip"].values.astype(bool)
+    if not flip.any():
+        return intervals
+    cols = set(intervals.columns)
+    bases = sorted(
+        {
+            c[:-1]
+            for c in cols
+            if c.endswith("1")
+            and (c[:-1] + "2") in cols
+            and c[:-1] not in exclude_bases
+        }
+    )
+    for base in bases:
+        a = intervals[base + "1"].values.copy()
+        b = intervals[base + "2"].values.copy()
+        av, bv = a.copy(), b.copy()
+        av[flip], bv[flip] = b[flip], a[flip]
+        intervals[base + "1"] = av
+        intervals[base + "2"] = bv
+    return intervals
+
+
+class CoordCreator:
+    """Same constructor surface as the reference CoordCreator
+    (reference coolpup.py:151–257)."""
+
+    def __init__(
+        self,
+        features,
+        resolution,
+        *,
+        features_format="auto",
+        flank=100000,
+        rescale_flank=None,
+        chroms="all",
+        minshift=10**5,
+        maxshift=10**6,
+        nshifts=10,
+        mindist="auto",
+        maxdist=None,
+        local=False,
+        subset=0,
+        trans=False,
+        seed=None,
+        chunk_size=262_144,
+    ):
+        if trans:
+            raise NotImplementedError(
+                "trans pileups are not ported yet (ROADMAP Queue 1 item 4)"
+            )
+        if rescale_flank is not None:
+            raise NotImplementedError(
+                "rescale_flank (rescaled pileups) is not ported yet "
+                "(ROADMAP Queue 1 item 5)"
+            )
+        self.intervals = features.copy()
+        self.resolution = int(resolution)
+        self.features_format = features_format
+        self.flank = flank
+        self.rescale_flank = rescale_flank
+        self.chroms = chroms
+        self.minshift = minshift
+        self.maxshift = maxshift
+        self.nshifts = nshifts
+        self.trans = trans
+        self.chunk_size = int(chunk_size)
+        if mindist == "auto":
+            self.mindist = 2 * self.flank + 2 * self.resolution
+        else:
+            self.mindist = mindist
+        if maxdist is None or maxdist == np.inf:
+            self.maxdist = np.inf
+        else:
+            self.maxdist = maxdist
+        self.local = local
+        self.subset = subset
+        self.seed = seed
+        self.process()
+
+    # -- preprocessing (reference coolpup.py:259–385) ----------------------
+
+    def process(self):
+        if self.features_format in (None, "auto"):
+            cols = set(self.intervals.columns)
+            if {"chrom1", "start1", "end1", "chrom2", "start2",
+                    "end2"}.issubset(cols):
+                self.kind = "bedpe"
+            elif {"chrom", "start", "end"}.issubset(cols):
+                self.kind = "bed"
+            else:
+                raise ValueError(
+                    "Can't determine kind of input; name columns "
+                    "chrom/start/end (bed) or chrom1/.../end2 (bedpe)"
+                )
+        else:
+            self.kind = self.features_format
+        if self.kind != "bed":
+            raise NotImplementedError(
+                f"features_format={self.kind!r} is not ported yet; the port "
+                "takes BED features (ROADMAP Queue 1 item 4)"
+            )
+        if not {"chrom", "start", "end"}.issubset(self.intervals.columns):
+            raise ValueError("BED features need chrom/start/end columns")
+
+        if self.subset > 0 and self.subset < len(self.intervals):
+            self.intervals = self.intervals.sample(
+                self.subset, random_state=self.seed
+            )
+
+        self.intervals["chrom"] = _chrom_as_str_categorical(
+            self.intervals["chrom"]
+        )
+        self.intervals["center"] = (
+            self.intervals["start"] + self.intervals["end"]
+        ) / 2
+        self.intervals = expand_intervals(
+            self.intervals, self.flank, self.resolution
+        )
+
+        if self.intervals.shape[0] == 0:
+            warnings.warn(
+                "No regions in features, returning empty output",
+                stacklevel=2,
+            )
+            self.final_chroms = []
+            self.empty = True
+            return
+        self.empty = False
+
+        basechroms = set(self.intervals["chrom"].unique())
+        self.basechroms = natsorted(basechroms)
+        if self.chroms == "all":
+            self.final_chroms = natsorted(basechroms)
+        else:
+            self.final_chroms = natsorted(set(self.chroms) & set(self.basechroms))
+        if len(self.final_chroms) == 0:
+            raise ValueError(
+                "No chromosomes are in common between the coordinate "
+                "file and the cooler file"
+            )
+        self.intervals = self._binnify(self.intervals)
+
+    @staticmethod
+    def _lex_sorted(intervals, cols):
+        """sort_values(cols) via raw arrays: an O(n) already-sorted check
+        first, else np.lexsort + one positional take. Categorical chroms
+        sort by category code."""
+        keys = []
+        for c in cols:
+            col = intervals[c]
+            if isinstance(col.dtype, pd.CategoricalDtype):
+                keys.append(col.cat.codes.to_numpy())
+            else:
+                keys.append(col.to_numpy())
+        n = len(intervals)
+        if n <= 1:
+            return intervals.reset_index(drop=True)
+        # lexicographically sorted iff at each boundary the first
+        # non-tied key increases
+        tie = np.ones(n - 1, bool)
+        unsorted = False
+        for k in keys:
+            a, b = k[:-1], k[1:]
+            if not tie.any():
+                break
+            if ((a > b) & tie).any():
+                unsorted = True
+                break
+            tie &= a == b
+        if not unsorted:
+            return intervals.reset_index(drop=True)
+        order = np.lexsort(tuple(reversed(keys)))
+        return intervals.take(order).reset_index(drop=True)
+
+    def _binnify(self, intervals):
+        """Snap expanded intervals to the bin grid (reference
+        coolpup.py:489–527)."""
+        res = self.resolution
+
+        def _floor_div(col):
+            a = col.to_numpy()
+            if a.dtype.kind in "iu":  # int // == floor for any sign
+                return a.astype(np.int64) // res
+            return np.floor(a / res).astype(int)
+
+        def _ceil_div(col):
+            a = col.to_numpy()
+            if a.dtype.kind in "iu":
+                return -((-a.astype(np.int64)) // res)
+            return np.ceil(a / res).astype(int)
+
+        intervals = self._lex_sorted(intervals, ["chrom", "start"])
+        intervals["stBin"] = _floor_div(intervals["exp_start"])
+        intervals["endBin"] = _ceil_div(intervals["exp_end"])
+        intervals["exp_start"] = intervals["stBin"] * res
+        intervals["exp_end"] = intervals["endBin"] * res
+        return intervals
+
+    # -- control shifts (reference coolpup.py:387–453) ---------------------
+
+    def _rng(self, region_tag, salt=0):
+        """Deterministic RNG keyed by (seed, region, salt) — the same keys as
+        the JAX package, so both draw identical control shifts."""
+        def _norm(tag):
+            if tag is None:
+                return "none"
+            if isinstance(tag, (tuple, list)):
+                return "|".join(_norm(t) for t in tag)
+            if isinstance(tag, (int, np.integer)):
+                return str(int(tag))
+            return str(tag)
+
+        if self.seed is None:
+            return np.random.default_rng()
+        entropy = [
+            int(self.seed),
+            zlib.crc32(_norm(region_tag).encode()),
+            int(salt),
+        ]
+        return np.random.default_rng(np.random.SeedSequence(entropy))
+
+    def control_regions(self, intervals2d, nshifts=0, rng=None):
+        """Tag ROI rows; append nshifts shifted control copies. Cis controls
+        shift both anchors by one signed bp amount (reference
+        coolpup.py:387–453)."""
+        res = self.resolution
+        if nshifts <= 0:
+            # shallow copy: only a column is ADDED; downstream hooks must
+            # assign whole columns, never mutate cells in place
+            intervals2d = intervals2d.copy(deep=False)
+            intervals2d["kind"] = pd.Categorical.from_codes(
+                np.zeros(len(intervals2d), np.int8),
+                categories=["ROI", "control"],
+            )
+            return intervals2d
+        if rng is None:
+            rng = self._rng("anon")
+        # ROI + nshifts control copies in ONE positional take per column
+        n = len(intervals2d)
+        n_ctrl = n * nshifts
+        reps = np.concatenate([np.arange(n), np.tile(np.arange(n), nshifts)])
+        shift = rng.integers(self.minshift, self.maxshift, n_ctrl) * rng.choice(
+            [-1, 1], n_ctrl
+        )
+        pad = np.zeros(n)
+        sh = np.concatenate([pad, shift])
+        bsh = np.concatenate(
+            [pad.astype(int), np.round(shift / res).astype(int)]
+        )
+        shifted = {
+            "exp_start1": sh, "exp_end1": sh, "center1": sh,
+            "exp_start2": sh, "exp_end2": sh, "center2": sh,
+            "stBin1": bsh, "endBin1": bsh,
+            "stBin2": bsh, "endBin2": bsh,
+        }
+        data = {}
+        for c in intervals2d.columns:
+            col = intervals2d[c]
+            if c in shifted:
+                data[c] = np.asarray(col).take(reps) + shifted[c]
+            elif isinstance(col.dtype, np.dtype):
+                data[c] = col.to_numpy().take(reps)
+            else:
+                data[c] = col.array.take(reps)
+        data["kind"] = pd.Categorical.from_codes(
+            np.repeat(np.array([0, 1], np.int8), [n, n_ctrl]),
+            categories=["ROI", "control"],
+        )
+        return pd.DataFrame(data)
+
+    # -- region filtering (reference coolpup.py:529–596) -------------------
+
+    def filter_bed_region(self, region):
+        chrom, start, end = region
+        iv = self.intervals
+        return iv[
+            (iv["chrom"] == chrom) & (iv["start"] >= start) & (iv["end"] < end)
+        ].reset_index(drop=True)
+
+    # -- batch generation (replaces pos_stream, reference coolpup.py:598–749)
+
+    def batches(
+        self,
+        region1,
+        region2=None,
+        control=False,
+        groupby=None,
+        modify_2Dintervals_func=None,
+        columns=None,
+    ):
+        """Yield vectorized snip DataFrames for a region (cis: ``region2``
+        is None or ``region1``).
+
+        Each frame carries chrom/start/end/center/exp_*/stBin/endBin for both
+        sides plus 'kind', 'group' and any feature annotations; ``columns``
+        (suffixed names) limits the feature columns materialized. The union
+        of all frames is the reference's pos_stream output
+        (coolpup.py:598–746)."""
+        groupby = groupby or []
+        if self.empty:
+            return
+        use = self._column_subset(columns)
+        if self.local:
+            yield from self._batches_local(
+                region1, control, groupby, modify_2Dintervals_func, use
+            )
+        else:
+            yield from self._batches_cis_bed(
+                region1, control, groupby, modify_2Dintervals_func, use
+            )
+
+    def _column_subset(self, columns):
+        """Resolve a suffixed-column hint to the BASE interval columns each
+        side must materialize; None -> all columns."""
+        if columns is None:
+            return None
+        base = {
+            c[:-1]
+            for c in columns
+            if c and c[-1] in "12" and c[:-1] in self.intervals.columns
+        }
+        base |= {"stBin", "endBin"}
+        return [c for c in self.intervals.columns if c in base]
+
+    def _finalize(self, frame, control, groupby, modify_func, rng):
+        frame = self.control_regions(frame, self.nshifts if control else 0, rng=rng)
+        if modify_func is not None:
+            frame = modify_func(frame)
+        frame = assign_groups(frame, groupby)
+        return frame
+
+    def _batches_local(self, region1, control, groupby, modify_func,
+                       use=None):
+        iv = self.filter_bed_region(region1)
+        if len(iv) == 0:
+            return
+        if use is not None:
+            iv = iv[use]
+        merged = pd.merge(
+            iv, iv, left_index=True, right_index=True, suffixes=["1", "2"]
+        )
+        rng = self._rng((region1, None))
+        for lo in range(0, len(merged), self.chunk_size):
+            yield self._finalize(
+                merged.iloc[lo : lo + self.chunk_size].reset_index(drop=True),
+                control,
+                groupby,
+                modify_func,
+                rng,
+            )
+
+    def _iter_cis_pair_chunks(self, centers):
+        """Yield (li, ri) pair-index chunks of exactly ``chunk_size`` (last
+        partial): all pairs with |center[ri]-center[li]| in the distance
+        band, in the canonical k-superdiagonal order, swept with bounded
+        memory and stopped early on sorted centers (the reference's numpy
+        sweep). The order and chunk boundaries fix the keyed control RNG's
+        draws, which are made per chunk."""
+        n = len(centers)
+        centers_sorted = bool(np.all(np.diff(centers) >= 0))
+        maxd = float(self.maxdist) if np.isfinite(self.maxdist) else 1e300
+        buf_l, buf_r, buffered = [], [], 0
+        for k in range(1, n):
+            li = np.arange(0, n - k)
+            d = centers[li + k] - centers[li]
+            if centers_sorted and d.min() > maxd:
+                break
+            keep = (self.mindist <= np.abs(d)) & (np.abs(d) <= maxd)
+            if keep.any():
+                buf_l.append(li[keep])
+                buf_r.append(li[keep] + k)
+                buffered += int(keep.sum())
+            while buffered >= self.chunk_size:
+                ls = np.concatenate(buf_l)
+                rs = np.concatenate(buf_r)
+                yield ls[: self.chunk_size], rs[: self.chunk_size]
+                buf_l = [ls[self.chunk_size :]]
+                buf_r = [rs[self.chunk_size :]]
+                buffered = len(buf_l[0])
+        if buffered:
+            yield np.concatenate(buf_l), np.concatenate(buf_r)
+
+    def _batches_cis_bed(self, region1, control, groupby, modify_func,
+                         use=None):
+        iv = self.filter_bed_region(region1)
+        n = len(iv)
+        if n < 2:
+            return
+        cols = list(iv.columns) if use is None else use
+        centers = iv["center"].values
+        rng = self._rng((region1, None))
+        # raw-array view per column ONCE (Series.take drags index machinery
+        # through every column)
+        arrs = {
+            c: (
+                iv[c].to_numpy()
+                if isinstance(iv[c].dtype, np.dtype)
+                else iv[c].array
+            )
+            for c in cols
+        }
+        for ls, rs in self._iter_cis_pair_chunks(centers):
+            data = {c + "1": arrs[c].take(ls) for c in cols}
+            data.update({c + "2": arrs[c].take(rs) for c in cols})
+            data["distance"] = centers[rs] - centers[ls]
+            combo = pd.DataFrame(data)
+            yield self._finalize(combo, control, groupby, modify_func, rng)

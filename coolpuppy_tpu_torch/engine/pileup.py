@@ -1,0 +1,1189 @@
+"""The pile-up engine: PileUpper + pileup() (counterpart of
+``coolpuppy_tpu/engine/pileup.py``, reference coolpup.py:752–2279).
+
+Per region, the host collects every snip's window start and group into flat
+index arrays, scatters the tiles those windows touch, and hands both to
+``ops/quad_gather.QuadPileupSession``: the tile stack is expanded and
+normalized on ``device``, the snips are quad-sorted, and
+``quad_gather.quad_accumulate`` adds every window into per-group sums and
+finite counts (the hand-written CUDA kernel on a CUDA device, the plain
+PyTorch version on the CPU). The host finishes with the reference's
+normalization algebra: division by shifted controls or expected, coverage
+normalization, local symmetrization.
+
+The port covers cis BED pileups: observed-over-expected, expected emission,
+shifted controls, by strand / by distance / custom groupby,
+ignore_group_order, flip_negative_strand, local and coverage_norm. The other
+modes raise ``NotImplementedError`` naming their ROADMAP item; so do the
+extension hooks and windows wider than the kernel takes (W > 120).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import os
+import pickle
+import re
+import warnings
+from functools import partial, reduce
+
+import numpy as np
+import pandas as pd
+import torch
+
+from .. import coverage as coverage_mod
+from ..coords import (
+    CoordCreator,
+    bin_distance_intervals,
+    flip_mark_intervals,
+    swap_paired_columns_for_flipped,
+)
+from ..genomics.intervals import (
+    is_compatible_viewframe,
+    is_valid_expected,
+    make_cooler_view,
+    make_viewframe,
+    natsorted,
+)
+from ..lib.puputils import empty_pup, norm_coverage, sum_pups
+from ..observability import PhaseTimers, device_trace
+from ..ops import quad_gather
+from ..ops.gather import (
+    coverage_histogram_sums,
+    expected_toeplitz_sums,
+    merge_flip_banks,
+)
+from ..ops.tiles import build_tile_stack_slab_sym
+
+logger = logging.getLogger("coolpuppy_tpu_torch")
+
+# paired column bases that index the gather and must NOT be swapped when
+# ignore_group_order flips a snip: the gather uses the original orientation
+# plus the flip-bank anti-transpose
+_GATHER_BASES = (
+    "stBin",
+    "endBin",
+    "exp_start",
+    "exp_end",
+    "chrom",
+    "start",
+    "end",
+    "center",
+)
+
+# the coverage histogram holds G x n_bins float64 on the host; past this the
+# reference switches to a device scatter-add that only by-window needs
+_COV_HIST_MAX = 1 << 22
+
+
+def _next_pow2(x):
+    return 1 << max(0, int(np.ceil(np.log2(max(1, int(x))))))
+
+
+def _not_ported(what, item):
+    return NotImplementedError(
+        f"{what} is not ported to coolpuppy_tpu_torch yet "
+        f"(ROADMAP.md Queue 1 item {item})"
+    )
+
+
+def _orientation_labels(pups):
+    """'strand1strand2' labels with the all-group collapsed to 'all'."""
+    labels = pups["strand1"].astype(str) + pups["strand2"].astype(str)
+    return labels.where(labels != "allall", "all")
+
+
+def _separation_label(band):
+    """Human-readable separation text for one distance-band tuple."""
+    if band == "all":
+        return "all"
+    lo = band[0] / 1_000_000
+    if len(band) < 2:
+        return f"{lo}Mb+"
+    return f"{lo}Mb-\n{band[1] / 1_000_000}Mb"
+
+
+def _codes(col):
+    """(codes, uniques) of a frame column. Categorical codes are used
+    directly; columns with NaN go through factorize(use_na_sentinel=False)
+    so NaN stays a real category (the -1 sentinel would alias another
+    code)."""
+    if isinstance(col.dtype, pd.CategoricalDtype):
+        codes = col.cat.codes.to_numpy()
+        if not (codes < 0).any():
+            return codes, col.cat.categories
+    return pd.factorize(col, use_na_sentinel=False)
+
+
+def _resolve_device(device):
+    """The torch device to run on; a CUDA device must exist."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device={device!r} but torch sees no CUDA device; pass "
+                "device='cpu' to run the plain PyTorch version"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
+    return dev
+
+
+class PileUpper:
+    """See reference coolpup.py:752–836 for parameter semantics; the
+    constructor surface is the JAX package's minus ``mesh`` and
+    ``backend``, plus ``device`` (a torch device: ``"cuda"`` runs the CUDA
+    kernel, ``"cpu"`` the plain PyTorch version). ``tile_f16`` and
+    ``stripe_f16`` (the reference's f16 wires) are accepted, ignored — the
+    port ships float32 — and recorded as ignored in the output.
+    ``chunk_size`` and ``tile_size`` are accepted and unused, as in the
+    JAX package."""
+
+    def __init__(
+        self,
+        clr,
+        CC,
+        *,
+        view_df=None,
+        clr_weight_name="weight",
+        expected=False,
+        expected_value_col="balanced.avg",
+        ooe=True,
+        control=False,
+        coverage_norm=False,
+        rescale=False,
+        rescale_size=99,
+        flip_negative_strand=False,
+        ignore_diags=2,
+        store_stripes=False,
+        stripe_f16=True,
+        tile_f16=True,
+        nproc=1,
+        chunk_size=32768,
+        tile_size=None,
+        checkpoint_dir=None,
+        trace_dir=None,
+        device="cuda",
+    ):
+        if rescale:
+            raise _not_ported("rescale", 5)
+        if store_stripes:
+            raise _not_ported("store_stripes", 4)
+        self.device = _resolve_device(device)
+        self.clr = clr
+        self.resolution = clr.binsize
+        self.CC = CC
+        if self.resolution != self.CC.resolution:
+            raise ValueError(
+                f"cooler resolution {self.resolution} differs from the "
+                f"coordinates' {self.CC.resolution}"
+            )
+        # mirrored CC attributes (reference coolpup.py:841 merges __dict__)
+        for attr in (
+            "flank",
+            "rescale_flank",
+            "minshift",
+            "maxshift",
+            "nshifts",
+            "mindist",
+            "maxdist",
+            "local",
+            "subset",
+            "seed",
+            "trans",
+            "kind",
+            "final_chroms",
+        ):
+            setattr(self, attr, getattr(CC, attr))
+        self.clr_weight_name = clr_weight_name
+        self.expected = expected
+        self.expected_value_col = expected_value_col
+        self.ooe = ooe
+        self.control = control
+        self.pad_bins = self.CC.flank // self.resolution
+        if self._window_bins() > quad_gather.W_MAX:
+            raise _not_ported(
+                f"a {self._window_bins()}-bin window (the quad kernel takes "
+                f"W <= {quad_gather.W_MAX}; wider windows need the generic "
+                "path)", 5,
+            )
+        self.coverage_norm = coverage_norm
+        self.rescale = rescale
+        self.rescale_size = rescale_size
+        self.flip_negative_strand = flip_negative_strand
+        self.ignore_diags = ignore_diags
+        self.store_stripes = store_stripes
+        self.stripe_f16 = stripe_f16
+        self.tile_f16 = tile_f16
+        self.nproc = nproc
+        self.checkpoint_dir = checkpoint_dir
+        self.trace_dir = trace_dir
+        # the last pileupsWithControl run's PhaseTimers (its breakdown)
+        self.timers = None
+        self._routes = set()
+
+        if view_df is None:
+            self.view_df = make_cooler_view(clr)
+        else:
+            self.view_df = make_viewframe(view_df, check_bounds=clr.chromsizes)
+
+        self.expected_vectors = {}
+        self.expected_df = None
+        if self.expected is not None and self.expected is not False:
+            expected_df = self.expected
+            expected_df = expected_df[
+                expected_df["region1"].isin(self.view_df["name"])
+                & expected_df["region2"].isin(self.view_df["name"])
+            ].reset_index(drop=True)
+            if self.control:
+                warnings.warn(
+                    "Can't do both expected and control shifts; "
+                    "defaulting to expected",
+                    stacklevel=2,
+                )
+                self.control = False
+            expected_df = expected_df[
+                expected_df["region1"] == expected_df["region2"]
+            ].reset_index(drop=True)
+            is_valid_expected(
+                expected_df,
+                "cis",
+                self.view_df,
+                verify_cooler=clr,
+                expected_value_cols=[self.expected_value_col],
+                raise_errors=True,
+            )
+            self.expected_df = expected_df
+            for name, sub in expected_df.groupby("region1", observed=True):
+                sub = sub.sort_values("dist")
+                vec = np.full(int(sub["dist"].max()) + 1, np.nan)
+                vec[sub["dist"].astype(int).values] = sub[
+                    self.expected_value_col
+                ].values
+                self.expected_vectors[name] = vec
+            self.expected = True
+
+        self.view_df = self.view_df.set_index("name")
+        self.view_df_extents = {}
+        for region_name, region in self.view_df.iterrows():
+            lo, hi = self.clr.extent(region)
+            chroffset = self.clr.offset(region.iloc[0])
+            self.view_df_extents[region_name] = lo - chroffset, hi - chroffset
+
+        self.chroms = natsorted(
+            set(self.CC.final_chroms) & set(self.clr.chromnames)
+        )
+        self.view_df = self.view_df[self.view_df["chrom"].isin(self.chroms)]
+        if self.view_df["chrom"].unique().shape[0] == 0:
+            raise ValueError(
+                "No chromosomes are in common between the coordinate "
+                "file and the cooler file"
+            )
+
+        if self.coverage_norm is True or self.coverage_norm == "total":
+            self.coverage_norm = "cov_tot_raw"
+        elif self.coverage_norm == "cis":
+            self.coverage_norm = "cov_cis_raw"
+        if self.coverage_norm and self.clr_weight_name:
+            raise ValueError(
+                "Can't do coverage normalization when clr_weight_name is provided"
+            )
+        if (
+            self.coverage_norm
+            and self.coverage_norm not in self.clr.bins().columns
+        ):
+            if self.coverage_norm in ("cov_cis_raw", "cov_tot_raw"):
+                coverage_mod.coverage(
+                    self.clr, store=True, ignore_diags=self.ignore_diags
+                )
+            else:
+                raise ValueError(
+                    f"coverage_norm {self.coverage_norm} not found in cooler bins"
+                )
+
+    # ------------------------------------------------------------------
+
+    def make_outmap(self):
+        return np.zeros((2 * self.pad_bins + 1, 2 * self.pad_bins + 1))
+
+    def _window_bins(self):
+        """Window size in bins (reference make_outmap,
+        coolpup.py:1007–1022)."""
+        return 2 * self.pad_bins + 1
+
+    # -- region staging ----------------------------------------------------
+
+    def _region_device_inputs(self, region1, region2, minpad=512):
+        """Fetch everything per region that snips index into: the pixel
+        slab, the 0/1 valid-bin vectors, the coverage vectors and the
+        expected vector, padded to ``next_pow2(len + minpad)`` (``evec``
+        NaN-filled; ``[nan]`` without an expected table)."""
+        r1c = self.view_df.loc[region1]
+        r2c = self.view_df.loc[region2] if region2 != region1 else r1c
+        min1, max1 = self.view_df_extents[region1]
+        min2, max2 = self.view_df_extents[region2]
+
+        slab = self.clr.fetch_slab(r1c, r2c, balance=self.clr_weight_name)
+
+        def padded(vec, fill=0.0):
+            out = np.full(
+                _next_pow2(len(vec) + minpad), fill, dtype=np.float32
+            )
+            out[: len(vec)] = vec
+            return out
+
+        valid1 = padded(
+            (~self.clr.bad_bin_mask(r1c, self.clr_weight_name)).astype(np.float32)
+        )
+        valid2 = padded(
+            (~self.clr.bad_bin_mask(r2c, self.clr_weight_name)).astype(np.float32)
+        )
+        if self.coverage_norm:
+            cov1 = padded(
+                self.clr.bins()[self.coverage_norm].fetch(r1c).values
+            )
+            cov2 = padded(
+                self.clr.bins()[self.coverage_norm].fetch(r2c).values
+            )
+        else:
+            cov1 = np.zeros(8, np.float32)
+            cov2 = np.zeros(8, np.float32)
+        if self.expected:
+            evec = padded(self.expected_vectors[region1], fill=np.nan)
+        else:
+            evec = np.array([np.nan], np.float32)
+        return dict(
+            slab=slab,
+            min1=min1,
+            min2=min2,
+            n1=max1 - min1,
+            n2=max2 - min2,
+            valid1=valid1,
+            valid2=valid2,
+            cov1=cov1,
+            cov2=cov2,
+            evec=evec,
+            cis=region1 == region2,
+        )
+
+    def _stage_region(self, region1, region2):
+        """Fetch + stage one region pair's inputs."""
+        timers = self.timers
+        ctx = timers.phase("ingest") if timers else contextlib.nullcontext()
+        with ctx:
+            return self._region_device_inputs(region1, region2)
+
+    # -- one region ----------------------------------------------------------
+
+    def pileup_region(
+        self,
+        region1,
+        region2=None,
+        groupby=None,
+        modify_2Dintervals_func=None,
+        dev=None,
+        column_hint=None,
+    ):
+        """Accumulate all snips of one region (pair) on the device; returns
+        {"ROI": {group: pup}, "control": {...}} (reference
+        coolpup.py:1285-1358).
+
+        Two phases (the reference's collected path): (1) the host streams
+        vectorized snip frames into flat index arrays (bounds-checked, group
+        ids factorized in first-appearance order); (2) one tile stack of the
+        touched tiles is built and staged once, and every snip runs through
+        one quad accumulation (``_quad_accumulate``)."""
+        groupby = groupby or []
+        if region2 is None:
+            region2 = region1
+        if dev is None:
+            dev = self._stage_region(region1, region2)
+
+        W = self._window_bins()
+        shape = self.make_outmap().shape
+        emit_expected = bool(self.expected and not self.ooe)
+        timers = self.timers
+
+        def phase(name):
+            return timers.phase(name) if timers else contextlib.nullcontext()
+
+        cid_of = {}
+
+        def ensure_cid(kind, group):
+            key = (kind, group)
+            if key not in cid_of:
+                cid_of[key] = len(cid_of)
+            return cid_of[key]
+
+        region1_coords = tuple(self.view_df.loc[region1])
+        region2_coords = tuple(self.view_df.loc[region2])
+
+        # -- phase 1: host coordinate collection -----------------------
+        cols = {k: [] for k in ("r1", "r2", "dd0", "cidl", "flip")}
+        with phase("coords"):
+            for chunk in self.CC.batches(
+                region1_coords,
+                region2_coords if region2 != region1 else None,
+                control=self.control,
+                groupby=groupby,
+                modify_2Dintervals_func=modify_2Dintervals_func,
+                columns=(
+                    tuple(sorted(column_hint))
+                    if column_hint is not None
+                    else None
+                ),
+            ):
+                if len(chunk) == 0:
+                    continue
+                st1 = chunk["stBin1"].values - dev["min1"]
+                st2 = chunk["stBin2"].values - dev["min2"]
+                inb = (
+                    (st1 >= 0)
+                    & (chunk["endBin1"].values - dev["min1"] <= dev["n1"])
+                    & (st2 >= 0)
+                    & (chunk["endBin2"].values - dev["min2"] <= dev["n2"])
+                )
+                chunk = chunk.loc[inb]
+                if len(chunk) == 0:
+                    continue
+                h1 = chunk["endBin1"].values - chunk["stBin1"].values
+                w2 = chunk["endBin2"].values - chunk["stBin2"].values
+                if not ((h1 == W).all() and (w2 == W).all()):
+                    raise ValueError(
+                        "inconsistent window size; flank must be a multiple "
+                        "of the resolution"
+                    )
+                cols["r1"].append(
+                    (chunk["stBin1"].values - dev["min1"]).astype(np.int32)
+                )
+                cols["r2"].append(
+                    (chunk["stBin2"].values - dev["min2"]).astype(np.int32)
+                )
+                cols["dd0"].append(
+                    (chunk["stBin1"].values - chunk["stBin2"].values).astype(
+                        np.int32
+                    )
+                )
+                if "flip" in chunk.columns:
+                    cols["flip"].append(chunk["flip"].values.astype(bool))
+                else:
+                    cols["flip"].append(np.zeros(len(chunk), bool))
+                # vectorized (kind, group) -> cid: python only per UNIQUE
+                # pair
+                kcode, kuniq = _codes(chunk["kind"])
+                gcode, guniq = _codes(chunk["group"])
+                ng = max(len(guniq), 1)
+                pair = kcode.astype(np.int64) * ng + gcode
+                upair, first_idx, inv = np.unique(
+                    pair, return_index=True, return_inverse=True
+                )
+                # cids in FIRST-APPEARANCE order: cid_of's insertion order
+                # is the group order downstream (the 'all' reduction)
+                for p in upair[np.argsort(first_idx)]:
+                    ensure_cid(kuniq[p // ng], guniq[p % ng])
+                ucid = np.array(
+                    [cid_of[(kuniq[p // ng], guniq[p % ng])] for p in upair],
+                    dtype=np.int32,
+                )
+                cols["cidl"].append(ucid[inv])
+
+        ntot = sum(len(a) for a in cols["r1"])
+        acc = {}
+        n_counts = {}
+        if ntot > 0:
+            arr = {k: np.concatenate(v) for k, v in cols.items()}
+            if timers:
+                timers.count("snips", ntot)
+            G = len(cid_of)
+            counts = np.bincount(arr["cidl"], minlength=G)
+            for i, c in enumerate(counts):
+                n_counts[i] = int(c)
+            # -- phase 2: one tile stack, one accumulation ------------------
+            with phase("tiles"):
+                tile_stack = build_tile_stack_slab_sym(
+                    dev["slab"], quad_gather.B_TILE, arr["r1"], arr["r2"],
+                    W, W,
+                )
+            with phase("device"):
+                acc = self._quad_accumulate(tile_stack, dev, arr, W, G)
+
+        # -- package into pup dicts ------------------------------------
+        outdict = {"ROI": {}, "control": {}}
+        for (kind, group), i in cid_of.items():
+            if n_counts.get(i, 0) == 0:
+                continue
+            pup = {
+                "data": acc["sum"][i],
+                "num": acc["num"][i],
+                "poison": acc["poison"][i],
+                "n": n_counts[i],
+                "cov_start": acc["cov_start"][i]
+                if self.coverage_norm
+                else np.zeros(shape[0]),
+                "cov_end": acc["cov_end"][i]
+                if self.coverage_norm
+                else np.zeros(shape[1]),
+                "horizontal_stripe": [],
+                "vertical_stripe": [],
+                "coordinates": [],
+            }
+            if isinstance(group, (str, int, np.integer)):
+                key = group
+            else:
+                key = tuple(group)
+            outdict[kind][key] = pup
+            if emit_expected and kind == "ROI":
+                epup = {
+                    "data": acc["exp_sum"][i],
+                    "num": acc["exp_num"][i],
+                    "poison": np.zeros(shape),
+                    "n": n_counts[i],
+                    "cov_start": np.zeros(shape[0]),
+                    "cov_end": np.zeros(shape[1]),
+                    "horizontal_stripe": [],
+                    "vertical_stripe": [],
+                    "coordinates": [],
+                }
+                if key in outdict["control"]:
+                    outdict["control"][key] = dict(
+                        sum_pups(outdict["control"][key], epup)
+                    )
+                else:
+                    outdict["control"][key] = epup
+
+        kinds = ["ROI"]
+        if self.control or emit_expected:
+            kinds.append("control")
+        for kind in kinds:
+            if "all" in outdict[kind]:
+                continue
+            outdict[kind]["all"] = dict(
+                reduce(sum_pups, outdict[kind].values(), empty_pup(shape))
+            )
+        if outdict["ROI"]["all"]["n"] > 0:
+            logger.info(f"{region1, region2}: {outdict['ROI']['all']['n']}")
+        return outdict
+
+    def _quad_accumulate(self, tile_stack, dev, arr, W, G):
+        """The counterpart of the reference's ``_pallas_accumulate``
+        (unblocked branch): one ``QuadPileupSession`` per region on
+        ``self.device``, every snip in one ``quad_gather.quad_accumulate``
+        call, groups ``cid + half * flip`` so the flip bank rides rows
+        [half, half + G). The accumulators live in device global memory, so
+        the reference's pinned capacity and group blocks (sized for VMEM
+        and Mosaic compiles) are not needed: ``half = max(4,
+        next_pow2(G))``. ``QuadPileupSession.run_many`` looks
+        ``quad_accumulate`` up in its module at call time, so a caller can
+        count its launches (``quad_gather.LAUNCHES``) or swap it. Returns
+        flip-merged float64 accumulators [G, ...] plus the side sums
+        (``_side_outputs``)."""
+        half = max(4, _next_pow2(G))
+        if 2 * half > quad_gather.C_MAX:
+            raise _not_ported(
+                f"{G} groups in one region (the packed snip word holds "
+                f"{quad_gather.C_MAX} accumulator rows)", 4,
+            )
+        session = quad_gather.QuadPileupSession(
+            tile_stack,
+            dev["valid1"],
+            dev["valid2"],
+            dev["evec"],
+            dict(
+                W=W,
+                capacity=2 * half,
+                cis=dev["cis"],
+                ignore_diags=int(self.ignore_diags),
+                ooe=bool(self.expected and self.ooe),
+            ),
+            self.device,
+        )
+        cid_dev = (arr["cidl"] + half * arr["flip"]).astype(np.int32)
+        launches = quad_gather.LAUNCHES
+        total = session.finalize(
+            [session.run_many(arr["r1"], arr["r2"], cid_dev, fetch=False)],
+            compact=(G, half),
+        )
+        self._routes.add(
+            "cuda_kernel" if quad_gather.LAUNCHES > launches else "plain"
+        )
+        out = merge_flip_banks(total, G)
+        self._side_outputs(dev, arr, W, G, out)
+        return out
+
+    def _side_outputs(self, dev, arr, W, G, out):
+        """Exact host side sums beside the quad kernel (the reference's
+        ``_pallas_side_outputs``): coverage from the (group, start-bin)
+        histogram and expected emission from the (group, dd0) histogram."""
+        cidl = arr["cidl"]
+        if self.coverage_norm:
+            n_cov = max(len(dev["cov1"]), len(dev["cov2"]))
+            if G * n_cov > _COV_HIST_MAX:
+                raise _not_ported(
+                    f"coverage_norm over {G} groups of a {n_cov}-bin region "
+                    "(the device coverage scatter-add)", 4,
+                )
+            out["cov_start"], out["cov_end"] = coverage_histogram_sums(
+                cidl, arr["r1"], arr["r2"], dev["cov1"], dev["cov2"], W, G
+            )
+        if self.expected and not self.ooe:
+            out["exp_sum"], out["exp_num"] = expected_toeplitz_sums(
+                cidl, arr["dd0"], dev["evec"], W, G
+            )
+
+    # -- the region loop and the output table --------------------------------
+
+    def _region_pairs(self):
+        """The work decomposition: cis pairs each view region with itself
+        (reference coolpup.py:1416–1429)."""
+        return [(r, r) for r in self.view_df.index]
+
+    def _resolve_flipby(self, groupby):
+        """Which paired column base decides snip flipping. Returns a base
+        name ('strand', or a groupby base for ignore_group_order) or None
+        when no flip machinery applies (reference coolpup.py:1431–1476)."""
+        igo = self.ignore_group_order
+
+        def _reject_unflippable():
+            if self.local:
+                raise ValueError(
+                    "ignore_group_order doesn't make sense for local pileups"
+                )
+
+        if self.flip_negative_strand:
+            if igo:
+                _reject_unflippable()
+                if groupby:
+                    warnings.warn(
+                        "flip_negative_strand and ignore_group_order leads to "
+                        "combining strands, not other groups"
+                    )
+            return "strand"
+        if not igo:
+            return None
+        if not groupby:
+            warnings.warn("Need to specify groupby for ignore_group_order")
+            return None
+        _reject_unflippable()
+        paired = {
+            c[:-1] for c in groupby if c.endswith("1") and c[:-1] + "2" in groupby
+        }
+        if igo is True:
+            candidates = sorted(paired)
+        elif isinstance(igo, str):
+            candidates = [igo]
+        elif len(igo) == 1:
+            candidates = list(igo)
+        else:
+            candidates = sorted({c[:-1] for c in igo})
+        if len(candidates) == 1 and candidates[0] in paired:
+            return candidates[0]
+        raise ValueError(
+            "Ambiguous ignore_group_order, please provide str or list "
+            "of two strings which are in groupby"
+        )
+
+    def _compose_modify_func(self, flipby, user_func):
+        """Chain flip marking (+ paired-column swap under ignore_group_order)
+        in front of the user's modify_2Dintervals_func."""
+        if flipby is None:
+            return user_func
+
+        def modify(frame):
+            frame = flip_mark_intervals(frame, flipby, self.flip_negative_strand)
+            if self.ignore_group_order:
+                frame = swap_paired_columns_for_flipped(
+                    frame, exclude_bases=_GATHER_BASES
+                )
+            return frame if user_func is None else user_func(frame)
+
+        return modify
+
+    @staticmethod
+    def _combine_region_maps(maps):
+        """Fold per-region {group: pup} maps into one with the sum_pups
+        monoid, in first-appearance group order."""
+        combined = {}
+        for m in maps:
+            for group, pup in m.items():
+                if group in combined:
+                    combined[group] = dict(sum_pups(combined[group], pup))
+                else:
+                    combined[group] = dict(pup)
+        return combined
+
+    @staticmethod
+    def _poison_to_inf(pup):
+        """Re-materialize +inf at pixels whose OOE division hit expected == 0
+        (the reference accumulates the inf directly, coolpup.py:1154–1156;
+        sum_pups' nan_to_num makes it finite on the way)."""
+        pois = pup.get("poison")
+        if pois is not None:
+            hot = np.asarray(pois) > 0
+            if hot.any():
+                data = np.array(pup["data"], dtype=float, copy=True)
+                data[hot] = np.inf
+                pup["data"] = data
+        return pup
+
+    def _finalize_table(self, roi, ctrl, groupby):
+        """Normalize combined accumulators into the output DataFrame:
+        per-pixel mean, control/expected division, inf cleanup, local
+        symmetrization, groupby columns (reference coolpup.py:1533–1625)."""
+        have_control = ctrl is not None
+        if self.coverage_norm:
+            for pup in roi.values():
+                norm_coverage(pup)
+            if self.control:
+                for pup in ctrl.values():
+                    norm_coverage(pup)
+            elif self.expected:
+                warnings.warn(
+                    "Expected can not be normalized to coverage", stacklevel=2
+                )
+        rows = []
+        for group, pup in roi.items():
+            row = {}
+            with np.errstate(divide="ignore", invalid="ignore"):
+                data = pup["data"] / pup["num"]
+                if have_control:
+                    cpup = ctrl.get(group)
+                    if cpup is not None:
+                        data = data / (cpup["data"] / cpup["num"])
+                        row["control_n"] = cpup["n"]
+                        row["control_num"] = cpup["num"]
+                    else:
+                        data = np.full_like(np.asarray(data, float), np.nan)
+                        row["control_n"] = np.nan
+                        row["control_num"] = np.nan
+            data = np.where(np.isposinf(data), np.nan, data)
+            if self.local:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore", category=RuntimeWarning)
+                    data = np.nanmean(np.dstack((data, data.T)), 2)
+            row["data"] = data
+            row["n"] = pup["n"]
+            row["num"] = pup["num"]
+            row["group"] = group
+            rows.append(row)
+
+        table = pd.DataFrame(rows)
+        table.insert(0, "group", table.pop("group"))
+        if groupby:
+            labels = [
+                ("all",) * len(groupby) if g == "all" else tuple(g)
+                for g in table["group"]
+            ]
+            for pos, col in enumerate(groupby):
+                table.insert(0, col, [lab[pos] for lab in labels])
+        return table
+
+    def _annotation(self):
+        """Run-parameter provenance columns (reference coolpup.py:1628–1654),
+        plus the port's own: the backend, the device, the accumulate route
+        each region took (``cuda_kernel`` or ``plain``) and the reference
+        keywords the port accepts and ignores."""
+        fname = self.clr.filename
+        device_name = str(self.device)
+        if self.device.type == "cuda":
+            device_name += f" ({torch.cuda.get_device_name(self.device)})"
+        annot = {
+            "clr": os.path.abspath(fname) if fname else None,
+            "resolution": self.resolution,
+            "clr_weight_name": self.clr_weight_name,
+            "expected": bool(self.expected),
+            "expected_value_col": self.expected_value_col,
+            "ooe": self.ooe,
+            "control": self.control,
+            "pad_bins": self.pad_bins,
+            "coverage_norm": self.coverage_norm,
+            "rescale": self.rescale,
+            "rescale_size": self.rescale_size,
+            "flip_negative_strand": self.flip_negative_strand,
+            "ignore_diags": self.ignore_diags,
+            "store_stripes": self.store_stripes,
+            "nproc": self.nproc,
+            "flank": self.flank,
+            "rescale_flank": self.rescale_flank,
+            "chroms": str(self.chroms),
+            "minshift": self.minshift,
+            "maxshift": self.maxshift,
+            "nshifts": self.nshifts,
+            "trans": self.trans,
+            "mindist": self.mindist,
+            "maxdist": self.maxdist,
+            "local": self.local,
+            "subset": self.subset,
+            "seed": self.seed,
+            "ignore_group_order": self.ignore_group_order,
+            "backend": "torch",
+            "device": device_name,
+            "accumulate": ",".join(sorted(self._routes)) or "none",
+            "ignored": f"tile_f16={self.tile_f16}, "
+                       f"stripe_f16={self.stripe_f16} (float32 wire)",
+        }
+        return {
+            k: (str(v) if isinstance(v, list) else v) for k, v in annot.items()
+        }
+
+    def pileupsWithControl(
+        self,
+        nproc=None,
+        groupby=None,
+        ignore_group_order=False,
+        modify_2Dintervals_func=None,
+        postprocess_frame_func=None,
+        postprocess_snip_func=None,
+        postprocess_batch_func=None,
+        extra_sum_funcs=None,
+    ):
+        """Run the full pileup over every region and normalize (reference
+        coolpup.py:1360–1654 counterpart). Regions run one after another on
+        the device, each checkpointed to ``checkpoint_dir`` when set.
+        ``modify_2Dintervals_func`` transforms every snip frame before its
+        groups are assigned. The ``postprocess_*`` hooks and
+        ``extra_sum_funcs`` raise NotImplementedError."""
+        if (
+            postprocess_frame_func is not None
+            or postprocess_snip_func is not None
+            or postprocess_batch_func is not None
+            or extra_sum_funcs is not None
+        ):
+            raise _not_ported(
+                "the extension hooks (postprocess_*_func, extra_sum_funcs)",
+                4,
+            )
+        groupby = groupby or []
+        self.ignore_group_order = ignore_group_order
+        flipby = self._resolve_flipby(groupby)
+        modify_final = self._compose_modify_func(flipby, modify_2Dintervals_func)
+
+        # coordinate frames materialize only the columns the device path
+        # reads when every frame transform is known to the engine
+        column_hint = None
+        if modify_2Dintervals_func is None or (
+            isinstance(modify_2Dintervals_func, partial)
+            and modify_2Dintervals_func.func is bin_distance_intervals
+        ):
+            column_hint = set(groupby)
+            if flipby:
+                column_hint |= {flipby + "1", flipby + "2"}
+
+        self.timers = timers = PhaseTimers()
+        self._routes = set()
+
+        def _ckpt_path(r1, r2):
+            safe = re.sub(r"[^A-Za-z0-9_.-]", "_", f"{r1}__{r2}")
+            return os.path.join(self.checkpoint_dir, safe + ".pkl")
+
+        def _run_one(r1, r2):
+            # per-region accumulator checkpoints: the resume unit; each keeps
+            # the accumulate routes its region took for the annotation
+            if self.checkpoint_dir:
+                path = _ckpt_path(r1, r2)
+                if os.path.exists(path):
+                    with open(path, "rb") as f:
+                        out, routes = pickle.load(f)
+                    self._routes |= routes
+                    return out
+            outer, self._routes = self._routes, set()
+            out = self.pileup_region(
+                r1,
+                r2,
+                groupby=groupby,
+                modify_2Dintervals_func=modify_final,
+                column_hint=column_hint,
+            )
+            routes, self._routes = self._routes, outer | self._routes
+            if self.checkpoint_dir:
+                os.makedirs(self.checkpoint_dir, exist_ok=True)
+                tmp = _ckpt_path(r1, r2) + ".tmp"
+                with open(tmp, "wb") as f:
+                    pickle.dump((out, routes), f)
+                os.replace(tmp, _ckpt_path(r1, r2))
+            return out
+
+        with device_trace(self.trace_dir):
+            pileups = [_run_one(r1, r2) for r1, r2 in self._region_pairs()]
+
+        with timers.phase("finalize"):
+            roi = self._combine_region_maps(p["ROI"] for p in pileups)
+            ctrl = None
+            if self.control or (self.expected and not self.ooe):
+                ctrl = self._combine_region_maps(
+                    p["control"] for p in pileups
+                )
+            for pup in roi.values():
+                self._poison_to_inf(pup)
+            if ctrl is not None:
+                for pup in ctrl.values():
+                    self._poison_to_inf(pup)
+            table = self._finalize_table(roi, ctrl, groupby)
+            for name, value in self._annotation().items():
+                table[name] = [value] * len(table)
+        timers.log_summary()
+        logger.info(
+            f"Total number of piled up windows: {int(roi['all']['n'])}"
+        )
+        return table
+
+    # -- grouped wrappers (reference coolpup.py:1656–1919) ------------------
+
+    def pileupsByStrandWithControl(
+        self, nproc=None, groupby=None, ignore_group_order=False
+    ):
+        """Group by strand pair; adds the 'orientation' label column
+        (reference coolpup.py:1656–1694)."""
+        pups = self.pileupsWithControl(
+            nproc=nproc,
+            groupby=["strand1", "strand2"] + list(groupby or []),
+            ignore_group_order=ignore_group_order,
+        )
+        pups.insert(0, "orientation", _orientation_labels(pups))
+        return pups
+
+    def pileupsByWindowWithControl(self, nproc=None):
+        """By-window pileups (reference coolpup.py:1696–1756)."""
+        raise _not_ported("by_window", 4)
+
+    def _resolve_distance_edges(self, distance_edges):
+        """Validate user edges; separations below the engine's minimum
+        snappable distance collapse onto mindist (reference
+        coolpup.py:1770–1785)."""
+        if isinstance(distance_edges, str) and distance_edges == "default":
+            return "default"
+        if not all(isinstance(n, (int, np.integer)) for n in distance_edges):
+            raise ValueError("Distance edges must be integers")
+        edges = np.sort(np.asarray(distance_edges))
+        return list(np.maximum(edges, self.mindist))
+
+    def _pileups_binned_by_distance(
+        self, nproc, distance_edges, groupby, ignore_group_order, sort_cols
+    ):
+        """Annotate bands at the frame level, group on them, drop
+        out-of-band rows, label separations, order rows with 'all' last."""
+        edges = self._resolve_distance_edges(distance_edges)
+        pups = self.pileupsWithControl(
+            nproc=nproc,
+            modify_2Dintervals_func=partial(
+                bin_distance_intervals, band_edges=edges
+            ),
+            groupby=groupby,
+            ignore_group_order=ignore_group_order,
+        )
+        if "orientation" in sort_cols:
+            pups.insert(0, "orientation", _orientation_labels(pups))
+        pups = pups[pups["distance_band"] != ()].reset_index(drop=True)
+        pups.insert(
+            0,
+            "separation",
+            [_separation_label(band) for band in pups["distance_band"]],
+        )
+        is_all = (pups["separation"] == "all").values
+        body = pups.loc[~is_all].sort_values(sort_cols)
+        return pd.concat([body, pups.loc[is_all]], ignore_index=True)
+
+    def pileupsByDistanceWithControl(
+        self,
+        nproc=None,
+        distance_edges="default",
+        groupby=None,
+        ignore_group_order=False,
+    ):
+        """Group by distance band (reference coolpup.py:1757–1833)."""
+        if self.local:
+            raise ValueError("Cannot do by-distance pileups for local")
+        return self._pileups_binned_by_distance(
+            nproc,
+            distance_edges,
+            ["distance_band"] + list(groupby or []),
+            ignore_group_order,
+            sort_cols=["distance_band"],
+        )
+
+    def pileupsByStrandByDistanceWithControl(
+        self,
+        nproc=None,
+        distance_edges="default",
+        groupby=None,
+        ignore_group_order=False,
+    ):
+        """Group by strand pair × distance band (reference
+        coolpup.py:1835–1919)."""
+        return self._pileups_binned_by_distance(
+            nproc,
+            distance_edges,
+            ["strand1", "strand2", "distance_band"] + list(groupby or []),
+            ignore_group_order,
+            sort_cols=["orientation", "distance_band"],
+        )
+
+
+def pileup(
+    clr,
+    features,
+    features_format="bed",
+    view_df=None,
+    expected_df=None,
+    expected_value_col="balanced.avg",
+    clr_weight_name="weight",
+    flank=100000,
+    minshift=10**5,
+    maxshift=10**6,
+    nshifts=0,
+    ooe=True,
+    mindist="auto",
+    maxdist=None,
+    min_diag=2,
+    subset=0,
+    by_window=False,
+    by_strand=False,
+    by_distance=False,
+    groupby=None,
+    ignore_group_order=False,
+    flip_negative_strand=False,
+    local=False,
+    coverage_norm=False,
+    trans=False,
+    rescale=False,
+    rescale_flank=1,
+    rescale_size=99,
+    store_stripes=False,
+    stripe_f16=True,
+    tile_f16=True,
+    nproc=1,
+    seed=None,
+    device="cuda",
+):
+    """One-shot pileup API (reference coolpup.py:1922–2279): the JAX
+    package's parameters minus ``mesh`` and ``backend``, plus ``device``
+    (``"cuda"``: the hand-written kernel on the card, raising without one;
+    ``"cpu"``: the plain PyTorch version). ``clr`` is a
+    ``coolpuppy_tpu_torch.Cooler``. by_window, trans, rescale,
+    store_stripes and bedpe features raise NotImplementedError."""
+    if by_window:
+        raise _not_ported("by_window", 4)
+    if trans:
+        raise _not_ported("trans", 4)
+    groupby = groupby or []
+    distance_edges = "default"
+    if by_distance is not False:
+        if local:
+            raise ValueError(
+                "Can't do local pileups by distance, please specify only one "
+                "of those arguments"
+            )
+        if isinstance(by_distance, (list, np.ndarray)):
+            try:
+                distance_edges = [int(i) for i in by_distance]
+            except (TypeError, ValueError) as e:
+                raise ValueError(
+                    "Distance bin edges have to be an iterable of integers"
+                ) from e
+            by_distance = True
+        elif by_distance is True or by_distance == "default":
+            by_distance = True
+        else:
+            raise ValueError(
+                "Invalid by_distance value: True, 'default' or a list of "
+                "integers"
+            )
+
+    if view_df is None:
+        view_df = make_cooler_view(clr)
+    else:
+        is_compatible_viewframe(
+            view_df, clr, check_sorting=True, raise_errors=True
+        )
+
+    control = nshifts > 0
+    if expected_df is None:
+        expected = None
+        expected_value_col = None
+    else:
+        expected = True
+        is_valid_expected(
+            expected_df,
+            "cis",
+            view_df,
+            verify_cooler=clr,
+            expected_value_cols=[expected_value_col],
+            raise_errors=True,
+        )
+    if mindist is None:
+        mindist = "auto"
+    if maxdist is None:
+        maxdist = np.inf
+
+    CC = CoordCreator(
+        features=features,
+        resolution=clr.binsize,
+        features_format=features_format,
+        flank=flank,
+        rescale_flank=None,
+        chroms=list(view_df["chrom"].unique()),
+        minshift=minshift,
+        maxshift=maxshift,
+        nshifts=nshifts,
+        mindist=mindist,
+        maxdist=maxdist,
+        local=local,
+        subset=subset,
+        seed=seed,
+        trans=trans,
+    )
+    PU = PileUpper(
+        clr=clr,
+        CC=CC,
+        view_df=view_df,
+        clr_weight_name=clr_weight_name,
+        expected=expected_df if expected else False,
+        expected_value_col=expected_value_col,
+        ooe=ooe,
+        control=control,
+        coverage_norm=coverage_norm,
+        rescale=rescale,
+        rescale_size=rescale_size,
+        flip_negative_strand=flip_negative_strand,
+        ignore_diags=min_diag,
+        store_stripes=store_stripes,
+        stripe_f16=stripe_f16,
+        tile_f16=tile_f16,
+        nproc=nproc,
+        device=device,
+    )
+
+    if by_strand and by_distance:
+        pups = PU.pileupsByStrandByDistanceWithControl(
+            nproc=nproc,
+            distance_edges=distance_edges,
+            groupby=groupby,
+            ignore_group_order=ignore_group_order,
+        )
+    elif by_strand:
+        pups = PU.pileupsByStrandWithControl(
+            nproc=nproc, groupby=groupby, ignore_group_order=ignore_group_order
+        )
+    elif by_distance:
+        pups = PU.pileupsByDistanceWithControl(
+            nproc=nproc,
+            distance_edges=distance_edges,
+            groupby=groupby,
+            ignore_group_order=ignore_group_order,
+        )
+    else:
+        pups = PU.pileupsWithControl(
+            nproc=nproc, groupby=groupby, ignore_group_order=ignore_group_order
+        )
+    pups["by_window"] = False
+    pups["by_strand"] = bool(by_strand)
+    pups["by_distance"] = bool(by_distance)
+    pups["groupby"] = [groupby] * len(pups)
+    pups["expected"] = pups["expected"].fillna(False)
+    pups["cooler"] = (
+        os.path.splitext(os.path.basename(clr.filename))[0]
+        if clr.filename else None
+    )
+    return pups

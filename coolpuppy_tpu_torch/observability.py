@@ -1,0 +1,79 @@
+"""Per-phase timers and the device trace (counterpart of
+``coolpuppy_tpu/observability.py``).
+
+``PhaseTimers`` sums wall seconds per named phase and counts snips; the
+engine times ``ingest`` (region fetch and per-bin vectors), ``coords``
+(coordinate frames to flat index arrays), ``tiles`` (host tile scatter),
+``device`` (stack upload, expand, normalize, quad sort, kernel, fetch, side
+sums) and ``finalize`` (region merge and the output table).
+``device_trace(trace_dir)`` records the block with ``torch.profiler`` and
+writes a chrome trace into ``trace_dir``."""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import os
+import time
+from collections import defaultdict
+
+logger = logging.getLogger("coolpuppy_tpu_torch")
+
+
+class PhaseTimers:
+    def __init__(self):
+        self.seconds = defaultdict(float)
+        self.counts = defaultdict(int)
+        self._t0 = time.perf_counter()
+
+    @contextlib.contextmanager
+    def phase(self, name):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.seconds[name] += time.perf_counter() - t0
+
+    def count(self, name, n=1):
+        self.counts[name] += n
+
+    def summary(self):
+        total = time.perf_counter() - self._t0
+        parts = ", ".join(
+            f"{k}={v:.2f}s" for k, v in sorted(self.seconds.items())
+        )
+        snips = self.counts.get("snips", 0)
+        rate = snips / total if total > 0 else 0.0
+        return (
+            f"wall={total:.2f}s [{parts}] snips={snips} "
+            f"({rate:,.0f} snips/s)"
+        )
+
+    def log_summary(self, level=logging.INFO):
+        logger.log(level, self.summary())
+
+
+@contextlib.contextmanager
+def device_trace(trace_dir=None):
+    """Profile the block with ``torch.profiler`` (host ops, plus CUDA
+    kernels and copies when a card is present) and write
+    ``trace_dir/trace_<pid>_<time>.json`` (chrome trace format) when
+    ``trace_dir`` is given; a null context otherwise."""
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+    path = os.path.join(
+        str(trace_dir),
+        f"trace_{os.getpid()}_{time.strftime('%Y%m%d-%H%M%S')}.json",
+    )
+    prof.export_chrome_trace(path)
+    logger.info("device trace written to %s", path)

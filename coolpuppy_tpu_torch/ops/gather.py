@@ -1,8 +1,7 @@
 """Host-side accumulator helpers (counterpart of
-``coolpuppy_tpu/ops/gather.py``).
-
-``merge_flip_banks`` is copied as numpy because the reference module imports
-jax at its top.
+``coolpuppy_tpu/ops/gather.py``), copied as numpy because the reference
+module imports jax at its top: the flip-bank merge and the exact histogram
+forms of the coverage and expected-emission side sums.
 """
 
 from __future__ import annotations
@@ -27,3 +26,50 @@ def merge_flip_banks(out, half):
             hi = np.flip(hi, axis=(-2, -1)).swapaxes(-2, -1)
         merged[k] = lo + hi
     return merged
+
+
+def coverage_histogram_sums(cid, r1, r2, cov1, cov2, W, G):
+    """cov_start / cov_end [G, W] accumulated EXACTLY from per-(group,
+    start-bin) histograms: the per-group sum of coverage-vector slices is
+    Σ_r h[g, r]·cov[r : r + W] — one [G, n] @ [n, W] matmul, with h built by
+    one bincount over the snip stream (the per-snip coverage slices of
+    reference coolpup.py:1152–1153). Nonfinite coverage values contribute
+    0. Memory is O(G·n)."""
+    cid = np.asarray(cid, np.int64)
+
+    def one(cov, starts):
+        cov = np.asarray(cov, np.float64)
+        cov = np.where(np.isfinite(cov), cov, 0.0)
+        n = len(cov)
+        h = np.bincount(
+            cid * n + np.asarray(starts, np.int64), minlength=G * n
+        ).reshape(G, n).astype(np.float64)
+        win = np.lib.stride_tricks.sliding_window_view(
+            np.concatenate([cov, np.zeros(W - 1)]), W
+        )  # [n, W]
+        return h @ win
+
+    return one(cov1, r1), one(cov2, r2)
+
+
+def expected_toeplitz_sums(cid, dd0, evec, W, G):
+    """exp_sum / exp_num [G, W, W]: the expected-emission accumulators
+    (ooe=False) computed EXACTLY from the (group, dd0) histogram — each
+    snip's expected window is the toeplitz E(|dd0 + i − j|), so the per-group
+    sum is Σ_d h[g,d]·E(|d + i − j|). Unmasked, like the reference's exp
+    channel (coolpup.py:1130–1138); toeplitz planes are invariant under the
+    flip anti-transpose, so flipped snips need no special casing."""
+    evec = np.atleast_1d(np.asarray(evec, dtype=np.float64))
+    uniq, inv = np.unique(np.asarray(dd0), return_inverse=True)
+    hist = np.zeros((G, len(uniq)))
+    np.add.at(hist, (np.asarray(cid), inv), 1.0)
+
+    offsets = np.arange(-(W - 1), W)  # k = i - j
+    idx = np.abs(uniq[None, :] + offsets[:, None])  # [2W-1, D]
+    ek = evec[np.minimum(idx, len(evec) - 1)]  # clipped like the device path
+    finite = np.isfinite(ek)
+    m_sum = hist @ np.where(finite, ek, 0.0).T  # [G, 2W-1]
+    m_num = hist @ finite.T.astype(np.float64)
+
+    kmap = (np.arange(W)[:, None] - np.arange(W)[None, :]) + (W - 1)
+    return m_sum[:, kmap], m_num[:, kmap]

@@ -225,6 +225,37 @@ def build_tile_stack_sym(coo, B, r1=None, r2=None, window1=None, window2=None):
     )
 
 
+def build_tile_stack_slab_sym(slab, B, r1, r2, window1, window2):
+    """Upper-triangle build from a stored-triangle cis ``PixelSlab``
+    (``io/cool.Cooler.fetch_slab``) for the tiles that windows starting at
+    (r1, r2) touch: the pixels are balanced by the slab's weights (folded
+    in float64) and scattered unmirrored onto the upper tile map, so
+    diagonal tiles hold only the stored upper half (``diag_full=False``;
+    ``expand_sym`` symmetrizes them)."""
+    n1, n2 = slab.shape
+    if n1 != n2 or not slab.mirror:
+        raise ValueError(
+            "sym slab build requires a square cis region with a stored "
+            "triangle"
+        )
+    want, nr, nc = touched_tiles(r1, r2, window1, window2, B, (n1, n2))
+    tile_map, utile_map, src, flip, diag, Ku = _sym_maps(want, nr, nc)
+    if Ku == 0 or slab.nnz == 0:
+        upper = np.zeros((Ku + 1, B, B), dtype=np.float32)
+    else:
+        rows = slab.rows - slab.lo1
+        cols = slab.cols - slab.lo2
+        vals = slab.vals.astype(np.float64)
+        if slab.weights is not None:
+            vals = vals * slab.weights[slab.rows] * slab.weights[slab.cols]
+        inb = (rows >= 0) & (rows < n1) & (cols >= 0) & (cols < n2)
+        upper = _scatter(rows[inb], cols[inb], vals[inb], utile_map, B, Ku)
+    return SymTileStack(
+        upper=upper, tile_map=tile_map, src=src, flip=flip, diag=diag,
+        diag_full=False, B=B, shape=(n1, n2),
+    )
+
+
 def assemble_windows_batch(stiles, tile_map, B, r1, r2, W):
     """Host oracle for fixed-size window cuts: group snips by tile quad,
     build each 2B×2B superwindow once, and cut all of its windows with

@@ -1,0 +1,157 @@
+"""The port's pileup() against the frozen goldens (read, never written),
+the modes it does not run yet, and its device, trace and checkpoint
+plumbing, on the CPU."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import coolpuppy_tpu_torch as port
+from fixtures import make_toy_cooler, toy_expected, toy_features, toy_regions
+from test_golden_modes import many_features
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
+GOLDEN_TOL = dict(rtol=1e-5, atol=1e-8)  # tests/test_property.py:81
+
+
+@pytest.fixture(scope="module")
+def golden_toy(tmp_path_factory):
+    """tests/test_golden_modes.py's toy map (seed 321), read by the port."""
+    path = str(tmp_path_factory.mktemp("cool") / "golden_toy.cool")
+    clr, dense, weights = make_toy_cooler(path, seed=321)
+    exp = toy_expected(clr, dense, toy_regions(), weights=weights)
+    return port.Cooler.from_cool(path), exp
+
+
+@pytest.fixture(scope="module")
+def property_toy(tmp_path_factory):
+    """tests/test_property.py's toy map (seed 123), read by the port."""
+    path = str(tmp_path_factory.mktemp("cool") / "toy.cool")
+    make_toy_cooler(path, seed=123)
+    return port.Cooler.from_cool(path)
+
+
+# golden name -> (pileup keywords beyond the common ones, keys it stores);
+# the keywords are those of tests/test_golden_modes.py
+GOLDEN_MODES = {
+    "mode_ooe": (dict(expected_df="toy", ooe=True, mindist=0,
+                      flank=3_000_000), ("data", "num", "n")),
+    "mode_expected_emission": (
+        dict(expected_df="toy", ooe=False, mindist=0, flank=3_000_000),
+        ("data", "num", "n", "control_num"),
+    ),
+    "mode_coverage_norm": (
+        dict(clr_weight_name=None, coverage_norm=True, mindist=0,
+             flank=3_000_000), ("data", "num", "n"),
+    ),
+    "mode_local": (dict(local=True, flank=3_000_000), ("data", "n")),
+    "mode_controls": (dict(nshifts=2, seed=42, mindist=0, flank=3_000_000),
+                      ("data", "n", "control_n")),
+}
+
+
+def _check_golden(name, got):
+    want = np.load(os.path.join(GOLDEN, name + ".npz"))
+    assert sorted(want.files) == sorted(got), name
+    for k in want.files:
+        np.testing.assert_allclose(np.asarray(got[k], float), want[k],
+                                   equal_nan=True, err_msg=f"{name}/{k}",
+                                   **GOLDEN_TOL)
+
+
+@pytest.mark.parametrize("name", list(GOLDEN_MODES))
+def test_golden_modes(golden_toy, name):
+    clr, exp = golden_toy
+    kw, keys = GOLDEN_MODES[name]
+    kw = dict(kw)
+    if kw.get("expected_df") == "toy":
+        kw["expected_df"] = exp
+    pup = port.pileup(clr, many_features(), features_format="bed",
+                      view_df=toy_regions(), device="cpu", **kw)
+    row = pup[pup["group"] == "all"].iloc[0]
+    _check_golden(name, {k: row[k] for k in keys})
+
+
+def test_golden_bystrand_controls(property_toy):
+    """tests/test_property.py::test_golden_regression on the port."""
+    pup = port.pileup(
+        property_toy, toy_features(), features_format="bed",
+        view_df=toy_regions(), mindist=0, flank=2_000_000, nshifts=2,
+        seed=7, by_strand=True, device="cpu",
+    )
+    got = {f"data_{o}": d for o, d in zip(pup["orientation"], pup["data"])}
+    got["n"] = pup.sort_values("orientation")["n"].values.astype(np.int64)
+    _check_golden("bystrand_controls", got)
+
+
+_KW = dict(features_format="bed", view_df=toy_regions(), mindist=0,
+           flank=2_000_000, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        dict(rescale=True, local=True),
+        dict(store_stripes=True),
+        dict(trans=True),
+        dict(by_window=True),
+        dict(flank=61_000_000),  # W = 123 > 120, the generic path
+    ],
+    ids=["rescale", "store_stripes", "trans", "by_window", "wide_window"],
+)
+def test_out_of_slice_modes_raise(property_toy, kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port.pileup(property_toy, toy_features(), **dict(_KW, **kw))
+
+
+def test_bedpe_and_hooks_raise(property_toy):
+    feats = toy_features()
+    bedpe = feats.rename(columns={"chrom": "chrom1", "start": "start1",
+                                  "end": "end1"}).assign(
+        chrom2=feats["chrom"], start2=feats["start"], end2=feats["end"])
+    for fmt in ("bedpe", "auto"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            port.pileup(property_toy, bedpe, **dict(_KW, features_format=fmt))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port.CoordCreator(feats, 1_000_000, rescale_flank=1)
+    cc = port.CoordCreator(feats, 1_000_000, features_format="bed",
+                           flank=2_000_000, mindist=0)
+    pu = port.PileUpper(property_toy, cc, device="cpu")
+    for hook in ("postprocess_frame_func", "postprocess_snip_func",
+                 "postprocess_batch_func", "extra_sum_funcs"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            pu.pileupsWithControl(**{hook: lambda *a: a})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pu.pileupsByWindowWithControl()
+
+
+def test_cuda_without_a_card_raises(property_toy, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port.pileup(property_toy, toy_features(),
+                    **dict(_KW, device="cuda"))
+
+
+def test_trace_and_checkpoint_resume(property_toy, tmp_path):
+    """trace_dir writes a chrome trace; a second run with the same
+    checkpoint_dir reads the region pickles and gives the same table."""
+    cc = port.CoordCreator(toy_features(), 1_000_000, features_format="bed",
+                           flank=2_000_000, mindist=0, nshifts=1, seed=3)
+    kw = dict(view_df=toy_regions(), control=True, device="cpu",
+              checkpoint_dir=str(tmp_path / "ckpt"))
+    first = port.PileUpper(property_toy, cc, trace_dir=str(tmp_path / "tr"),
+                           **kw).pileupsWithControl()
+    traces = list((tmp_path / "tr").glob("trace_*.json"))
+    assert len(traces) == 1
+    assert json.loads(traces[0].read_text())["traceEvents"]
+    assert len(list((tmp_path / "ckpt").glob("*.pkl"))) == 2
+    again = port.PileUpper(property_toy, cc, **kw).pileupsWithControl()
+    row1, row2 = first.iloc[0], again.iloc[0]
+    assert row1["n"] == row2["n"] and row1["control_n"] == row2["control_n"]
+    np.testing.assert_array_equal(row1["data"], row2["data"])
+    # the resumed run keeps the routes its checkpoints were computed on
+    assert first["accumulate"].iloc[0] == "plain"
+    assert again["accumulate"].iloc[0] == "plain"

@@ -1,7 +1,8 @@
 """The port's whole loop-APA slice against the JAX package's, on the CPU:
 a SymTileStack with flips (cid = gid + half*flip) through the session,
-finalize and merge_flip_banks; the same slice in a process where jax and
-coolpuppy_tpu cannot be imported; and a source scan for such imports."""
+finalize and merge_flip_banks; the same slice and the engine's pileup() on
+an in-memory cooler in a process where jax, coolpuppy_tpu and h5py cannot
+be imported; and a source scan for such imports."""
 
 import ast
 import os
@@ -96,6 +97,7 @@ _NO_JAX = """
 import sys
 sys.modules["jax"] = None
 sys.modules["coolpuppy_tpu"] = None
+sys.modules["h5py"] = None
 import numpy as np
 from scipy import sparse as sp
 import coolpuppy_tpu_torch as P
@@ -114,7 +116,16 @@ sess = P.QuadPileupSession(sym, valid, valid, evec,
                            dict(W=W, capacity=16, ooe=True), device="cpu")
 out = P.merge_flip_banks(sess.run_many(r1, r2, cid), half)
 assert out["num"].sum() > 0 and np.isfinite(out["sum"]).all()
-blocked = ("jax", "coolpuppy_tpu")
+
+# the engine on an in-memory cooler (chip_smoke.py's toy map)
+from chip_smoke import toy_cooler, toy_features, toy_regions
+clr = toy_cooler()[0]
+pup = P.pileup(clr, toy_features(), view_df=toy_regions(), mindist=0,
+               flank=2_000_000, nshifts=1, seed=0, by_strand=True,
+               device="cpu")
+assert list(pup.sort_values("orientation")["n"]) == [1, 3, 1, 1, 6]
+assert pup["accumulate"].iloc[0] == "plain"
+blocked = ("jax", "coolpuppy_tpu", "h5py")
 loaded = sorted(m for m, v in sys.modules.items()
                 if v is not None and m.split(".")[0] in blocked)
 assert not loaded, loaded
@@ -140,12 +151,24 @@ def _imports(path):
             yield node.module
 
 
+def _top_level_imports(path):
+    for node in ast.parse(path.read_text(), str(path)).body:
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
 def test_port_sources_import_no_jax_and_no_reference():
+    """No jax and no coolpuppy_tpu anywhere in the port; h5py (absent on
+    the card's machine) only inside functions."""
     files = sorted((REPO / "coolpuppy_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
-    assert len(files) >= 7
+    assert len(files) >= 19
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
             assert top != "jax", f"{f} imports {mod}"
             assert top != "coolpuppy_tpu", f"{f} imports {mod}"
+        for mod in _top_level_imports(f):
+            assert mod.split(".")[0] != "h5py", f"{f} imports {mod} at top"
