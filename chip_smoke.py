@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's loop-APA path and its ``pileup()`` engine
-once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's loop-APA path and its ``pileup()`` engine,
+in all its modes, once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -44,6 +44,22 @@ printing its lines:
    (engine snips/s = ROI ``n`` + ``control_n`` of the ``all`` row over the
    wall, median, with the engine's phase breakdown) and the busy share of
    one run.
+6. the 2D modes. (a) The trans, BEDPE, by-window and stripes modes
+   (``MODES_2D``) on the toy map, card against CPU as in 5a, with
+   by-window rows keyed on chrom/start/end, stripe planes within rtol 1e-5
+   with NaN positions equal and stripe coordinates exact; one by-window run
+   with the accumulator block cap lowered so that 4 groups make a block,
+   and one with the coverage sums forced onto the device scatter-add.
+   (b) ``bench.py --modes``' cells ``stripes``, ``by_window``, ``bedpe``
+   (2M sorted pairs) and ``trans`` (1,500 x 1,500 sites on a second,
+   two-chromosome map), generated with bench's RNG calls: per cell a
+   warm-up on bench's small subset, a checked run (the kernel launched,
+   route ``cuda_kernel``), the same run with ``quad_accumulate`` swapped for
+   the plain version (0 launches; counts exact, ``data`` rtol 1e-4), two
+   timed runs (snips/s = the ``all`` row's ``n`` over the wall, median,
+   with the phase breakdown) and the busy share and kernel share of one
+   run. The stripes cell also holds 20,000 of the card's stripe rows
+   against ``quad_gather.stripes_host`` on the fetched stack.
 
 Any failure raises and exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel JSON
@@ -100,6 +116,48 @@ ENGINE_KW = dict(features_format="bed", flank=100_000, maxdist=2_000_000,
 ENGINE_WARMUP_SITES = 1_000
 ENGINE_RTOL = 1e-4
 ENGINE_REPEATS = 3
+
+# phase 6a: the 2D modes on the toy map (TOY_KW plus these); "features":
+# "bedpe" stands for toy_bedpe(), "expected_df": "trans" for the toy trans
+# expected table. MODE_PATCHES sets engine module constants for one mode:
+# a block cap of 4 groups at the toy's W = 5, and the coverage histogram
+# bound at 0 so coverage goes through the device scatter-add
+MODES_2D = {
+    "stripes_controls": {"store_stripes": True, "nshifts": 2, "seed": 1},
+    "stripes_local": {"store_stripes": True, "local": True},
+    "trans": {"trans": True},
+    "trans_controls": {"trans": True, "nshifts": 2, "seed": 5},
+    "trans_ooe": {"trans": True, "expected_df": "trans"},
+    "bedpe": {"features": "bedpe"},
+    "bedpe_controls_stripes": {"features": "bedpe", "nshifts": 2, "seed": 6,
+                               "store_stripes": True},
+    "bedpe_by_distance": {"features": "bedpe", "by_distance": True},
+    "by_window": {"by_window": True},
+    "by_window_controls": {"by_window": True, "nshifts": 1, "seed": 4},
+    "by_window_coverage": {"by_window": True, "clr_weight_name": None,
+                           "coverage_norm": True},
+    "by_window_coverage_scatter": {"by_window": True, "clr_weight_name": None,
+                                   "coverage_norm": True},
+    "by_window_stripes": {"by_window": True, "store_stripes": True},
+    "by_window_blocked": {"by_window": True, "nshifts": 1, "seed": 4},
+}
+MODE_PATCHES = {
+    "by_window_blocked": {"_BLOCK_BYTES": 2 * 4 * 5 * 5 * 8},
+    "by_window_coverage_scatter": {"_COV_HIST_MAX": 0},
+}
+STRIPE_RTOL = 1e-5
+# bench.py --modes (bench_modes, bench.py:419-534): pileup() keywords of
+# each cell; the trans cell runs on the two-chromosome map
+MODES_KW = dict(features_format="bed", flank=100_000, maxdist=2_000_000,
+                seed=0)
+MODES_CELLS = {
+    "stripes": dict(MODES_KW, store_stripes=True),
+    "by_window": dict(MODES_KW, by_window=True),
+    "bedpe": dict(features_format="bedpe", flank=100_000, mindist=0, seed=0),
+    "trans": dict(features_format="bed", flank=100_000, trans=True, seed=0),
+}
+MODES_REPEATS = 2
+STRIPE_SAMPLE = 20_000
 
 
 def smi_line():
@@ -220,9 +278,10 @@ def host_oracle(ts, r1, r2, cid, valid, evec, W, C):
 
 def busy_share(fn, sync):
     """Device time of the CUDA kernels and copies that ``fn`` issued, over
-    its wall time, from one ``torch.profiler`` run. Only device-side events
-    count (a host op's device time would count its kernels twice), less the
-    profiler's own buffer requests."""
+    its wall time, from one ``torch.profiler`` run, and the quad kernel's
+    own share of the wall. Only device-side events count (a host op's
+    device time would count its kernels twice), less the profiler's own
+    buffer requests."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -241,8 +300,12 @@ def busy_share(fn, sync):
     dev.sort(key=lambda e: -e.self_device_time_total)
     names = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms"
                       for e in dev[:4])
+    kern_us = sum(e.self_device_time_total for e in dev
+                  if "quad_accumulate" in e.key)
     return (f"{dev_us / 1e6 / wall:.4f} (device {dev_us / 1e3:.3f} ms of "
-            f"{wall * 1e3:.1f} ms wall, profiled; top: {names})")
+            f"{wall * 1e3:.1f} ms wall, profiled; quad kernel "
+            f"{kern_us / 1e3:.3f} ms = {kern_us / 1e6 / wall:.5f} of the "
+            f"wall; top: {names})")
 
 
 def timed(fn, sync):
@@ -491,14 +554,114 @@ def mode_kwargs(name, expected_df):
     return kw
 
 
+def toy_bedpe():
+    """BEDPE rows on the toy map: tests/test_combo_matrix.py's three cis
+    loops, and one whose second anchor comes first (its windows lie below
+    the diagonal)."""
+    import pandas as pd
+
+    return pd.DataFrame({
+        "chrom1": ["chr1", "chr1", "chr2", "chr1"],
+        "start1": [102_000_000, 104_000_000, 103_000_000, 111_000_000],
+        "end1": [102_500_000, 104_500_000, 103_500_000, 111_500_000],
+        "chrom2": ["chr1", "chr1", "chr2", "chr1"],
+        "start2": [107_000_000, 110_000_000, 109_000_000, 105_000_000],
+        "end2": [107_500_000, 110_500_000, 109_500_000, 105_500_000],
+    })
+
+
+def toy_trans_expected(clr, dense, weights, view_df):
+    """The scalar trans expected of each pair of view regions on distinct
+    chromosomes (the arithmetic of ``coolpuppy_tpu.expected.
+    expected_trans``): the balanced sum of the block over the number of
+    pairs of valid bins."""
+    import pandas as pd
+
+    rows = []
+    regions = [reg for _, reg in view_df.iterrows()]
+    for a, r1 in enumerate(regions):
+        for r2 in regions[a + 1:]:
+            if r1["chrom"] == r2["chrom"]:
+                continue
+            ext = []
+            for reg in (r1, r2):
+                lo = int(reg["start"] // clr.binsize)
+                hi = int(np.ceil(reg["end"] / clr.binsize))
+                o = clr.offset(reg["chrom"])
+                ext.append((lo, hi, weights[o + lo : o + hi]))
+            (lo1, hi1, w1), (lo2, hi2, w2) = ext
+            block = dense[(r1["chrom"], r2["chrom"])][lo1:hi1, lo2:hi2]
+            bal = np.nansum(block * np.outer(np.nan_to_num(w1),
+                                             np.nan_to_num(w2)))
+            nv = int((~np.isnan(w1)).sum()) * int((~np.isnan(w2)).sum())
+            rows.append({"region1": r1["name"], "region2": r2["name"],
+                         "n_valid": nv, "count.sum": float(block.sum()),
+                         "balanced.sum": float(bal),
+                         "balanced.avg": float(bal) / nv if nv else np.nan})
+    return pd.DataFrame(rows)
+
+
+def mode_2d_inputs(name, trans_expected):
+    """``(features, pileup() keywords)`` of one MODES_2D entry on the toy
+    map."""
+    kw = dict(TOY_KW, **MODES_2D[name])
+    features = toy_features()
+    if kw.pop("features", None) == "bedpe":
+        features = toy_bedpe()
+        kw["features_format"] = "bedpe"
+    if kw.get("expected_df") == "trans":
+        kw["expected_df"] = trans_expected
+    return features, kw
+
+
+class engine_patch:
+    """Set engine module constants (``MODE_PATCHES``) for one block and put
+    them back after it."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    # the package's ``pileup`` function shadows the module's name
+    MODULE = "coolpuppy_tpu_torch.engine.pileup"
+
+    def __enter__(self):
+        engine = importlib.import_module(self.MODULE)
+        self.saved = {k: getattr(engine, k) for k in self.values}
+        for k, v in self.values.items():
+            setattr(engine, k, v)
+
+    def __exit__(self, *exc):
+        engine = importlib.import_module(self.MODULE)
+        for k, v in self.saved.items():
+            setattr(engine, k, v)
+
+
+def table_keys(table):
+    """A pileup table's row keys: chrom/start/end of a by-window table,
+    the group otherwise."""
+    if "group" in table.columns:
+        return list(table["group"])
+    return list(zip(table["chrom"], table["start"], table["end"]))
+
+
 def compare_tables(got, want, rtol, atol, what):
-    """Hold two pileup tables row by row: the group keys, ``n``,
+    """Hold two pileup tables row by row: the group keys (in order), or a
+    by-window table's chrom/start/end keys (rows matched on them), ``n``,
     ``control_n``, ``num`` and ``control_num`` exact; ``data`` within
-    tolerance with NaN positions equal. Returns the largest absolute
-    ``data`` difference."""
-    if list(got["group"]) != list(want["group"]):
-        raise AssertionError(f"{what}: groups {list(got['group'])} != "
-                             f"{list(want['group'])}")
+    tolerance with NaN positions equal; stripe planes within rtol
+    ``STRIPE_RTOL`` with NaN positions equal and stripe coordinates exact.
+    Returns the largest absolute ``data`` difference."""
+    gk, wk = table_keys(got), table_keys(want)
+    if "group" in want.columns:
+        if gk != wk:
+            raise AssertionError(f"{what}: groups {gk} != {wk}")
+    else:
+        if len(gk) != len(wk) or set(gk) != set(wk) or len(set(wk)) != len(wk):
+            raise AssertionError(f"{what}: window keys differ")
+        pos = {k: i for i, k in enumerate(gk)}
+        got = got.iloc[[pos[k] for k in wk]]
+    got = got.reset_index(drop=True)
+    want = want.reset_index(drop=True)
     for col in ("n", "control_n"):
         if (col in got) != (col in want):
             raise AssertionError(f"{what}: column {col} on one side only")
@@ -506,6 +669,9 @@ def compare_tables(got, want, rtol, atol, what):
             np.testing.assert_array_equal(got[col].to_numpy(float),
                                           want[col].to_numpy(float),
                                           err_msg=f"{what}: {col}")
+    stripes = "horizontal_stripe" in want
+    if stripes != ("horizontal_stripe" in got):
+        raise AssertionError(f"{what}: stripes on one side only")
     err = 0.0
     for i in range(len(want)):
         for col in ("num", "control_num"):
@@ -521,6 +687,18 @@ def compare_tables(got, want, rtol, atol, what):
                                    err_msg=f"{what}: data of row {i}")
         fin = np.isfinite(w)
         err = max(err, float(np.abs(g[fin] - w[fin]).max(initial=0.0)))
+        if stripes:
+            for col in ("horizontal_stripe", "vertical_stripe"):
+                np.testing.assert_allclose(
+                    np.asarray(got[col].iloc[i], float),
+                    np.asarray(want[col].iloc[i], float),
+                    rtol=STRIPE_RTOL, atol=0, equal_nan=True,
+                    err_msg=f"{what}: {col} of row {i}",
+                )
+            gc = np.asarray(got["coordinates"].iloc[i], object)
+            wc = np.asarray(want["coordinates"].iloc[i], object)
+            if gc.shape != wc.shape or not (gc == wc).all():
+                raise AssertionError(f"{what}: coordinates of row {i}")
     return err
 
 
@@ -546,18 +724,13 @@ def check_engine_modes(dev):
               f"route {got['accumulate'].iloc[0]}, max_abs_err {err:.3g} ok")
 
 
-def engine_workload(n_sites=20_000, n_bins=20_000, n_contacts=12_000_000,
-                    binsize=10_000, seed=0):
-    """``bench.py``'s ``bench_engine`` workload, with its RNG calls, as an
-    in-memory Cooler: a 200 Mb chromosome at 10 kb, 12M zipf(1.35)
-    contacts with Poisson(3)+1 counts, 3% NaN-weight bins, and ``n_sites``
-    stranded 1 kb sites. Returns ``(Cooler, features)``."""
-    import pandas as pd
-
+def bench_cooler(rng, n_bins=20_000, n_contacts=12_000_000, binsize=10_000):
+    """The synthetic chromosome of ``bench.py``'s engine-level benches
+    (``bench_engine``, ``_bench_cooler``), drawn from ``rng`` with their
+    RNG calls, as an in-memory Cooler: zipf(1.35) distances, Poisson(3)+1
+    counts, 3% NaN-weight bins."""
     from coolpuppy_tpu_torch import Cooler
 
-    rng = np.random.default_rng(seed)
-    length = n_bins * binsize
     d = rng.zipf(1.35, 2 * n_contacts)
     d = d[d < n_bins][:n_contacts]
     i = rng.integers(0, n_bins, len(d))
@@ -566,8 +739,21 @@ def engine_workload(n_sites=20_000, n_bins=20_000, n_contacts=12_000_000,
     keep = i <= j
     weights = rng.uniform(0.5, 1.5, n_bins)
     weights[rng.random(n_bins) < 0.03] = np.nan
-    clr = Cooler.from_arrays({"chr1": length}, binsize,
-                             (i[keep], j[keep], vals[keep]), weights=weights)
+    return Cooler.from_arrays({"chr1": n_bins * binsize}, binsize,
+                              (i[keep], j[keep], vals[keep]), weights=weights)
+
+
+def engine_workload(n_sites=20_000, n_bins=20_000, n_contacts=12_000_000,
+                    binsize=10_000, seed=0):
+    """``bench.py``'s ``bench_engine`` workload, with its RNG calls, as an
+    in-memory Cooler: a 200 Mb chromosome at 10 kb, 12M zipf(1.35)
+    contacts with Poisson(3)+1 counts, 3% NaN-weight bins, and ``n_sites``
+    stranded 1 kb sites. Returns ``(Cooler, features)``."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    length = n_bins * binsize
+    clr = bench_cooler(rng, n_bins, n_contacts, binsize)
     starts = np.sort(rng.choice(length - 10_000, n_sites, replace=False))
     feats = pd.DataFrame({
         "chrom": "chr1", "start": starts, "end": starts + 1_000,
@@ -575,6 +761,257 @@ def engine_workload(n_sites=20_000, n_bins=20_000, n_contacts=12_000_000,
         "strand": rng.choice(["+", "-"], n_sites),
     })
     return clr, feats
+
+
+def check_modes_2d(dev):
+    """Phase 6a: the trans, BEDPE, by-window and stripes modes of the port's
+    pileup() on the toy map, on ``dev`` against the plain version on the
+    CPU."""
+    from coolpuppy_tpu_torch import pileup
+
+    clr, dense, weights = toy_cooler()
+    trans_expected = toy_trans_expected(clr, dense, weights, toy_regions())
+    for name in MODES_2D:
+        features, kw = mode_2d_inputs(name, trans_expected)
+        with engine_patch(**MODE_PATCHES.get(name, {})):
+            got = pileup(clr, features, view_df=toy_regions(), device=dev,
+                         **kw)
+            want = pileup(clr, features, view_df=toy_regions(),
+                          device="cpu", **kw)
+        err = compare_tables(got, want, what=f"2D mode {name}",
+                             **ENGINE_MODES_TOL)
+        routes = (got["accumulate"].iloc[0], want["accumulate"].iloc[0])
+        if routes != ("cuda_kernel", "plain"):
+            raise AssertionError(f"2D mode {name}: routes {routes}")
+        stripes = ""
+        if "horizontal_stripe" in got:
+            rows = [len(h) for h in got["horizontal_stripe"]]
+            stripes = f", stripe rows {rows}"
+        print(f"2D mode {name}: {len(got)} rows, n {list(got['n'])}, "
+              f"route {routes[0]}, max_abs_err {err:.3g}{stripes} ok")
+
+
+def modes_workload(n_sites=20_000, n_bins=20_000, n_contacts=12_000_000,
+                   n_trans=1_500, trans_size=(10_000, 8_000, 3_000_000,
+                                              2_000_000), seed=0):
+    """``bench.py --modes``' inputs (``bench_modes``, bench.py:419-534)
+    with its RNG calls: the engine map (``_bench_cooler``), ``n_sites``
+    stranded 1 kb sites, 2M coordinate-sorted BEDPE pairs 12-199 bins apart,
+    and 1,500 sites on each chromosome of the trans map
+    (``trans_cooler``); the keywords cut it for tests. Returns ``(clr,
+    feats, bedpe, clr2, tfeats)``."""
+    import pandas as pd
+
+    clr = bench_cooler(np.random.default_rng(0), n_bins, n_contacts)
+    binsize = clr.binsize
+    length = clr.n_bins * binsize
+    rng = np.random.default_rng(seed)
+    starts = np.sort(rng.choice(length - 10_000, n_sites, replace=False))
+    feats = pd.DataFrame({
+        "chrom": "chr1", "start": starts, "end": starts + 1_000,
+        "name": ".", "score": 0,
+        "strand": rng.choice(["+", "-"], n_sites),
+    })
+    n_pairs = min(2_000_000, n_sites * 100)
+    a1 = rng.integers(0, clr.n_bins - 300, n_pairs)
+    sep = rng.integers(12, 200, n_pairs)
+    a2 = np.minimum(a1 + sep, clr.n_bins - 12)
+    order = np.lexsort((a2, a1))
+    a1, a2 = a1[order], a2[order]
+    bedpe = pd.DataFrame({
+        "chrom1": "chr1", "start1": a1 * binsize,
+        "end1": a1 * binsize + 1_000,
+        "chrom2": "chr1", "start2": a2 * binsize,
+        "end2": a2 * binsize + 1_000,
+    })
+    clr2 = trans_cooler(*trans_size)
+    n_t = n_trans
+    t1 = np.sort(rng.choice(clr2.chromsizes["chr1"] - 10_000, n_t,
+                            replace=False))
+    t2 = np.sort(rng.choice(clr2.chromsizes["chr2"] - 10_000, n_t,
+                            replace=False))
+    tfeats = pd.DataFrame({
+        "chrom": ["chr1"] * n_t + ["chr2"] * n_t,
+        "start": np.concatenate([t1, t2]),
+        "end": np.concatenate([t1, t2]) + 1_000,
+    })
+    return clr, feats, bedpe, clr2, tfeats
+
+
+def trans_cooler(n1=10_000, n2=8_000, n_cis=3_000_000, n_trans=2_000_000,
+                 binsize=10_000, seed=1):
+    """``bench.py``'s ``_bench_cooler2`` with its RNG calls, in memory: two
+    chromosomes of 10,000 and 8,000 bins, 3M zipf cis contacts each, 2M
+    uniform trans contacts, 3% NaN-weight bins."""
+    from coolpuppy_tpu_torch import Cooler
+
+    rng = np.random.default_rng(seed)
+    pix1, pix2, cnt = [], [], []
+    for n, off in ((n1, 0), (n2, n1)):
+        d = rng.zipf(1.35, 8 * n_cis // 3)
+        d = d[d < n][:n_cis]
+        i = rng.integers(0, n, len(d)) + off
+        j = np.minimum(i + d, off + n - 1)
+        pix1.append(i)
+        pix2.append(j)
+        cnt.append(rng.poisson(3.0, len(d)) + 1)
+    pix1.append(rng.integers(0, n1, n_trans))
+    pix2.append(rng.integers(n1, n1 + n2, n_trans))
+    cnt.append(rng.poisson(1.0, n_trans) + 1)
+    weights = rng.uniform(0.5, 1.5, n1 + n2)
+    weights[rng.random(n1 + n2) < 0.03] = np.nan
+    return Cooler.from_arrays(
+        {"chr1": n1 * binsize, "chr2": n2 * binsize}, binsize,
+        (np.concatenate(pix1), np.concatenate(pix2), np.concatenate(cnt)),
+        weights=weights,
+    )
+
+
+def all_row(pups):
+    """The 'all' row of a pileup table (by-window tables mark it in
+    ``chrom``)."""
+    key = "group" if "group" in pups.columns else "chrom"
+    return pups.loc[pups[key] == "all"].iloc[0]
+
+
+def check_modes(dev, sync, card):
+    """Phase 6b: ``bench.py --modes``' four cells at full size. Returns the
+    checked runs' kernel launch counts per cell."""
+    import coolpuppy_tpu_torch.ops.quad_gather as qg
+    from coolpuppy_tpu_torch import CoordCreator, PileUpper, pileup
+
+    t, (clr, feats, bedpe, clr2, tfeats) = timed(modes_workload, lambda: None)
+    print(f"modes workload: {clr.n_bins} bins, {clr.n_pixels} pixels, "
+          f"{len(feats)} sites, {len(bedpe)} bedpe pairs; trans map "
+          f"{clr2.n_bins} bins, {clr2.n_pixels} pixels, {len(tfeats)} sites; "
+          f"{t:.1f} s")
+    n_t = len(tfeats) // 2
+    k = min(200, n_t)
+    inputs = {
+        "stripes": (clr, feats, feats.iloc[:1_000]),
+        "by_window": (clr, feats, feats.iloc[:1_000]),
+        "bedpe": (clr, bedpe, bedpe.iloc[:10_000]),
+        "trans": (clr2, tfeats,
+                  tfeats.iloc[list(range(k)) + list(range(n_t, n_t + k))]),
+    }
+    launches = {}
+    for cell, kw in MODES_CELLS.items():
+        mclr, f, small = inputs[cell]
+
+        def run(f, mclr=mclr, kw=kw):
+            return pileup(mclr, f, device=dev, **kw)
+
+        t, warm = timed(lambda: run(small), sync)
+        print(f"modes {cell} warm-up ({len(small)} rows): "
+              f"{int(all_row(warm)['n'])} snips in {t:.2f} s")
+
+        # the checked run; the stripes cell also records its stripe gather
+        gathers = []
+        gather = qg.QuadPileupSession.run_stripes
+
+        def recording(self, r1, r2, *a, **k):
+            out = gather(self, r1, r2, *a, **k)
+            gathers.append((self, r1, r2, out))
+            return out
+
+        qg.QuadPileupSession.run_stripes = recording
+        try:
+            qg.LAUNCHES = 0
+            t, checked = timed(lambda: run(f), sync)
+            launches[cell] = qg.LAUNCHES
+        finally:
+            qg.QuadPileupSession.run_stripes = gather
+        route = checked["accumulate"].iloc[0]
+        if launches[cell] < 1 or route != "cuda_kernel":
+            raise AssertionError(f"modes {cell}: {launches[cell]} launches, "
+                                 f"route {route!r}; the kernel did not run")
+        row = all_row(checked)
+        n_snips = int(row["n"])
+        data = np.stack(checked["data"].to_list())
+        if data.shape[1:] != (21, 21) or not np.isfinite(data).any():
+            raise AssertionError(f"modes {cell} output: shape {data.shape}")
+        print(f"modes {cell} checked run: {n_snips} snips, {len(checked)} "
+              f"rows, launches {launches[cell]}, route {route}, {t:.2f} s")
+        if cell == "stripes":
+            check_stripe_sample(gathers, row, n_snips)
+        del gathers
+
+        kernel = qg.quad_accumulate
+        qg.quad_accumulate = qg.quad_accumulate_plain
+        try:
+            qg.LAUNCHES = 0
+            plain = run(f)
+            plain_launches = qg.LAUNCHES
+        finally:
+            qg.quad_accumulate = kernel
+        if plain_launches != 0 or plain["accumulate"].iloc[0] != "plain":
+            raise AssertionError(f"modes {cell}: plain-swapped run launched "
+                                 f"{plain_launches}")
+        err = compare_tables(checked, plain, rtol=ENGINE_RTOL, atol=1e-7,
+                             what=f"modes {cell} kernel vs plain")
+        print(f"modes {cell} kernel vs plain (whole run): counts exact, data "
+              f"max_abs_err {err:.3g} (rtol {ENGINE_RTOL}) ok")
+        del plain, checked
+
+        # the timed runs build the PileUpper that pileup(**kw) builds, to
+        # read its phase timers
+        def run_timed(f=f, mclr=mclr, kw=kw):
+            cc_kw = {k: v for k, v in kw.items()
+                     if k not in ("store_stripes", "by_window")}
+            cc = CoordCreator(f, mclr.binsize, nshifts=0, **cc_kw)
+            pu = PileUpper(mclr, cc, store_stripes=kw.get("store_stripes",
+                                                          False), device=dev)
+            if kw.get("by_window"):
+                return pu, pu.pileupsByWindowWithControl()
+            return pu, pu.pileupsWithControl()
+
+        walls, phases = [], []
+        for _ in range(MODES_REPEATS):
+            t, (pu, pups) = timed(run_timed, sync)
+            if int(all_row(pups)["n"]) != n_snips:
+                raise AssertionError(f"modes {cell}: timed run counted "
+                                     "other snips")
+            walls.append(t)
+            ph = dict(pu.timers.seconds)
+            ph["outside_phases"] = t - sum(ph.values())
+            phases.append(ph)
+            del pu, pups
+        med = statistics.median(walls)
+        mid = phases[int(np.argsort(walls)[len(walls) // 2])]
+        print(f"modes {cell} timing: wall_s "
+              + json.dumps([round(x, 4) for x in walls]))
+        print(f"modes {cell} phases (median run, s): " + json.dumps(
+            {k: round(v, 4) for k, v in sorted(mid.items())}))
+        print(f"modes {cell} device busy share of one run: "
+              + busy_share(lambda: run(f), sync))
+        print(f"modes {cell} snips/s: {n_snips / med:.0f} ({n_snips} snips, "
+              f"median {med:.3f} s of {MODES_REPEATS}) on {card}")
+    return launches
+
+
+def check_stripe_sample(gathers, row, n_snips):
+    """The stripes cell: the stripe rows the card gathered, held against
+    ``stripes_host`` on the fetched stack for a sample of snips, and the
+    table's planes against the gathered rows' count."""
+    from coolpuppy_tpu_torch.ops.quad_gather import stripes_host
+
+    if len(gathers) != 1:
+        raise AssertionError(f"stripes: {len(gathers)} stripe gathers")
+    sess, r1, r2, hv = gathers[0]
+    if hv.shape != (n_snips, 2 * sess.W) or row["horizontal_stripe"].shape \
+            != (n_snips, sess.W):
+        raise AssertionError(f"stripes: planes {hv.shape}, table "
+                             f"{row['horizontal_stripe'].shape}")
+    rng = np.random.default_rng(0)
+    pick = np.sort(rng.choice(len(r1), min(STRIPE_SAMPLE, len(r1)),
+                              replace=False))
+    want = stripes_host(sess.stiles.cpu().numpy(), sess.tile_stack.tile_map,
+                        r1[pick], r2[pick], sess.W)
+    np.testing.assert_array_equal(hv[pick], want,
+                                  err_msg="stripes vs stripes_host")
+    print(f"modes stripes: {len(pick)} of {len(r1)} stripe rows equal "
+          f"stripes_host on the fetched stack "
+          f"({int(np.isnan(want).sum())} NaN) ok")
 
 
 def engine_snips(pups):
@@ -710,6 +1147,10 @@ def main():
     # -- 5. the engine: pileup() modes, then bench_engine's size ----------
     check_engine_modes(dev)
     record["engine_launches"] = check_engine(dev, sync, card)
+
+    # -- 6. the 2D modes: toy map, then bench.py --modes' cells ---------
+    check_modes_2d(dev)
+    record["modes_launches"] = check_modes(dev, sync, card)
 
     # -- result -----------------------------------------------------------
     print(card)

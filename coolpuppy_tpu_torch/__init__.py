@@ -1,9 +1,11 @@
 """coolpuppy-tpu-torch: the PyTorch/CUDA port of coolpuppy-tpu.
 
-The cis-BED pile-up of ``coolpuppy_tpu`` (the JAX package, which stays the
+The pile-up of ``coolpuppy_tpu`` (the JAX package, which stays the
 reference) re-built on PyTorch tensors: ``pileup()`` and ``PileUpper`` over
-an in-memory ``Cooler``, with the quad gather-accumulate written by hand in
-CUDA C++ for Hopper (``csrc/``).
+an in-memory ``Cooler`` for BED and BEDPE features, cis and trans, by
+strand, distance or window, with stripes, with the quad gather-accumulate
+written by hand in CUDA C++ for Hopper (``csrc/``). Rescaled pileups and
+the extension hooks are not ported yet.
 
 Importing the package has no side effects: no allocator or thread tuning,
 no kernel build. The kernel is compiled at its first launch on a CUDA

@@ -9,8 +9,11 @@ smallest pair distance exceeds ``maxdist``. Only the numpy sweep is ported
 (not the reference's optional C++ one); both yield the identical pair
 sequence, so the keyed control RNG draws the same shifts.
 
-The port's slice covers BED features, cis and local. BEDPE features and
-trans pairs raise ``NotImplementedError`` (ROADMAP Queue 1 item 4).
+It covers BED features (cis, local and trans feature products) and BEDPE
+rows (cis and trans). Two departures of the JAX package from upstream
+coolpuppy are copied as they are: trans controls shift side 2 by its own
+amount, and reversed BEDPE trans rows are swapped into the region-1 frame.
+``rescale_flank`` raises ``NotImplementedError`` (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -21,7 +24,11 @@ import zlib
 import numpy as np
 import pandas as pd
 
-from .genomics.intervals import expand_intervals, natsorted
+from .genomics.intervals import (
+    expand_intervals,
+    expand_intervals_2d,
+    natsorted,
+)
 
 DEFAULT_BAND_EDGES = np.append([0], 50000 * 2 ** np.arange(30))
 
@@ -154,10 +161,6 @@ class CoordCreator:
         seed=None,
         chunk_size=262_144,
     ):
-        if trans:
-            raise NotImplementedError(
-                "trans pileups are not ported yet (ROADMAP Queue 1 item 4)"
-            )
         if rescale_flank is not None:
             raise NotImplementedError(
                 "rescale_flank (rescaled pileups) is not ported yet "
@@ -178,10 +181,16 @@ class CoordCreator:
             self.mindist = 2 * self.flank + 2 * self.resolution
         else:
             self.mindist = mindist
+            if self.trans:
+                warnings.warn("Ignoring mindist when using trans", stacklevel=2)
+                self.mindist = 0
         if maxdist is None or maxdist == np.inf:
             self.maxdist = np.inf
         else:
             self.maxdist = maxdist
+            if self.trans:
+                warnings.warn("Ignoring maxdist when using trans", stacklevel=2)
+                self.maxdist = np.inf
         self.local = local
         self.subset = subset
         self.seed = seed
@@ -204,32 +213,63 @@ class CoordCreator:
                 )
         else:
             self.kind = self.features_format
-        if self.kind != "bed":
-            raise NotImplementedError(
-                f"features_format={self.kind!r} is not ported yet; the port "
-                "takes BED features (ROADMAP Queue 1 item 4)"
-            )
-        if not {"chrom", "start", "end"}.issubset(self.intervals.columns):
-            raise ValueError("BED features need chrom/start/end columns")
+        if self.kind not in ("bed", "bedpe"):
+            raise ValueError(f"unknown features_format {self.kind!r}")
 
         if self.subset > 0 and self.subset < len(self.intervals):
             self.intervals = self.intervals.sample(
                 self.subset, random_state=self.seed
             )
 
-        self.intervals["chrom"] = _chrom_as_str_categorical(
-            self.intervals["chrom"]
-        )
-        self.intervals["center"] = (
-            self.intervals["start"] + self.intervals["end"]
-        ) / 2
-        self.intervals = expand_intervals(
-            self.intervals, self.flank, self.resolution
-        )
+        if self.kind == "bed":
+            if not {"chrom", "start", "end"}.issubset(self.intervals.columns):
+                raise ValueError("BED features need chrom/start/end columns")
+            self.intervals["chrom"] = _chrom_as_str_categorical(
+                self.intervals["chrom"]
+            )
+            self.intervals["center"] = (
+                self.intervals["start"] + self.intervals["end"]
+            ) / 2
+            self.intervals = expand_intervals(
+                self.intervals, self.flank, self.resolution
+            )
+        else:
+            if not {"chrom1", "start1", "end1", "chrom2", "start2",
+                    "end2"}.issubset(self.intervals.columns):
+                raise ValueError(
+                    "BEDPE features need chrom1/start1/end1/chrom2/start2/"
+                    "end2 columns"
+                )
+            for c in ("chrom1", "chrom2"):
+                self.intervals[c] = _chrom_as_str_categorical(
+                    self.intervals[c]
+                )
+            # sort while the frame holds only the input columns; the
+            # derived columns are row-wise, so sorting first is identical
+            self.intervals = self._lex_sorted(
+                self.intervals, ["chrom1", "chrom2", "start1", "start2"]
+            )
+            self.intervals["center1"] = (
+                self.intervals["start1"] + self.intervals["end1"]
+            ) / 2
+            self.intervals["center2"] = (
+                self.intervals["start2"] + self.intervals["end2"]
+            ) / 2
+            self.intervals["distance"] = (
+                self.intervals["center2"] - self.intervals["center1"]
+            )
+            dist = self.intervals["distance"].abs()
+            keep = (self.mindist <= dist) & (dist <= self.maxdist)
+            if not keep.all():
+                self.intervals = self.intervals[keep].reset_index(drop=True)
+            self.intervals = expand_intervals_2d(
+                self.intervals, self.flank, self.resolution
+            )
 
         if self.intervals.shape[0] == 0:
             warnings.warn(
-                "No regions in features, returning empty output",
+                "No regions in features (maybe all below mindist?), "
+                "returning empty output",
                 stacklevel=2,
             )
             self.final_chroms = []
@@ -237,7 +277,21 @@ class CoordCreator:
             return
         self.empty = False
 
-        basechroms = set(self.intervals["chrom"].unique())
+        if self.kind == "bed":
+            basechroms = set(self.intervals["chrom"].unique())
+        else:
+            if self.local:
+                raise ValueError(
+                    "Can't make local with both sides of loops defined"
+                )
+            if self.trans:
+                basechroms = set(self.intervals["chrom1"].unique()) | set(
+                    self.intervals["chrom2"].unique()
+                )
+            else:
+                basechroms = set(self.intervals["chrom1"].unique()) & set(
+                    self.intervals["chrom2"].unique()
+                )
         self.basechroms = natsorted(basechroms)
         if self.chroms == "all":
             self.final_chroms = natsorted(basechroms)
@@ -248,7 +302,24 @@ class CoordCreator:
                 "No chromosomes are in common between the coordinate "
                 "file and the cooler file"
             )
+        if self.trans and self.local:
+            raise ValueError("Cannot do local with trans=True")
+
         self.intervals = self._binnify(self.intervals)
+        if self.kind == "bed":
+            # integer anchor id for by-window grouping; DUPLICATE intervals
+            # share one id, so by-window merges them into one window group
+            key = (
+                self.intervals["chrom"].astype(str)
+                + ":"
+                + self.intervals["start"].astype(str)
+                + "-"
+                + self.intervals["end"].astype(str)
+            )
+            codes, _ = pd.factorize(key)
+            self.intervals = self.intervals.assign(
+                anchor_idx=codes.astype(np.int64)
+            )
 
     @staticmethod
     def _lex_sorted(intervals, cols):
@@ -299,11 +370,21 @@ class CoordCreator:
                 return -((-a.astype(np.int64)) // res)
             return np.ceil(a / res).astype(int)
 
-        intervals = self._lex_sorted(intervals, ["chrom", "start"])
-        intervals["stBin"] = _floor_div(intervals["exp_start"])
-        intervals["endBin"] = _ceil_div(intervals["exp_end"])
-        intervals["exp_start"] = intervals["stBin"] * res
-        intervals["exp_end"] = intervals["endBin"] * res
+        if self.kind == "bed":
+            intervals = self._lex_sorted(intervals, ["chrom", "start"])
+            intervals["stBin"] = _floor_div(intervals["exp_start"])
+            intervals["endBin"] = _ceil_div(intervals["exp_end"])
+            intervals["exp_start"] = intervals["stBin"] * res
+            intervals["exp_end"] = intervals["endBin"] * res
+            return intervals
+        intervals = self._lex_sorted(
+            intervals, ["chrom1", "chrom2", "start1", "start2"]
+        )
+        for side in ("1", "2"):
+            intervals[f"stBin{side}"] = _floor_div(intervals[f"exp_start{side}"])
+            intervals[f"endBin{side}"] = _ceil_div(intervals[f"exp_end{side}"])
+            intervals[f"exp_start{side}"] = intervals[f"stBin{side}"] * res
+            intervals[f"exp_end{side}"] = intervals[f"endBin{side}"] * res
         return intervals
 
     # -- control shifts (reference coolpup.py:387–453) ---------------------
@@ -331,8 +412,10 @@ class CoordCreator:
 
     def control_regions(self, intervals2d, nshifts=0, rng=None):
         """Tag ROI rows; append nshifts shifted control copies. Cis controls
-        shift both anchors by one signed bp amount (reference
-        coolpup.py:387–453)."""
+        shift both anchors by one signed bp amount; trans controls draw a
+        second amount for side 2 from the same RNG (reference
+        coolpup.py:387–453, as the JAX package departs from it: upstream
+        shifts side 2's bins by side 1's amount)."""
         res = self.resolution
         if nshifts <= 0:
             # shallow copy: only a column is ADDED; downstream hooks must
@@ -352,16 +435,26 @@ class CoordCreator:
         shift = rng.integers(self.minshift, self.maxshift, n_ctrl) * rng.choice(
             [-1, 1], n_ctrl
         )
+        if self.trans:
+            shift2 = rng.integers(
+                self.minshift, self.maxshift, n_ctrl
+            ) * rng.choice([-1, 1], n_ctrl)
+        else:
+            shift2 = shift
         pad = np.zeros(n)
-        sh = np.concatenate([pad, shift])
-        bsh = np.concatenate(
+        sh1 = np.concatenate([pad, shift])
+        sh2 = np.concatenate([pad, shift2])
+        bsh1 = np.concatenate(
             [pad.astype(int), np.round(shift / res).astype(int)]
         )
+        bsh2 = np.concatenate(
+            [pad.astype(int), np.round(shift2 / res).astype(int)]
+        )
         shifted = {
-            "exp_start1": sh, "exp_end1": sh, "center1": sh,
-            "exp_start2": sh, "exp_end2": sh, "center2": sh,
-            "stBin1": bsh, "endBin1": bsh,
-            "stBin2": bsh, "endBin2": bsh,
+            "exp_start1": sh1, "exp_end1": sh1, "center1": sh1,
+            "exp_start2": sh2, "exp_end2": sh2, "center2": sh2,
+            "stBin1": bsh1, "endBin1": bsh1,
+            "stBin2": bsh2, "endBin2": bsh2,
         }
         data = {}
         for c in intervals2d.columns:
@@ -387,6 +480,52 @@ class CoordCreator:
             (iv["chrom"] == chrom) & (iv["start"] >= start) & (iv["end"] < end)
         ].reset_index(drop=True)
 
+    def filter_bedpe_region(self, region):
+        chrom, start, end = region
+        iv = self.intervals
+        return iv[
+            (iv["chrom1"] == chrom)
+            & (iv["chrom2"] == chrom)
+            & (iv["start1"] >= start)
+            & (iv["end1"] < end)
+            & (iv["start2"] >= start)
+            & (iv["end2"] < end)
+        ].reset_index(drop=True)
+
+    def filter_bedpe_trans_pairs(self, region1, region2):
+        """Rows joining ``region1`` and ``region2`` either way round;
+        reversed rows have their paired columns swapped so side 1 always
+        lies in region 1 (the reference concatenates them unswapped,
+        coolpup.py:565–587; the JAX package swaps, and so does the port)."""
+        chrom1, start1, end1 = region1
+        chrom2, start2, end2 = region2
+        iv = self.intervals
+        fwd = iv[
+            (iv["chrom1"] == chrom1)
+            & (iv["chrom2"] == chrom2)
+            & (iv["start1"] >= start1)
+            & (iv["end1"] < end1)
+            & (iv["start2"] >= start2)
+            & (iv["end2"] < end2)
+        ].reset_index(drop=True)
+        rev = iv[
+            (iv["chrom2"] == chrom1)
+            & (iv["chrom1"] == chrom2)
+            & (iv["start2"] >= start1)
+            & (iv["end2"] < end1)
+            & (iv["start1"] >= start2)
+            & (iv["end1"] < end2)
+        ].reset_index(drop=True)
+        if len(rev):
+            cols = set(rev.columns)
+            mapping = {}
+            for c in cols:
+                if c.endswith("1") and (c[:-1] + "2") in cols:
+                    mapping[c] = c[:-1] + "2"
+                    mapping[c[:-1] + "2"] = c
+            rev = rev.rename(columns=mapping)
+        return pd.concat([fwd, rev]).reset_index(drop=True)
+
     # -- batch generation (replaces pos_stream, reference coolpup.py:598–749)
 
     def batches(
@@ -399,7 +538,7 @@ class CoordCreator:
         columns=None,
     ):
         """Yield vectorized snip DataFrames for a region (cis: ``region2``
-        is None or ``region1``).
+        is None or ``region1``) or, under ``trans``, a region pair.
 
         Each frame carries chrom/start/end/center/exp_*/stBin/endBin for both
         sides plus 'kind', 'group' and any feature annotations; ``columns``
@@ -410,9 +549,19 @@ class CoordCreator:
         if self.empty:
             return
         use = self._column_subset(columns)
-        if self.local:
+        if self.kind == "bedpe":
+            yield from self._batches_bedpe(
+                region1, region2, control, groupby,
+                modify_2Dintervals_func, use,
+            )
+        elif self.local:
             yield from self._batches_local(
                 region1, control, groupby, modify_2Dintervals_func, use
+            )
+        elif self.trans:
+            yield from self._batches_trans_bed(
+                region1, region2, control, groupby,
+                modify_2Dintervals_func, use,
             )
         else:
             yield from self._batches_cis_bed(
@@ -424,6 +573,12 @@ class CoordCreator:
         side must materialize; None -> all columns."""
         if columns is None:
             return None
+        if self.kind == "bedpe":
+            # bedpe rows carry suffixed columns already; 'distance' is a
+            # stored column here (by-distance grouping reads it)
+            base = {c for c in columns if c in self.intervals.columns}
+            base |= {"stBin1", "endBin1", "stBin2", "endBin2", "distance"}
+            return [c for c in self.intervals.columns if c in base]
         base = {
             c[:-1]
             for c in columns
@@ -438,6 +593,55 @@ class CoordCreator:
             frame = modify_func(frame)
         frame = assign_groups(frame, groupby)
         return frame
+
+    def _batches_bedpe(self, region1, region2, control, groupby,
+                       modify_func, use=None):
+        if self.trans and region2 is not None and region1[0] != region2[0]:
+            iv = self.filter_bedpe_trans_pairs(region1, region2)
+        else:
+            iv = self.filter_bedpe_region(region1)
+        if use is not None:
+            iv = iv[use]
+        rng = self._rng((region1, region2))
+        for lo in range(0, len(iv), self.chunk_size):
+            yield self._finalize(
+                iv.iloc[lo : lo + self.chunk_size].reset_index(drop=True),
+                control, groupby, modify_func, rng,
+            )
+
+    def _batches_trans_bed(self, region1, region2, control, groupby,
+                           modify_func, use=None):
+        """The full product of region 1's and region 2's features, chunked
+        over the left side, from raw-array takes of repeat/tile indices."""
+        left = self.filter_bed_region(region1)
+        right = self.filter_bed_region(region2)
+        if len(left) == 0 or len(right) == 0:
+            return
+        rng = self._rng((region1, region2))
+        nr = len(right)
+        rows_per_chunk = max(1, self.chunk_size // nr)
+        cols = list(left.columns) if use is None else use
+
+        def raw(df):
+            return {
+                c: (
+                    df[c].to_numpy()
+                    if isinstance(df[c].dtype, np.dtype)
+                    else df[c].array
+                )
+                for c in cols
+            }
+
+        larrs, rarrs = raw(left), raw(right)
+        for lo in range(0, len(left), rows_per_chunk):
+            nl = min(lo + rows_per_chunk, len(left)) - lo
+            li = np.repeat(np.arange(lo, lo + nl), nr)
+            ri = np.tile(np.arange(nr), nl)
+            data = {c + "1": larrs[c].take(li) for c in cols}
+            data.update({c + "2": rarrs[c].take(ri) for c in cols})
+            yield self._finalize(
+                pd.DataFrame(data), control, groupby, modify_func, rng
+            )
 
     def _batches_local(self, region1, control, groupby, modify_func,
                        use=None):

@@ -11,16 +11,19 @@ PyTorch version on the CPU). The host finishes with the reference's
 normalization algebra: division by shifted controls or expected, coverage
 normalization, local symmetrization.
 
-The port covers cis BED pileups: observed-over-expected, expected emission,
-shifted controls, by strand / by distance / custom groupby,
-ignore_group_order, flip_negative_strand, local and coverage_norm. The other
-modes raise ``NotImplementedError`` naming their ROADMAP item; so do the
-extension hooks and windows wider than the kernel takes (W > 120).
+The port covers cis and trans pileups of BED features and of BEDPE rows:
+observed-over-expected, expected emission, shifted controls, by strand / by
+distance / by window / custom groupby, ignore_group_order,
+flip_negative_strand, local, coverage_norm and stripes. Rescaled pileups,
+the extension hooks, by-window pileups of BEDPE rows (they group through a
+hook) and windows wider than the kernel takes (W > 120) raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import logging
 import os
 import pickle
@@ -45,16 +48,19 @@ from ..genomics.intervals import (
     make_cooler_view,
     make_viewframe,
     natsorted,
+    sort_bedframe,
 )
+from ..lib.numutils import _copy_array_halves
 from ..lib.puputils import empty_pup, norm_coverage, sum_pups
 from ..observability import PhaseTimers, device_trace
 from ..ops import quad_gather
 from ..ops.gather import (
     coverage_histogram_sums,
+    coverage_scatter_sums,
     expected_toeplitz_sums,
     merge_flip_banks,
 )
-from ..ops.tiles import build_tile_stack_slab_sym
+from ..ops.tiles import build_tile_stack_slab, build_tile_stack_slab_sym
 
 logger = logging.getLogger("coolpuppy_tpu_torch")
 
@@ -73,12 +79,49 @@ _GATHER_BASES = (
 )
 
 # the coverage histogram holds G x n_bins float64 on the host; past this the
-# reference switches to a device scatter-add that only by-window needs
+# engine switches to the device scatter-add (by-window with coverage_norm)
 _COV_HIST_MAX = 1 << 22
+
+# device bytes of one group block's accumulators (float32 sum + int32 num,
+# unflipped and flip banks): more groups than fit run in cid-sorted blocks
+_BLOCK_BYTES = 256 << 20
+
+# the feature coordinates each stripe row carries
+_COORD_COLS = ("chrom1", "start1", "end1", "chrom2", "start2", "end2")
 
 
 def _next_pow2(x):
     return 1 << max(0, int(np.ceil(np.log2(max(1, int(x))))))
+
+
+def _block_half(W):
+    """Groups per accumulator block: the largest power of two whose two
+    banks of [W, W] float32 sums and int32 counts fit ``_BLOCK_BYTES``,
+    within the packed word's group field (32,768 at W = 21, 1,024 at
+    W = 120)."""
+    h = max(1, _BLOCK_BYTES // (2 * W * W * 8))
+    return min(1 << (int(h).bit_length() - 1), quad_gather.C_MAX // 2)
+
+
+def _fast_all(pups):
+    """The 'all' pup of many groups at once: reduce(sum_pups) builds a
+    pd.Series per merge, which at by-window's tens of thousands of groups
+    costs seconds; summing the stacked planes gives the same pup (the same
+    nan_to_num and list concatenation as sum_pups)."""
+    pups = list(pups)
+    return {
+        "data": np.nan_to_num(np.sum([p["data"] for p in pups], axis=0)),
+        "num": np.sum([p["num"] for p in pups], axis=0),
+        "poison": np.sum([p["poison"] for p in pups], axis=0),
+        "n": int(sum(p["n"] for p in pups)),
+        "cov_start": np.sum([p["cov_start"] for p in pups], axis=0),
+        "cov_end": np.sum([p["cov_end"] for p in pups], axis=0),
+        "horizontal_stripe": [
+            s for p in pups for s in p["horizontal_stripe"]
+        ],
+        "vertical_stripe": [s for p in pups for s in p["vertical_stripe"]],
+        "coordinates": [c for p in pups for c in p["coordinates"]],
+    }
 
 
 def _not_ported(what, item):
@@ -170,8 +213,6 @@ class PileUpper:
     ):
         if rescale:
             raise _not_ported("rescale", 5)
-        if store_stripes:
-            raise _not_ported("store_stripes", 4)
         self.device = _resolve_device(device)
         self.clr = clr
         self.resolution = clr.binsize
@@ -245,25 +286,36 @@ class PileUpper:
                     stacklevel=2,
                 )
                 self.control = False
-            expected_df = expected_df[
-                expected_df["region1"] == expected_df["region2"]
-            ].reset_index(drop=True)
-            is_valid_expected(
-                expected_df,
-                "cis",
-                self.view_df,
-                verify_cooler=clr,
-                expected_value_cols=[self.expected_value_col],
-                raise_errors=True,
-            )
-            self.expected_df = expected_df
-            for name, sub in expected_df.groupby("region1", observed=True):
-                sub = sub.sort_values("dist")
-                vec = np.full(int(sub["dist"].max()) + 1, np.nan)
-                vec[sub["dist"].astype(int).values] = sub[
-                    self.expected_value_col
-                ].values
-                self.expected_vectors[name] = vec
+            if self.trans:
+                is_valid_expected(
+                    expected_df,
+                    "trans",
+                    self.view_df,
+                    verify_cooler=clr,
+                    expected_value_cols=[self.expected_value_col],
+                    raise_errors=True,
+                )
+                self.expected_df = expected_df
+            else:
+                expected_df = expected_df[
+                    expected_df["region1"] == expected_df["region2"]
+                ].reset_index(drop=True)
+                is_valid_expected(
+                    expected_df,
+                    "cis",
+                    self.view_df,
+                    verify_cooler=clr,
+                    expected_value_cols=[self.expected_value_col],
+                    raise_errors=True,
+                )
+                self.expected_df = expected_df
+                for name, sub in expected_df.groupby("region1", observed=True):
+                    sub = sub.sort_values("dist")
+                    vec = np.full(int(sub["dist"].max()) + 1, np.nan)
+                    vec[sub["dist"].astype(int).values] = sub[
+                        self.expected_value_col
+                    ].values
+                    self.expected_vectors[name] = vec
             self.expected = True
 
         self.view_df = self.view_df.set_index("name")
@@ -282,6 +334,8 @@ class PileUpper:
                 "No chromosomes are in common between the coordinate "
                 "file and the cooler file"
             )
+        if self.trans and self.view_df["chrom"].unique().shape[0] < 2:
+            raise ValueError("Trying to do trans with fewer than two chromosomes")
 
         if self.coverage_norm is True or self.coverage_norm == "total":
             self.coverage_norm = "cov_tot_raw"
@@ -314,13 +368,24 @@ class PileUpper:
         coolpup.py:1007–1022)."""
         return 2 * self.pad_bins + 1
 
+    def get_expected_trans(self, region1, region2):
+        """The scalar expected of one trans region pair."""
+        exp_value = self.expected_df.loc[
+            (self.expected_df["region1"] == region1)
+            & (self.expected_df["region2"] == region2),
+            self.expected_value_col,
+        ]
+        return float(exp_value.iloc[0])
+
     # -- region staging ----------------------------------------------------
 
     def _region_device_inputs(self, region1, region2, minpad=512):
         """Fetch everything per region that snips index into: the pixel
         slab, the 0/1 valid-bin vectors, the coverage vectors and the
         expected vector, padded to ``next_pow2(len + minpad)`` (``evec``
-        NaN-filled; ``[nan]`` without an expected table)."""
+        NaN-filled; the region pair's scalar under trans; ``[nan]`` without
+        an expected table). ``cis`` marks a region with itself outside
+        trans mode: only there are diagonals masked."""
         r1c = self.view_df.loc[region1]
         r2c = self.view_df.loc[region2] if region2 != region1 else r1c
         min1, max1 = self.view_df_extents[region1]
@@ -351,7 +416,11 @@ class PileUpper:
         else:
             cov1 = np.zeros(8, np.float32)
             cov2 = np.zeros(8, np.float32)
-        if self.expected:
+        if self.expected and self.trans:
+            evec = np.array(
+                [self.get_expected_trans(region1, region2)], np.float32
+            )
+        elif self.expected:
             evec = padded(self.expected_vectors[region1], fill=np.nan)
         else:
             evec = np.array([np.nan], np.float32)
@@ -366,7 +435,7 @@ class PileUpper:
             cov1=cov1,
             cov2=cov2,
             evec=evec,
-            cis=region1 == region2,
+            cis=(not self.trans) and region1 == region2,
         )
 
     def _stage_region(self, region1, region2):
@@ -386,6 +455,7 @@ class PileUpper:
         modify_2Dintervals_func=None,
         dev=None,
         column_hint=None,
+        dual_anchor=False,
     ):
         """Accumulate all snips of one region (pair) on the device; returns
         {"ROI": {group: pup}, "control": {...}} (reference
@@ -395,7 +465,9 @@ class PileUpper:
         vectorized snip frames into flat index arrays (bounds-checked, group
         ids factorized in first-appearance order); (2) one tile stack of the
         touched tiles is built and staged once, and every snip runs through
-        one quad accumulation (``_quad_accumulate``)."""
+        one quad accumulation (``_quad_accumulate``). ``dual_anchor`` (the
+        by-window mode) adds every snip to the groups of both its anchors,
+        keyed by the integer anchor id."""
         groupby = groupby or []
         if region2 is None:
             region2 = region1
@@ -421,8 +493,17 @@ class PileUpper:
         region1_coords = tuple(self.view_df.loc[region1])
         region2_coords = tuple(self.view_df.loc[region2])
 
+        if column_hint is not None:
+            column_hint = set(column_hint)
+            if self.store_stripes:
+                column_hint |= set(_COORD_COLS)
+            if dual_anchor:
+                column_hint |= {"anchor_idx1", "anchor_idx2"}
+
         # -- phase 1: host coordinate collection -----------------------
-        cols = {k: [] for k in ("r1", "r2", "dd0", "cidl", "flip")}
+        cols = {k: [] for k in ("r1", "r2", "dd0", "cidl", "flip", "roi")}
+        coord_blocks = []
+        dual_lut = None
         with phase("coords"):
             for chunk in self.CC.batches(
                 region1_coords,
@@ -456,45 +537,43 @@ class PileUpper:
                         "inconsistent window size; flank must be a multiple "
                         "of the resolution"
                     )
-                cols["r1"].append(
-                    (chunk["stBin1"].values - dev["min1"]).astype(np.int32)
-                )
-                cols["r2"].append(
-                    (chunk["stBin2"].values - dev["min2"]).astype(np.int32)
-                )
-                cols["dd0"].append(
-                    (chunk["stBin1"].values - chunk["stBin2"].values).astype(
-                        np.int32
-                    )
-                )
+                r1c = (chunk["stBin1"].values - dev["min1"]).astype(np.int32)
+                r2c = (chunk["stBin2"].values - dev["min2"]).astype(np.int32)
+                dd0c = (
+                    chunk["stBin1"].values - chunk["stBin2"].values
+                ).astype(np.int32)
                 if "flip" in chunk.columns:
-                    cols["flip"].append(chunk["flip"].values.astype(bool))
+                    flipc = chunk["flip"].values.astype(bool)
                 else:
-                    cols["flip"].append(np.zeros(len(chunk), bool))
-                # vectorized (kind, group) -> cid: python only per UNIQUE
-                # pair
-                kcode, kuniq = _codes(chunk["kind"])
-                gcode, guniq = _codes(chunk["group"])
-                ng = max(len(guniq), 1)
-                pair = kcode.astype(np.int64) * ng + gcode
-                upair, first_idx, inv = np.unique(
-                    pair, return_index=True, return_inverse=True
-                )
-                # cids in FIRST-APPEARANCE order: cid_of's insertion order
-                # is the group order downstream (the 'all' reduction)
-                for p in upair[np.argsort(first_idx)]:
-                    ensure_cid(kuniq[p // ng], guniq[p % ng])
-                ucid = np.array(
-                    [cid_of[(kuniq[p // ng], guniq[p % ng])] for p in upair],
-                    dtype=np.int32,
-                )
-                cols["cidl"].append(ucid[inv])
+                    flipc = np.zeros(len(chunk), bool)
+                if dual_anchor:
+                    cid_parts = self._dual_anchor_cids(
+                        chunk, ensure_cid, dual_lut
+                    )
+                    dual_lut = cid_parts.pop()
+                else:
+                    cid_parts = [self._group_cids(chunk, ensure_cid, cid_of)]
+                if self.store_stripes:
+                    # planes and coordinates exist for ROI snips only;
+                    # the coordinate strings are cast once per region
+                    roic = chunk["kind"].to_numpy() == "ROI"
+                    blk = tuple(chunk[c].to_numpy()[roic] for c in _COORD_COLS)
+                for cidc in cid_parts:
+                    cols["r1"].append(r1c)
+                    cols["r2"].append(r2c)
+                    cols["dd0"].append(dd0c)
+                    cols["flip"].append(flipc)
+                    cols["cidl"].append(cidc)
+                    if self.store_stripes:
+                        cols["roi"].append(roic)
+                        coord_blocks.append(blk)
 
         ntot = sum(len(a) for a in cols["r1"])
         acc = {}
         n_counts = {}
+        stripes = {}
         if ntot > 0:
-            arr = {k: np.concatenate(v) for k, v in cols.items()}
+            arr = {k: np.concatenate(v) for k, v in cols.items() if v}
             if timers:
                 timers.count("snips", ntot)
             G = len(cid_of)
@@ -503,12 +582,12 @@ class PileUpper:
                 n_counts[i] = int(c)
             # -- phase 2: one tile stack, one accumulation ------------------
             with phase("tiles"):
-                tile_stack = build_tile_stack_slab_sym(
-                    dev["slab"], quad_gather.B_TILE, arr["r1"], arr["r2"],
-                    W, W,
-                )
+                tile_stack = self._build_tile_stack(dev, arr, W)
             with phase("device"):
                 acc = self._quad_accumulate(tile_stack, dev, arr, W, G)
+            if self.store_stripes:
+                with phase("stripes"):
+                    stripes = self._package_stripes(acc, arr, coord_blocks, G)
 
         # -- package into pup dicts ------------------------------------
         outdict = {"ROI": {}, "control": {}}
@@ -526,9 +605,9 @@ class PileUpper:
                 "cov_end": acc["cov_end"][i]
                 if self.coverage_norm
                 else np.zeros(shape[1]),
-                "horizontal_stripe": [],
-                "vertical_stripe": [],
-                "coordinates": [],
+                "horizontal_stripe": stripes.get(i, {}).get("h", []),
+                "vertical_stripe": stripes.get(i, {}).get("v", []),
+                "coordinates": stripes.get(i, {}).get("coords", []),
             }
             if isinstance(group, (str, int, np.integer)):
                 key = group
@@ -560,32 +639,81 @@ class PileUpper:
         for kind in kinds:
             if "all" in outdict[kind]:
                 continue
-            outdict[kind]["all"] = dict(
-                reduce(sum_pups, outdict[kind].values(), empty_pup(shape))
-            )
+            if len(outdict[kind]) > 64:
+                outdict[kind]["all"] = _fast_all(outdict[kind].values())
+            else:
+                outdict[kind]["all"] = dict(
+                    reduce(sum_pups, outdict[kind].values(), empty_pup(shape))
+                )
         if outdict["ROI"]["all"]["n"] > 0:
             logger.info(f"{region1, region2}: {outdict['ROI']['all']['n']}")
         return outdict
 
-    def _quad_accumulate(self, tile_stack, dev, arr, W, G):
-        """The counterpart of the reference's ``_pallas_accumulate``
-        (unblocked branch): one ``QuadPileupSession`` per region on
-        ``self.device``, every snip in one ``quad_gather.quad_accumulate``
-        call, groups ``cid + half * flip`` so the flip bank rides rows
-        [half, half + G). The accumulators live in device global memory, so
-        the reference's pinned capacity and group blocks (sized for VMEM
-        and Mosaic compiles) are not needed: ``half = max(4,
-        next_pow2(G))``. ``QuadPileupSession.run_many`` looks
-        ``quad_accumulate`` up in its module at call time, so a caller can
-        count its launches (``quad_gather.LAUNCHES``) or swap it. Returns
-        flip-merged float64 accumulators [G, ...] plus the side sums
-        (``_side_outputs``)."""
-        half = max(4, _next_pow2(G))
-        if 2 * half > quad_gather.C_MAX:
-            raise _not_ported(
-                f"{G} groups in one region (the packed snip word holds "
-                f"{quad_gather.C_MAX} accumulator rows)", 4,
+    @staticmethod
+    def _group_cids(chunk, ensure_cid, cid_of):
+        """Vectorized (kind, group) -> cid of one frame: python only per
+        UNIQUE pair, cids in first-appearance order (``cid_of``'s
+        insertion order is the group order downstream)."""
+        kcode, kuniq = _codes(chunk["kind"])
+        gcode, guniq = _codes(chunk["group"])
+        ng = max(len(guniq), 1)
+        pair = kcode.astype(np.int64) * ng + gcode
+        upair, first_idx, inv = np.unique(
+            pair, return_index=True, return_inverse=True
+        )
+        for p in upair[np.argsort(first_idx)]:
+            ensure_cid(kuniq[p // ng], guniq[p % ng])
+        ucid = np.array(
+            [cid_of[(kuniq[p // ng], guniq[p % ng])] for p in upair],
+            dtype=np.int32,
+        )
+        return ucid[inv]
+
+    def _dual_anchor_cids(self, chunk, ensure_cid, lut):
+        """By-window cids of one frame: each snip belongs to the groups of
+        both its anchors, (kind, anchor id) through a dense lookup table
+        filled in first-appearance order. Returns ``[cid1, cid2, lut]``."""
+        a1 = chunk["anchor_idx1"].to_numpy().astype(np.int64)
+        a2 = chunk["anchor_idx2"].to_numpy().astype(np.int64)
+        isctl = (chunk["kind"].to_numpy() == "control").astype(np.int8)
+        if lut is None:
+            lut = np.full((2, len(self.CC.intervals)), -1, np.int32)
+        for ids in (a1, a2):
+            for k, kname in ((0, "ROI"), (1, "control")):
+                sel = ids[isctl == k]
+                for u in np.unique(sel[lut[k, sel] < 0]):
+                    lut[k, u] = ensure_cid(kname, int(u))
+        return [lut[isctl, a1], lut[isctl, a2], lut]
+
+    @staticmethod
+    def _build_tile_stack(dev, arr, W):
+        """The tiles the windows touch: the upper-triangle stack of a
+        mirrored cis slab, the dense stack of any other rectangle (trans
+        region pairs)."""
+        slab = dev["slab"]
+        if dev["cis"] and slab.mirror:
+            return build_tile_stack_slab_sym(
+                slab, quad_gather.B_TILE, arr["r1"], arr["r2"], W, W
             )
+        return build_tile_stack_slab(
+            slab, quad_gather.B_TILE, arr["r1"], arr["r2"], W, W
+        )
+
+    def _quad_accumulate(self, tile_stack, dev, arr, W, G):
+        """The counterpart of the reference's ``_pallas_accumulate``: one
+        ``QuadPileupSession`` per region on ``self.device``, groups
+        ``cid + half * flip`` so the flip bank rides rows [half, 2 * half).
+        The accumulators live in device memory, so the reference's pinned
+        capacities (sized for VMEM) do not apply: ``half = min(next_pow2(G),
+        _block_half(W))``. Up to ``half`` groups, every snip goes into one
+        ``quad_gather.quad_accumulate`` call; more groups (by-window) run in
+        cid-sorted blocks of ``half`` groups with local ids ``cid - base +
+        half * flip``, one call and one flip merge per block, into a [G, ...]
+        host total. ``QuadPileupSession.run_many`` looks ``quad_accumulate``
+        up in its module at call time, so a caller can count its launches
+        (``quad_gather.LAUNCHES``) or swap it. Returns flip-merged float64
+        accumulators [G, ...] plus the side outputs (``_side_outputs``)."""
+        half = min(_next_pow2(G), _block_half(W))
         session = quad_gather.QuadPileupSession(
             tile_stack,
             dev["valid1"],
@@ -600,45 +728,115 @@ class PileUpper:
             ),
             self.device,
         )
-        cid_dev = (arr["cidl"] + half * arr["flip"]).astype(np.int32)
+        cidl, flip = arr["cidl"], arr["flip"]
         launches = quad_gather.LAUNCHES
-        total = session.finalize(
-            [session.run_many(arr["r1"], arr["r2"], cid_dev, fetch=False)],
-            compact=(G, half),
-        )
+
+        def accumulate(sel, cid, span):
+            r1 = arr["r1"] if sel is None else arr["r1"][sel]
+            r2 = arr["r2"] if sel is None else arr["r2"][sel]
+            total = session.finalize(
+                [session.run_many(r1, r2, cid, fetch=False)],
+                compact=(span, half),
+            )
+            return merge_flip_banks(total, span)
+
+        if G <= half:
+            out = accumulate(None, (cidl + half * flip).astype(np.int32), G)
+        else:
+            order = np.argsort(cidl, kind="stable")
+            sorted_cid = cidl[order]
+            bounds = np.searchsorted(sorted_cid, np.arange(0, G + half, half))
+            out = {k: np.zeros((G, W, W)) for k in ("sum", "num", "poison")}
+            for bi in range(len(bounds) - 1):
+                lo, hi = int(bounds[bi]), int(bounds[bi + 1])
+                if hi <= lo:
+                    continue
+                base = bi * half
+                span = min(half, G - base)
+                sel = order[lo:hi]
+                local = (sorted_cid[lo:hi] - base + half * flip[sel]).astype(
+                    np.int32
+                )
+                for k, v in accumulate(sel, local, span).items():
+                    out[k][base : base + span] = v
         self._routes.add(
             "cuda_kernel" if quad_gather.LAUNCHES > launches else "plain"
         )
-        out = merge_flip_banks(total, G)
-        self._side_outputs(dev, arr, W, G, out)
+        self._side_outputs(session, dev, arr, W, G, out)
         return out
 
-    def _side_outputs(self, dev, arr, W, G, out):
-        """Exact host side sums beside the quad kernel (the reference's
-        ``_pallas_side_outputs``): coverage from the (group, start-bin)
-        histogram and expected emission from the (group, dd0) histogram."""
+    def _side_outputs(self, session, dev, arr, W, G, out):
+        """The side sums beside the quad kernel (the reference's
+        ``_pallas_side_outputs``): coverage from the exact (group,
+        start-bin) histogram, or by device scatter-add where its [G, n]
+        table would pass ``_COV_HIST_MAX`` entries; expected emission from
+        the (group, dd0) histogram; and the ROI snips' stripe planes,
+        gathered from the session's normalized stack (the vertical one
+        reversed, reference coolpup.py:1164–1188)."""
         cidl = arr["cidl"]
         if self.coverage_norm:
             n_cov = max(len(dev["cov1"]), len(dev["cov2"]))
-            if G * n_cov > _COV_HIST_MAX:
-                raise _not_ported(
-                    f"coverage_norm over {G} groups of a {n_cov}-bin region "
-                    "(the device coverage scatter-add)", 4,
-                )
-            out["cov_start"], out["cov_end"] = coverage_histogram_sums(
+            cov_sums = (
+                coverage_histogram_sums
+                if G * n_cov <= _COV_HIST_MAX
+                else partial(coverage_scatter_sums, device=self.device)
+            )
+            out["cov_start"], out["cov_end"] = cov_sums(
                 cidl, arr["r1"], arr["r2"], dev["cov1"], dev["cov2"], W, G
             )
         if self.expected and not self.ooe:
             out["exp_sum"], out["exp_num"] = expected_toeplitz_sums(
                 cidl, arr["dd0"], dev["evec"], W, G
             )
+        if self.store_stripes:
+            roi = arr["roi"]
+            hv = session.run_stripes(arr["r1"][roi], arr["r2"][roi])
+            out["horizontal_stripe"] = hv[:, :W]
+            out["vertical_stripe"] = hv[:, W:][:, ::-1]
+
+    @staticmethod
+    def _package_stripes(acc, arr, coord_blocks, G):
+        """Per group, ONE block per region of its ROI snips' stripe planes
+        and [n, 6] coordinate strings, in stream order (reference
+        engine/pileup.py:1600-1638). Every coordinate column is cast to
+        strings once per region."""
+        hs = acc.pop("horizontal_stripe")
+        vs = acc.pop("vertical_stripe")
+        cid_roi = arr["cidl"][arr["roi"]]
+        order = np.argsort(cid_roi, kind="stable")
+        bounds = np.searchsorted(cid_roi[order], np.arange(G + 1))
+        cols6 = []
+        for ci in range(len(_COORD_COLS)):
+            col = np.concatenate([blk[ci] for blk in coord_blocks])
+            if col.dtype.kind in "iu":
+                col = col.astype("U20").astype(object)
+            elif col.dtype.kind != "O":
+                col = col.astype(str).astype(object)
+            cols6.append(col)
+        coords = np.stack(cols6, axis=1)
+        stripes = {}
+        for c in range(G):
+            sel = order[bounds[c] : bounds[c + 1]]
+            if len(sel):
+                stripes[c] = {
+                    "h": [hs[sel]], "v": [vs[sel]], "coords": [coords[sel]],
+                }
+        return stripes
 
     # -- the region loop and the output table --------------------------------
 
     def _region_pairs(self):
-        """The work decomposition: cis pairs each view region with itself
-        (reference coolpup.py:1416–1429)."""
-        return [(r, r) for r in self.view_df.index]
+        """The work decomposition: cis pairs each view region with itself,
+        trans pairs the view regions of distinct chromosomes (reference
+        coolpup.py:1416–1429)."""
+        if not self.trans:
+            return [(r, r) for r in self.view_df.index]
+        chrom_of = self.view_df["chrom"]
+        return [
+            (r1, r2)
+            for r1, r2 in itertools.combinations(self.view_df.index, 2)
+            if chrom_of[r1] != chrom_of[r2]
+        ]
 
     def _resolve_flipby(self, groupby):
         """Which paired column base decides snip flipping. Returns a base
@@ -650,6 +848,10 @@ class PileUpper:
             if self.local:
                 raise ValueError(
                     "ignore_group_order doesn't make sense for local pileups"
+                )
+            if self.CC.kind == "bedpe":
+                raise ValueError(
+                    "ignore_group_order doesn't make sense for bedpe files"
                 )
 
         if self.flip_negative_strand:
@@ -731,7 +933,8 @@ class PileUpper:
     def _finalize_table(self, roi, ctrl, groupby):
         """Normalize combined accumulators into the output DataFrame:
         per-pixel mean, control/expected division, inf cleanup, local
-        symmetrization, groupby columns (reference coolpup.py:1533–1625)."""
+        symmetrization, stripes, groupby columns (reference
+        coolpup.py:1533–1625)."""
         have_control = ctrl is not None
         if self.coverage_norm:
             for pup in roi.values():
@@ -743,6 +946,15 @@ class PileUpper:
                 warnings.warn(
                     "Expected can not be normalized to coverage", stacklevel=2
                 )
+        # stripes divide by the centre row / column of the control 'all'
+        ctrl_h = ctrl_v = None
+        if self.store_stripes and have_control:
+            c_all = ctrl["all"]
+            with np.errstate(divide="ignore", invalid="ignore"):
+                c_norm = c_all["data"] / c_all["num"]
+            mid = c_norm.shape[0] // 2
+            ctrl_h = np.asarray(c_norm[mid, :], dtype=float)
+            ctrl_v = np.asarray(c_norm[:, mid][::-1], dtype=float)
         rows = []
         for group, pup in roi.items():
             row = {}
@@ -766,6 +978,19 @@ class PileUpper:
             row["data"] = data
             row["n"] = pup["n"]
             row["num"] = pup["num"]
+            if self.store_stripes:
+                row["coordinates"] = np.vstack(pup["coordinates"])
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    for name, cstripe in (
+                        ("horizontal_stripe", ctrl_h),
+                        ("vertical_stripe", ctrl_v),
+                    ):
+                        stripes = np.vstack(pup[name])
+                        if cstripe is not None:
+                            stripes = stripes / cstripe
+                        if self.local:
+                            stripes = _copy_array_halves(stripes)
+                        row[name] = stripes
             row["group"] = group
             rows.append(row)
 
@@ -838,13 +1063,16 @@ class PileUpper:
         postprocess_snip_func=None,
         postprocess_batch_func=None,
         extra_sum_funcs=None,
+        dual_anchor=False,
     ):
-        """Run the full pileup over every region and normalize (reference
-        coolpup.py:1360–1654 counterpart). Regions run one after another on
-        the device, each checkpointed to ``checkpoint_dir`` when set.
-        ``modify_2Dintervals_func`` transforms every snip frame before its
-        groups are assigned. The ``postprocess_*`` hooks and
-        ``extra_sum_funcs`` raise NotImplementedError."""
+        """Run the full pileup over every region (pair) and normalize
+        (reference coolpup.py:1360–1654 counterpart). Regions run one after
+        another on the device, each checkpointed to ``checkpoint_dir`` when
+        set. ``modify_2Dintervals_func`` transforms every snip frame before
+        its groups are assigned; ``dual_anchor`` groups every snip under
+        both of its anchors (``pileupsByWindowWithControl``). The
+        ``postprocess_*`` hooks and ``extra_sum_funcs`` raise
+        NotImplementedError."""
         if (
             postprocess_frame_func is not None
             or postprocess_snip_func is not None
@@ -895,6 +1123,7 @@ class PileUpper:
                 groupby=groupby,
                 modify_2Dintervals_func=modify_final,
                 column_hint=column_hint,
+                dual_anchor=dual_anchor,
             )
             routes, self._routes = self._routes, outer | self._routes
             if self.checkpoint_dir:
@@ -945,8 +1174,36 @@ class PileUpper:
         return pups
 
     def pileupsByWindowWithControl(self, nproc=None):
-        """By-window pileups (reference coolpup.py:1696–1756)."""
-        raise _not_ported("by_window", 4)
+        """One pup per anchor window: every snip contributes to the groups
+        of both its anchors (reference coolpup.py:1696–1756). Groups ride
+        the integer anchor id of ``CoordCreator`` and map back to window
+        labels once per group. BEDPE rows have no shared anchor id; the
+        reference groups them through its ``postprocess_frame_func`` hook,
+        which is not ported yet."""
+        if self.local:
+            raise ValueError("Cannot do by-window pileups for local")
+        if self.CC.kind != "bed":
+            raise _not_ported(
+                "by-window pileups of BEDPE features (grouped through the "
+                "postprocess_frame_func hook)", 4,
+            )
+        pups = self.pileupsWithControl(nproc=nproc, dual_anchor=True)
+        iv = self.CC.intervals
+        codes = iv["anchor_idx"].to_numpy()
+        _, first = np.unique(codes, return_index=True)
+        ch = iv["chrom"].to_numpy()
+        st = iv["start"].to_numpy()
+        en = iv["end"].to_numpy()
+        lab = {int(codes[i]): (ch[i], int(st[i]), int(en[i])) for i in first}
+        anchors = [
+            ("all", -1, -1) if g == "all" else lab[int(g)]
+            for g in pups["group"]
+        ]
+        pups = pups.drop(columns="group")
+        pups.insert(0, "end", np.array([a[2] for a in anchors], dtype=int))
+        pups.insert(0, "start", np.array([a[1] for a in anchors], dtype=int))
+        pups.insert(0, "chrom", [a[0] for a in anchors])
+        return sort_bedframe(pups, view_df=self.view_df.reset_index())
 
     def _resolve_distance_edges(self, distance_edges):
         """Validate user edges; separations below the engine's minimum
@@ -1061,12 +1318,8 @@ def pileup(
     package's parameters minus ``mesh`` and ``backend``, plus ``device``
     (``"cuda"``: the hand-written kernel on the card, raising without one;
     ``"cpu"``: the plain PyTorch version). ``clr`` is a
-    ``coolpuppy_tpu_torch.Cooler``. by_window, trans, rescale,
-    store_stripes and bedpe features raise NotImplementedError."""
-    if by_window:
-        raise _not_ported("by_window", 4)
-    if trans:
-        raise _not_ported("trans", 4)
+    ``coolpuppy_tpu_torch.Cooler``. ``rescale`` raises
+    NotImplementedError."""
     groupby = groupby or []
     distance_edges = "default"
     if by_distance is not False:
@@ -1106,7 +1359,7 @@ def pileup(
         expected = True
         is_valid_expected(
             expected_df,
-            "cis",
+            "trans" if trans else "cis",
             view_df,
             verify_cooler=clr,
             expected_value_cols=[expected_value_col],
@@ -1116,6 +1369,13 @@ def pileup(
         mindist = "auto"
     if maxdist is None:
         maxdist = np.inf
+    if by_window:
+        if features_format != "bed":
+            raise ValueError(
+                "Can't make by-window pileups without making combinations"
+            )
+        if local:
+            raise ValueError("Can't make local by-window pileups")
 
     CC = CoordCreator(
         features=features,
@@ -1155,7 +1415,11 @@ def pileup(
         device=device,
     )
 
-    if by_strand and by_distance:
+    if by_window:
+        if groupby:
+            warnings.warn("by-window not compatible with additional groupby")
+        pups = PU.pileupsByWindowWithControl(nproc=nproc)
+    elif by_strand and by_distance:
         pups = PU.pileupsByStrandByDistanceWithControl(
             nproc=nproc,
             distance_edges=distance_edges,
@@ -1177,9 +1441,9 @@ def pileup(
         pups = PU.pileupsWithControl(
             nproc=nproc, groupby=groupby, ignore_group_order=ignore_group_order
         )
-    pups["by_window"] = False
-    pups["by_strand"] = bool(by_strand)
-    pups["by_distance"] = bool(by_distance)
+    pups["by_window"] = bool(by_window)
+    pups["by_strand"] = bool(by_strand) and not by_window
+    pups["by_distance"] = bool(by_distance) and not by_window
     pups["groupby"] = [groupby] * len(pups)
     pups["expected"] = pups["expected"].fillna(False)
     pups["cooler"] = (

@@ -2,9 +2,8 @@
 ``coolpuppy_tpu/genomics/intervals.py``): natural sort, interval expansion,
 viewframes and expected-table checks, copied as pandas/numpy.
 
-Only what the cis-BED engine and ``coords.py`` use is copied; the bedpe
-expansion and the by-window bedframe sort come with the modes that need
-them.
+The rescale forms of the expansions (``rescale_flank``) come with rescaled
+pileups.
 """
 
 from __future__ import annotations
@@ -52,6 +51,48 @@ def expand_intervals(intervals, flank, resolution):
             + flank
         )
     return intervals
+
+
+def expand_intervals_2d(intervals, flank, resolution):
+    """2D (bedpe) version of ``expand_intervals``: each side padded around
+    the bin of its own center (reference coolpup.py:94–115)."""
+    intervals = intervals.copy(deep=False)  # only adds exp_* columns
+    for side in ("1", "2"):
+        s = intervals[f"start{side}"].to_numpy()
+        e = intervals[f"end{side}"].to_numpy()
+        if s.dtype.kind in "iu" and e.dtype.kind in "iu":
+            fc = (s.astype(np.int64) + e) // (2 * int(resolution))
+            intervals[f"exp_start{side}"] = fc * int(resolution) - int(flank)
+            intervals[f"exp_end{side}"] = (
+                (fc + 1) * int(resolution) + int(flank)
+            )
+        else:
+            center = intervals[f"center{side}"]
+            intervals[f"exp_start{side}"] = (
+                np.floor(center / resolution) * resolution - flank
+            )
+            intervals[f"exp_end{side}"] = (
+                np.floor(center / resolution + 1) * resolution + flank
+            )
+    return intervals
+
+
+def sort_bedframe(df, view_df=None, cols=("chrom", "start", "end")):
+    """Sort a bedframe by view-region order then start
+    (bioframe.sort_bedframe as used at reference coolpup.py:1752); chroms
+    outside the view sort last."""
+    df = df.copy()
+    chrom_col, start_col, _ = cols
+    if view_df is not None:
+        order = {c: i for i, c in enumerate(pd.unique(view_df["chrom"]))}
+        key = df[chrom_col].map(lambda c: order.get(c, len(order)))
+    else:
+        key = df[chrom_col].map(natsort_key)
+    df["_sortkey"] = key
+    df = df.sort_values(["_sortkey", start_col], kind="stable").drop(
+        columns="_sortkey"
+    )
+    return df.reset_index(drop=True)
 
 
 def make_viewframe(view_df, check_bounds=None):

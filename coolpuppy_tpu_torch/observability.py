@@ -5,7 +5,8 @@
 engine times ``ingest`` (region fetch and per-bin vectors), ``coords``
 (coordinate frames to flat index arrays), ``tiles`` (host tile scatter),
 ``device`` (stack upload, expand, normalize, quad sort, kernel, fetch, side
-sums) and ``finalize`` (region merge and the output table).
+sums, stripe gather), ``stripes`` (stripe planes and coordinate strings
+split per group) and ``finalize`` (region merge and the output table).
 ``device_trace(trace_dir)`` records the block with ``torch.profiler`` and
 writes a chrome trace into ``trace_dir``."""
 

@@ -1,12 +1,16 @@
-"""Host-side accumulator helpers (counterpart of
-``coolpuppy_tpu/ops/gather.py``), copied as numpy because the reference
-module imports jax at its top: the flip-bank merge and the exact histogram
-forms of the coverage and expected-emission side sums.
+"""Accumulator helpers (counterpart of ``coolpuppy_tpu/ops/gather.py``),
+copied as numpy because the reference module imports jax at its top: the
+flip-bank merge and the exact histogram forms of the coverage and
+expected-emission side sums; and, as torch ops, the coverage scatter-add
+that replaces the histogram at by-window group counts.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+COV_CHUNK = 131072  # snips per coverage scatter-add (coverage_scatter_sums)
 
 
 def merge_flip_banks(out, half):
@@ -50,6 +54,31 @@ def coverage_histogram_sums(cid, r1, r2, cov1, cov2, W, G):
         return h @ win
 
     return one(cov1, r1), one(cov2, r2)
+
+
+def coverage_scatter_sums(cid, r1, r2, cov1, cov2, W, G, device,
+                          chunk=COV_CHUNK):
+    """cov_start / cov_end [G, W] by scatter-add on ``device`` (counterpart
+    of the reference's ``make_cov_step``, for group counts whose [G, n]
+    histogram would be too large): every snip's ``W``-slice of each
+    coverage vector, non-finite values set to 0, goes through
+    ``index_add_`` into a float32 [G, W] accumulator, ``chunk`` snips at a
+    time. Returns float64 numpy arrays."""
+    cid_all = np.asarray(cid, np.int64)
+    ar = torch.arange(W, device=device)
+    sums = []
+    for cov, starts in ((cov1, r1), (cov2, r2)):
+        c = torch.from_numpy(np.asarray(cov, np.float32)).to(device)
+        c = torch.where(torch.isfinite(c), c, 0.0)
+        acc = torch.zeros((G, W), dtype=torch.float32, device=device)
+        starts = np.asarray(starts, np.int64)
+        for lo in range(0, len(cid_all), chunk):
+            hi = min(lo + chunk, len(cid_all))
+            s = torch.from_numpy(starts[lo:hi]).to(device)
+            g = torch.from_numpy(cid_all[lo:hi]).to(device)
+            acc.index_add_(0, g, c[s[:, None] + ar[None, :]])
+        sums.append(acc.cpu().numpy().astype(np.float64))
+    return sums[0], sums[1]
 
 
 def expected_toeplitz_sums(cid, dd0, evec, W, G):

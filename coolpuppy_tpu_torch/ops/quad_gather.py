@@ -18,10 +18,12 @@ semantics on PyTorch tensors:
    work item over all items in one launch; on a CPU tensor it runs the plain
    PyTorch version ``quad_accumulate_plain``.
 
-Flips are handled by the caller with the flip-bank trick
-(``ops/gather.merge_flip_banks``). The reference's fixed call shapes
-(Q_CAP=128 quads, 131072-snip chunks) only pinned Mosaic compiles and are
-not ported: the card takes one launch over all items.
+``QuadPileupSession.run_stripes`` gathers each snip's centre row and
+centre column (the stripe planes) from the same normalized stack as torch
+ops; ``stripes_host`` is its numpy oracle. Flips are handled by the caller
+with the flip-bank trick (``ops/gather.merge_flip_banks``). The reference's
+fixed call shapes (Q_CAP=128 quads, 131072-snip chunks) only pinned Mosaic
+compiles and are not ported: the card takes one launch over all items.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ W_MAX = 120  # the reference kernel's limit (pallas_gather.py:76)
 C_MAX = 1 << 17  # the packed word's 17-bit group field
 RUN_MAX = 1024  # longest run of snips one kernel block accumulates
 PLAIN_CHUNK = 65536  # snips per gather in the plain version
+STRIPE_CHUNK = 131072  # snips per stripe gather (run_stripes)
 
 # launches of the CUDA kernel in this process (quad_accumulate on a CUDA
 # tensor adds one per launch; chip_smoke.py resets and reads it)
@@ -328,6 +331,44 @@ class QuadPileupSession:
         """One snip batch (dd0 unused: distance banding is encoded in cid)."""
         return self.run_many(r1, r2, cid, fetch=fetch)
 
+    def run_stripes(self, r1, r2, chunk=STRIPE_CHUNK):
+        """Per-snip stripe planes in stream order (counterpart of
+        ``PallasPileupSession.run_stripes(hv=True)``, reference
+        coolpup.py:1164–1188): float32 numpy [n, 2W], the centre row
+        ``M[a+mid, b:b+W]`` then the centre column ``M[a:a+W, b+mid]``
+        (unreversed; callers reverse it), for the window starting at
+        (a, b). Gathered as torch ops from the normalized NaN-encoded stack
+        through the tile map, so masked pixels are NaN and poison stays
+        +inf, ``chunk`` snips at a time to bound the index tensors."""
+        W, B = self.W, B_TILE
+        mid = W // 2
+        n = len(r1)
+        out = np.empty((n, 2 * W), np.float32)
+        if n == 0:
+            return out
+        if not hasattr(self, "_tmap_dev"):
+            self._tmap_dev = torch.from_numpy(
+                np.asarray(self.tile_stack.tile_map, np.int64)
+            ).to(self.device)
+        tmap = self._tmap_dev
+        ar = torch.arange(W, device=self.device)
+        for lo in range(0, n, chunk):
+            hi = min(lo + chunk, n)
+            a = torch.from_numpy(np.asarray(r1[lo:hi], np.int64)).to(
+                self.device
+            )
+            b = torch.from_numpy(np.asarray(r2[lo:hi], np.int64)).to(
+                self.device
+            )
+            row = (a + mid)[:, None]  # horizontal: one row, W columns
+            col = b[:, None] + ar[None, :]
+            h = self.stiles[tmap[row // B, col // B], row % B, col % B]
+            row = a[:, None] + ar[None, :]  # vertical: W rows, one column
+            col = (b + mid)[:, None]
+            v = self.stiles[tmap[row // B, col // B], row % B, col % B]
+            out[lo:hi] = torch.cat([h, v], dim=1).cpu().numpy()
+        return out
+
     @staticmethod
     def finalize(outs, compact=None):
         """Reduce a list of ``run_many(fetch=False)`` outputs to float64 numpy
@@ -346,6 +387,19 @@ class QuadPileupSession:
         res = {k: v.to(torch.float64).cpu().numpy() for k, v in total.items()}
         res["poison"] = np.isinf(res["sum"]).astype(np.float64)
         return res
+
+
+def stripes_host(stiles, tile_map, r1, r2, W):
+    """Host oracle of ``QuadPileupSession.run_stripes``: cut every window
+    from a host copy of the normalized stack (``assemble_windows_batch``)
+    and take its centre row and centre column. Returns float32 [n, 2W]."""
+    from .tiles import assemble_windows_batch
+
+    win = assemble_windows_batch(
+        np.asarray(stiles), tile_map, B_TILE, r1, r2, W
+    )
+    mid = W // 2
+    return np.concatenate([win[:, mid, :], win[:, :, mid]], axis=1)
 
 
 def run_quad_pileup(tile_stack, r1, r2, dd0, cid, valid1, valid2, evec,

@@ -1,11 +1,11 @@
 """Block-sparse tile stacks (counterpart of ``coolpuppy_tpu/ops/tiles.py``).
 
 The host half is copied from the reference as numpy: the tile dataclasses,
-the COO scatter into upper-triangle or full tile stacks, and the host
-oracles ``normalize_tile_stack`` and ``assemble_windows_batch``. It is
-copied, not imported, because importing any ``coolpuppy_tpu`` module imports
-jax. The native C++ scatter of the reference is not ported; the numpy
-branch is the only path.
+the COO and pixel-slab scatters into upper-triangle or full tile stacks,
+and the host oracles ``normalize_tile_stack`` and
+``assemble_windows_batch``. It is copied, not imported, because importing
+any ``coolpuppy_tpu`` module imports jax. The native C++ scatter of the
+reference is not ported; the numpy branch is the only path.
 
 The device half ports the reference's jnp functions as torch ops:
 ``expand_sym`` (upper tiles -> full raw stack) and ``normalize_tiles``
@@ -254,6 +254,37 @@ def build_tile_stack_slab_sym(slab, B, r1, r2, window1, window2):
         upper=upper, tile_map=tile_map, src=src, flip=flip, diag=diag,
         diag_full=False, B=B, shape=(n1, n2),
     )
+
+
+def build_tile_stack_slab(slab, B, r1, r2, window1, window2):
+    """Dense TileStack of the tiles that windows starting at (r1, r2) touch,
+    from a ``PixelSlab`` — the stack of rectangles that have no mirror
+    (trans region pairs). The reference's numpy branch: balancing weights
+    folded in float64, the stored triangle mirrored when ``slab.mirror``,
+    one bincount scatter, one float32 cast."""
+    n1, n2 = slab.shape
+    want, nr, nc = touched_tiles(r1, r2, window1, window2, B, (n1, n2))
+    K = len(want)
+    tile_map = np.zeros((nr + 1, nc + 1), dtype=np.int32)
+    tile_map[want // nc, want % nc] = np.arange(1, K + 1, dtype=np.int32)
+    if K == 0 or slab.nnz == 0:
+        tiles = np.zeros((K + 1, B, B), dtype=np.float32)
+        return TileStack(tiles=tiles, tile_map=tile_map, B=B, shape=(n1, n2))
+    rows = slab.rows - slab.lo1
+    cols = slab.cols - slab.lo2
+    vals = slab.vals.astype(np.float64)
+    if slab.weights is not None:
+        vals = vals * slab.weights[slab.rows] * slab.weights[slab.cols]
+    if slab.mirror:
+        off = slab.rows != slab.cols
+        rows, cols, vals = (
+            np.concatenate([rows, cols[off]]),
+            np.concatenate([cols, rows[off]]),
+            np.concatenate([vals, vals[off]]),
+        )
+    inb = (rows >= 0) & (rows < n1) & (cols >= 0) & (cols < n2)
+    tiles = _scatter(rows[inb], cols[inb], vals[inb], tile_map, B, K)
+    return TileStack(tiles=tiles, tile_map=tile_map, B=B, shape=(n1, n2))
 
 
 def assemble_windows_batch(stiles, tile_map, B, r1, r2, W):

@@ -1,0 +1,42 @@
+"""A CPU rehearsal of ``chip_smoke.py`` phase 6b (``bench.py --modes``'
+cells) at a tiny size: the same control flow, checks and timing lines, with
+``quad_accumulate`` swapped for a plain version that counts its calls as
+launches (the CUDA kernel cannot run here)."""
+
+import sys
+from pathlib import Path
+
+import torch
+
+import coolpuppy_tpu_torch.ops.quad_gather as qg
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+try:
+    import chip_smoke
+finally:
+    sys.path.remove(str(REPO))
+
+
+def test_modes_phase_rehearsal(monkeypatch, capsys):
+    plain = qg.quad_accumulate_plain
+
+    def counted(*args):
+        qg.LAUNCHES += 1
+        return plain(*args)
+
+    monkeypatch.setattr(qg, "quad_accumulate", counted)
+    full = chip_smoke.modes_workload
+    monkeypatch.setattr(chip_smoke, "modes_workload", lambda: full(
+        n_sites=120, n_bins=1_200, n_contacts=60_000, n_trans=40,
+        trans_size=(600, 500, 30_000, 20_000),
+    ))
+    launches = chip_smoke.check_modes(torch.device("cpu"), lambda: None,
+                                      "cpu rehearsal")
+    assert launches == {"stripes": 1, "by_window": 1, "bedpe": 1, "trans": 1}
+    out = capsys.readouterr().out
+    for cell in chip_smoke.MODES_CELLS:
+        assert f"modes {cell} kernel vs plain (whole run)" in out
+        assert f"modes {cell} snips/s:" in out
+    assert "stripe rows equal stripes_host" in out
+

@@ -6,6 +6,7 @@ import json
 import os
 
 import numpy as np
+import pandas as pd
 import pytest
 import torch
 
@@ -50,13 +51,62 @@ GOLDEN_MODES = {
     "mode_local": (dict(local=True, flank=3_000_000), ("data", "n")),
     "mode_controls": (dict(nshifts=2, seed=42, mindist=0, flank=3_000_000),
                       ("data", "n", "control_n")),
+    "mode_stripes": (dict(store_stripes=True, mindist=0, flank=3_000_000),
+                     ("data", "n", "horizontal_stripe", "vertical_stripe",
+                      "coordinates")),
+    "mode_trans": (dict(trans=True, flank=3_000_000), ("data", "num", "n")),
+    "mode_bedpe": (dict(features_format="bedpe", mindist=0, flank=3_000_000),
+                   ("data", "num", "n")),
+    "mode_by_window": (dict(by_window=True, mindist=0, flank=3_000_000),
+                       None),
 }
+
+
+def _golden_bedpe():
+    """tests/test_golden_modes.py::test_golden_bedpe's rows: each chr1
+    anchor paired with the one 4 positions later."""
+    f = many_features()
+    f1 = f[f["chrom"] == "chr1"].reset_index(drop=True)
+    k = 4
+    return pd.DataFrame({
+        "chrom1": "chr1", "start1": f1["start"].values[:-k],
+        "end1": f1["end"].values[:-k], "chrom2": "chr1",
+        "start2": f1["start"].values[k:], "end2": f1["end"].values[k:],
+    })
+
+
+def _golden_values(pup, keys):
+    """The stored keys of a golden: the 'all' row's (stripe coordinates as
+    'chrom1.start1...' strings), or by window the per-window counts and
+    starts and the first three windows' data, rows sorted like
+    tests/test_golden_modes.py:236-252."""
+    if keys is None:
+        body = pup[pup["chrom"] != "all"].sort_values(
+            ["chrom", "start"], kind="stable"
+        )
+        got = {"n_per_window": body["n"].values.astype(np.int64),
+               "starts": body["start"].values.astype(np.int64)}
+        for i in range(3):
+            got[f"data_{i}"] = body["data"].iloc[i]
+        return got
+    row = pup[pup["group"] == "all"].iloc[0]
+    got = {k: row[k] for k in keys}
+    if "coordinates" in got:
+        got["coordinates"] = np.array(
+            [".".join(map(str, c)) for c in got["coordinates"]], dtype="U80"
+        )
+    return got
 
 
 def _check_golden(name, got):
     want = np.load(os.path.join(GOLDEN, name + ".npz"))
     assert sorted(want.files) == sorted(got), name
     for k in want.files:
+        if want[k].dtype.kind in "US":
+            np.testing.assert_array_equal(np.asarray(got[k]).astype("U80"),
+                                          want[k].astype("U80"),
+                                          err_msg=f"{name}/{k}")
+            continue
         np.testing.assert_allclose(np.asarray(got[k], float), want[k],
                                    equal_nan=True, err_msg=f"{name}/{k}",
                                    **GOLDEN_TOL)
@@ -69,10 +119,12 @@ def test_golden_modes(golden_toy, name):
     kw = dict(kw)
     if kw.get("expected_df") == "toy":
         kw["expected_df"] = exp
-    pup = port.pileup(clr, many_features(), features_format="bed",
-                      view_df=toy_regions(), device="cpu", **kw)
-    row = pup[pup["group"] == "all"].iloc[0]
-    _check_golden(name, {k: row[k] for k in keys})
+    kw.setdefault("features_format", "bed")
+    feats = _golden_bedpe() if kw["features_format"] == "bedpe" else (
+        many_features()
+    )
+    pup = port.pileup(clr, feats, view_df=toy_regions(), device="cpu", **kw)
+    _check_golden(name, _golden_values(pup, keys))
 
 
 def test_golden_bystrand_controls(property_toy):
@@ -95,12 +147,9 @@ _KW = dict(features_format="bed", view_df=toy_regions(), mindist=0,
     "kw",
     [
         dict(rescale=True, local=True),
-        dict(store_stripes=True),
-        dict(trans=True),
-        dict(by_window=True),
         dict(flank=61_000_000),  # W = 123 > 120, the generic path
     ],
-    ids=["rescale", "store_stripes", "trans", "by_window", "wide_window"],
+    ids=["rescale", "wide_window"],
 )
 def test_out_of_slice_modes_raise(property_toy, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -108,13 +157,12 @@ def test_out_of_slice_modes_raise(property_toy, kw):
 
 
 def test_bedpe_and_hooks_raise(property_toy):
+    """The extension hooks, rescale_flank, and by-window pileups of BEDPE
+    rows (the reference groups those through a hook) raise."""
     feats = toy_features()
     bedpe = feats.rename(columns={"chrom": "chrom1", "start": "start1",
                                   "end": "end1"}).assign(
         chrom2=feats["chrom"], start2=feats["start"], end2=feats["end"])
-    for fmt in ("bedpe", "auto"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port.pileup(property_toy, bedpe, **dict(_KW, features_format=fmt))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.CoordCreator(feats, 1_000_000, rescale_flank=1)
     cc = port.CoordCreator(feats, 1_000_000, features_format="bed",
@@ -124,6 +172,10 @@ def test_bedpe_and_hooks_raise(property_toy):
                  "postprocess_batch_func", "extra_sum_funcs"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pu.pileupsWithControl(**{hook: lambda *a: a})
+    cc = port.CoordCreator(bedpe, 1_000_000, features_format="auto",
+                           flank=2_000_000, mindist=0)
+    assert cc.kind == "bedpe"
+    pu = port.PileUpper(property_toy, cc, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pu.pileupsByWindowWithControl()
 

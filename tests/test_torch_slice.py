@@ -1,8 +1,9 @@
 """The port's whole loop-APA slice against the JAX package's, on the CPU:
 a SymTileStack with flips (cid = gid + half*flip) through the session,
-finalize and merge_flip_banks; the same slice and the engine's pileup() on
-an in-memory cooler in a process where jax, coolpuppy_tpu and h5py cannot
-be imported; and a source scan for such imports."""
+finalize and merge_flip_banks; the same slice and the engine's pileup()
+(cis by strand, and trans) on an in-memory cooler in a process where jax,
+coolpuppy_tpu and h5py cannot be imported; and a source scan for such
+imports."""
 
 import ast
 import os
@@ -125,6 +126,11 @@ pup = P.pileup(clr, toy_features(), view_df=toy_regions(), mindist=0,
                device="cpu")
 assert list(pup.sort_values("orientation")["n"]) == [1, 3, 1, 1, 6]
 assert pup["accumulate"].iloc[0] == "plain"
+# and one trans pileup: 3 x 3 features across the two chromosomes
+tp = P.pileup(clr, toy_features(), view_df=toy_regions(), flank=2_000_000,
+              trans=True, nshifts=1, seed=0, device="cpu")
+assert tp[["n", "control_n"]].iloc[0].tolist() == [9, 9]
+assert np.isfinite(tp["data"].iloc[0]).any()
 blocked = ("jax", "coolpuppy_tpu", "h5py")
 loaded = sorted(m for m, v in sys.modules.items()
                 if v is not None and m.split(".")[0] in blocked)
