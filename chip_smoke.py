@@ -60,6 +60,23 @@ printing its lines:
    with the phase breakdown) and the busy share and kernel share of one
    run. The stripes cell also holds 20,000 of the card's stripe rows
    against ``quad_gather.stripes_host`` on the fetched stack.
+7. rescale and wide windows (no kernel of their own: torch ops).
+   (a) The rescale modes (``RESCALE_MODES``: local, with controls, with
+   stripes, OOE, expected emission, coverage_norm, BEDPE, trans) and the
+   W = 123 modes (``WIDE_MODES``: OOE, controls by strand, stripes,
+   by-window, trans, expected emission, coverage_norm) on the toy map, card
+   against CPU as in 6a, with routes ``rescale_torch`` / ``generic_torch``.
+   (b) ``bench.py --rescale`` (``rescale_workload``: the engine map, 2,000
+   TADs 20-200 bins wide; ``pileup(local=True, rescale=True,
+   rescale_flank=1, rescale_size=99)``), without and with the map's
+   ``expected_cis`` table: a warm-up, a checked run (TF32 off), the first
+   200 TADs against ``rescale_host_oracle`` (count and mean rtol 1e-4), two
+   timed runs with the phase breakdown, the rescale step's device time
+   (CUDA events) and the busy share of one run. (c) 201-bin windows
+   (+-1 Mb at 10 kb) over 2,000 stranded sites of the engine map with one
+   shifted control: a checked run (route ``generic_torch``), 300 sites
+   card against CPU (counts exact, ``data`` rtol 1e-4), and the timings of
+   (b).
 
 Any failure raises and exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel JSON
@@ -158,6 +175,45 @@ MODES_CELLS = {
 }
 MODES_REPEATS = 2
 STRIPE_SAMPLE = 20_000
+
+# phase 7a: rescaled pileups of toy TADs (toy_features() 3 Mb wide) in the
+# toy view (RESCALE_KW plus these), and 123-bin windows (flank 61 Mb, the
+# generic path) over whole chromosomes (WIDE_KW plus these); "expected_df":
+# True stands for the toy expected table of that view, "features": "bedpe"
+# for toy_bedpe() with 2 Mb anchors
+RESCALE_KW = dict(features_format="bed", mindist=0, rescale=True,
+                  rescale_flank=1, rescale_size=33)
+RESCALE_MODES = {
+    "local": {"local": True},
+    "local_controls": {"local": True, "nshifts": 1, "seed": 7},
+    "local_stripes": {"local": True, "store_stripes": True},
+    "ooe": {"local": True, "expected_df": True},
+    "expected_emission": {"expected_df": True, "ooe": False},
+    "coverage_norm": {"clr_weight_name": None, "coverage_norm": True},
+    "bedpe": {"features": "bedpe"},
+    "trans": {"trans": True},
+}
+WIDE_KW = dict(features_format="bed", mindist=0, flank=61_000_000)
+WIDE_MODES = {
+    "ooe": {"expected_df": True},
+    "controls_by_strand": {"by_strand": True, "nshifts": 1, "seed": 0},
+    "stripes": {"store_stripes": True},
+    "by_window": {"by_window": True},
+    "trans": {"trans": True},
+    "expected_emission": {"expected_df": True, "ooe": False},
+    "coverage_norm": {"clr_weight_name": None, "coverage_norm": True},
+}
+# phase 7b: bench.py --rescale (bench_rescale, bench.py:342-416)
+RESCALE_CELL_KW = dict(features_format="bed", local=True, rescale=True,
+                       rescale_flank=1, rescale_size=99, mindist=0, seed=0)
+RESCALE_ORACLE_TADS = 200
+ORACLE_RTOL = 1e-4
+# phase 7c: 201-bin windows (+-1 Mb at 10 kb) on the engine map
+WIDE_CELL_KW = dict(features_format="bed", flank=1_000_000,
+                    maxdist=5_000_000, nshifts=1, seed=0, by_strand=True)
+WIDE_CELL_SITES = 2_000
+WIDE_SUBSET_SITES = 300
+CELL_REPEATS = 2
 
 
 def smi_line():
@@ -1099,6 +1155,378 @@ def check_engine(dev, sync, card):
     return launches
 
 
+def toy_tads():
+    """Toy TADs for the rescale modes: toy_features() 3 Mb wide (as
+    tests/test_combo_matrix.py widens them)."""
+    feats = toy_features()
+    return feats.assign(end=feats["start"] + 3_000_000)
+
+
+def toy_chrom_view(clr):
+    """The toy map's whole chromosomes as a view, named after them."""
+    import pandas as pd
+
+    return pd.DataFrame({"chrom": list(clr.chromsizes),
+                         "start": [0] * len(clr.chromsizes),
+                         "end": list(clr.chromsizes.values()),
+                         "name": list(clr.chromsizes)})
+
+
+def phase7_inputs(group, name, clr, dense, weights):
+    """``(features, view, pileup() keywords)`` of one RESCALE_MODES or
+    WIDE_MODES entry on the toy map."""
+    if group == "rescale":
+        kw = dict(RESCALE_KW, **RESCALE_MODES[name])
+        features, view = toy_tads(), toy_regions()
+    else:
+        kw = dict(WIDE_KW, **WIDE_MODES[name])
+        features, view = toy_features(), toy_chrom_view(clr)
+    if kw.pop("features", None) == "bedpe":
+        bp = toy_bedpe()
+        features = bp.assign(end1=bp["start1"] + 2_000_000,
+                             end2=bp["start2"] + 2_000_000)
+        kw["features_format"] = "bedpe"
+    if kw.get("expected_df") is True:
+        kw["expected_df"] = toy_expected(clr, dense, weights, view)
+    return features, view, kw
+
+
+def check_rescale_wide_toy(dev):
+    """Phase 7a: the rescale and wide-window modes of the port's pileup()
+    on the toy map, on ``dev`` against the plain PyTorch run on the CPU
+    (``compare_tables``: counts exact, ``data`` and stripe planes within
+    rtol 1e-5)."""
+    from coolpuppy_tpu_torch import pileup
+
+    clr, dense, weights = toy_cooler()
+    for group, modes, route in (("rescale", RESCALE_MODES, "rescale_torch"),
+                                ("wide", WIDE_MODES, "generic_torch")):
+        for name in modes:
+            features, view, kw = phase7_inputs(group, name, clr, dense,
+                                               weights)
+            got = pileup(clr, features, view_df=view, device=dev, **kw)
+            want = pileup(clr, features, view_df=view, device="cpu", **kw)
+            err = compare_tables(got, want, what=f"{group} mode {name}",
+                                 **ENGINE_MODES_TOL)
+            routes = (got["accumulate"].iloc[0], want["accumulate"].iloc[0])
+            if routes != (route, route):
+                raise AssertionError(f"{group} mode {name}: routes {routes}")
+            shape = np.asarray(got["data"].iloc[0]).shape
+            print(f"{group} mode {name}: {len(got)} rows, n "
+                  f"{list(got['n'])}, data {shape}, route {route}, "
+                  f"max_abs_err {err:.3g} ok")
+
+
+def rescale_workload(n_tads=2_000, n_bins=20_000, n_contacts=12_000_000,
+                     seed=0):
+    """``bench.py --rescale``'s inputs (``bench_rescale``) with its RNG
+    calls: the engine map (``_bench_cooler``) and ``n_tads`` TADs 20-200
+    bins wide at sorted distinct starts. Returns ``(Cooler, features)``."""
+    import pandas as pd
+
+    clr = bench_cooler(np.random.default_rng(0), n_bins, n_contacts)
+    binsize = clr.binsize
+    rng = np.random.default_rng(seed)
+    starts = np.sort(rng.choice(np.arange(100, clr.n_bins - 300), n_tads,
+                                replace=False)) * binsize
+    widths = rng.integers(20, 200, n_tads) * binsize
+    return clr, pd.DataFrame({"chrom": "chr1", "start": starts,
+                              "end": starts + widths})
+
+
+def resize_op32(n_in, R):
+    """The area-overlap operator [R, n_in] built with the float32 steps of
+    ``ops/rescale.resize_matrix`` (numpy float32 arithmetic), returned as
+    float64. Where an output cell's edge falls on an input cell's edge,
+    float32 rounding leaves an overlap of up to ~1e-5 that the exact
+    operator (``area_resize_host``) does not have, and that overlap decides
+    whether a NaN pixel there touches the output pixel: the host loop uses
+    the device's operator so that counts compare exactly."""
+    f32 = np.float32
+    i = np.arange(R, dtype=f32)[:, None]
+    k = np.arange(n_in, dtype=f32)[None, :]
+    cell = f32(n_in) * (f32(1) / f32(R))
+    overlap = np.maximum(f32(0), np.minimum((i + f32(1)) * cell, k + f32(1))
+                         - np.maximum(i * cell, k))
+    return (overlap / max(cell, f32(1e-30))).astype(np.float64)
+
+
+def rescale_host_oracle(clr, feats, R, expected=None, ignore_diags=2):
+    """``bench.py``'s reference-style host loop (bench.py:387-414) as the
+    engine defines a rescaled local pileup: per TAD (``rescale_flank=1``)
+    the CSR slice of the balanced map, bad bins and |diag| < ignore_diags
+    NaN, division by the expected of each diagonal when ``expected`` (a
+    by-distance table) is given, symmetrization, and the NaN-aware area
+    resize in float64 with the engine's rules (``resize_op32``): an output
+    pixel the resized NaN plane touches by more than 1e-6 adds nothing, an
+    all-NaN snip adds 0 with count 1. Returns the per-pixel mean (then
+    symmetrized, as the engine finalizes local pileups) and count."""
+    import warnings
+
+    from coolpuppy_tpu_torch.ops.rescale import TOUCH_EPS
+
+    csr = clr.fetch_coo("chr1", balance="weight").tocsr()
+    bad = clr.bad_bin_mask("chr1")
+    evec = None
+    if expected is not None:
+        evec = np.full(clr.n_bins, np.nan)
+        evec[expected["dist"].to_numpy(int)] = expected["balanced.avg"]
+    total = np.zeros((R, R))
+    count = np.zeros((R, R))
+    bs = clr.binsize
+    for st, en in zip(feats["start"] // bs, feats["end"] // bs):
+        w = int(en - st)
+        lo, hi = int(st) - w, int(en) + w
+        if lo < 0 or hi > clr.n_bins:
+            continue
+        data = csr[lo:hi, lo:hi].toarray().astype(float)
+        data[bad[lo:hi], :] = np.nan
+        data[:, bad[lo:hi]] = np.nan
+        d = np.abs(np.subtract.outer(np.arange(hi - lo), np.arange(hi - lo)))
+        data[d < ignore_diags] = np.nan
+        if evec is not None:
+            with np.errstate(divide="ignore", invalid="ignore"):
+                data = data / evec[d]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            data = np.nanmean(np.dstack((data, data.T)), 2)
+        nans = ~np.isfinite(data)
+        if nans.all():
+            count += 1
+            continue
+        op = resize_op32(hi - lo, R)
+        rs = op @ np.where(nans, 0.0, data) @ op.T
+        touched = op @ nans.astype(float) @ op.T > TOUCH_EPS
+        total += np.where(touched, 0.0, rs)
+        count += ~touched
+    with np.errstate(divide="ignore", invalid="ignore"), \
+            warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        mean = total / count
+        mean = np.nanmean(np.dstack((mean, mean.T)), 2)
+    return mean, count
+
+
+def check_oracle(table, want, what):
+    """The 'all' row of a pileup table against a host oracle's (mean,
+    count): count and mean within ORACLE_RTOL, NaN positions equal."""
+    row = all_row(table)
+    mean, count = want
+    np.testing.assert_allclose(np.asarray(row["num"], float), count,
+                               rtol=ORACLE_RTOL, atol=0,
+                               err_msg=f"{what}: count")
+    np.testing.assert_allclose(np.asarray(row["data"], float), mean,
+                               rtol=ORACLE_RTOL, atol=1e-9, equal_nan=True,
+                               err_msg=f"{what}: mean")
+    fin = np.isfinite(mean)
+    err = float(np.abs(np.asarray(row["data"], float)[fin]
+                       - mean[fin]).max(initial=0.0))
+    return err, int(fin.sum())
+
+
+class step_timer:
+    """Device-timeline span of every call of an engine step
+    (``rescale_accumulate`` or ``generic_accumulate``, looked up in the
+    engine module at call time) during a block: CUDA events around each
+    call on a CUDA device (the span includes the device's idle gaps while
+    the host launches), the host clock elsewhere. ``ms`` and ``calls``
+    after the block."""
+
+    MODULE = "coolpuppy_tpu_torch.engine.pileup"
+
+    def __init__(self, name, dev):
+        self.name, self.dev = name, dev
+        self.ms, self.calls = 0.0, 0
+
+    def __enter__(self):
+        import torch
+
+        engine = importlib.import_module(self.MODULE)
+        self.step = step = getattr(engine, self.name)
+        spans = self.spans = []
+
+        def timed_step(*a, **k):
+            if self.dev.type == "cuda":
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                out = step(*a, **k)
+                t1.record()
+                spans.append((t0, t1))
+            else:
+                t = time.perf_counter()
+                out = step(*a, **k)
+                spans.append(time.perf_counter() - t)
+            return out
+
+        setattr(engine, self.name, timed_step)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        engine = importlib.import_module(self.MODULE)
+        setattr(engine, self.name, self.step)
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+            self.ms = sum(a.elapsed_time(b) for a, b in self.spans)
+        else:
+            self.ms = 1e3 * sum(self.spans)
+        self.calls = len(self.spans)
+
+
+def time_cell(what, run_timed, count, n_snips, step, dev, sync, card,
+              profiled):
+    """CELL_REPEATS timed runs of ``run_timed`` (returns ``(PileUpper,
+    table)``; ``count(table)`` must give ``n_snips``): median wall, snips/s,
+    the engine's phase breakdown of the median run, the device time of the
+    engine ``step`` in one run and the busy share of one profiled run of
+    ``profiled``."""
+    walls, phases = [], []
+    for _ in range(CELL_REPEATS):
+        t, (pu, pups) = timed(run_timed, sync)
+        if count(pups) != n_snips:
+            raise AssertionError(f"{what}: a timed run counted other snips")
+        walls.append(t)
+        ph = dict(pu.timers.seconds)
+        ph["outside_phases"] = t - sum(ph.values())
+        phases.append(ph)
+        del pu, pups
+    with step_timer(step, dev) as st:
+        run_timed()
+    med = statistics.median(walls)
+    mid = phases[int(np.argsort(walls)[len(walls) // 2])]
+    print(f"{what} timing: wall_s " + json.dumps([round(x, 4) for x in walls]))
+    print(f"{what} phases (median run, s): " + json.dumps(
+        {k: round(v, 4) for k, v in sorted(mid.items())}))
+    print(f"{what} {step}: device span {st.ms:.3f} ms (CUDA events around "
+          f"each of {st.calls} calls, idle gaps included) in one run")
+    print(f"{what} device busy share of one run: "
+          + busy_share(profiled, sync))
+    print(f"{what} snips/s: {n_snips / med:.0f} ({n_snips} snips, median "
+          f"{med:.3f} s of {CELL_REPEATS}) on {card}")
+    return st.ms
+
+
+def check_rescale_cell(dev, sync, card, workload=None):
+    """Phase 7b: ``bench.py --rescale`` on the card: a warm-up, a checked
+    run (route ``rescale_torch``), the first RESCALE_ORACLE_TADS TADs held
+    against ``rescale_host_oracle``, the same with the expected table of
+    the map (BASELINE's variant) against the oracle that divides by it,
+    and timed runs of both. Returns the rescale step's device ms of one
+    run of each variant."""
+    import torch
+
+    from coolpuppy_tpu_torch import CoordCreator, PileUpper, pileup
+    from coolpuppy_tpu_torch.expected import expected_cis
+
+    t, (clr, feats) = timed(workload or rescale_workload, lambda: None)
+    print(f"rescale workload: {clr.n_bins} bins, {clr.n_pixels} pixels, "
+          f"{len(feats)} TADs in {t:.1f} s")
+    R = RESCALE_CELL_KW["rescale_size"]
+    t, exp = timed(lambda: expected_cis(clr), lambda: None)
+    print(f"rescale expected_cis: {len(exp)} diagonals in {t:.2f} s")
+
+    def run(f, **kw):
+        return pileup(clr, f, device=dev, **dict(RESCALE_CELL_KW, **kw))
+
+    t, warm = timed(lambda: run(feats), sync)
+    print(f"rescale warm-up: {int(all_row(warm)['n'])} snips in {t:.2f} s")
+    ms = {}
+    for variant, kw in (("local", {}), ("local_ooe", {"expected_df": exp})):
+        what = f"rescale {variant}"
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("TF32 is enabled for float32 matmuls")
+        t, checked = timed(lambda: run(feats, **kw), sync)
+        route = checked["accumulate"].iloc[0]
+        row = all_row(checked)
+        n_snips = int(row["n"])
+        data = np.asarray(row["data"], float)
+        if route != "rescale_torch" or data.shape != (R, R) or \
+                not np.isfinite(data).any() or str(dev) not in \
+                checked["device"].iloc[0]:
+            raise AssertionError(f"{what}: route {route!r}, device "
+                                 f"{checked['device'].iloc[0]!r}, data "
+                                 f"{data.shape}")
+        print(f"{what} checked run: {n_snips} snips, route {route} on "
+              f"{checked['device'].iloc[0]}, tf32 "
+              f"{torch.backends.cuda.matmul.allow_tf32}, {t:.2f} s")
+        sub = feats.iloc[:RESCALE_ORACLE_TADS]
+        t, want = timed(lambda: rescale_host_oracle(
+            clr, sub, R, expected=kw.get("expected_df")), lambda: None)
+        err, n_fin = check_oracle(run(sub, **kw), want, what)
+        print(f"{what} vs the host loop ({len(sub)} TADs, {t:.1f} s): "
+              f"count and mean within rtol {ORACLE_RTOL}, {n_fin} finite "
+              f"pixels, max_abs_err {err:.3g} ok")
+
+        def run_timed(kw=kw):
+            cc_kw = {k: v for k, v in RESCALE_CELL_KW.items()
+                     if k not in ("rescale", "rescale_size")}
+            cc = CoordCreator(feats, clr.binsize, nshifts=0, **cc_kw)
+            pu = PileUpper(clr, cc, rescale=True, rescale_size=R,
+                           expected=kw.get("expected_df", False),
+                           device=dev)
+            return pu, pu.pileupsWithControl()
+
+        ms[variant] = time_cell(
+            what, run_timed, lambda p: int(all_row(p)["n"]), n_snips,
+            "rescale_accumulate", dev, sync, card,
+            lambda kw=kw: run(feats, **kw),
+        )
+    return ms
+
+
+def check_wide_cell(dev, sync, card, workload=None):
+    """Phase 7c: 201-bin windows on the engine map (``engine_workload``
+    with WIDE_CELL_SITES sites): a checked run (route ``generic_torch``),
+    the same call on WIDE_SUBSET_SITES sites on the card against the CPU
+    (counts exact, ``data`` rtol 1e-4) and timed runs. Returns the generic
+    step's device ms of one run."""
+    from coolpuppy_tpu_torch import CoordCreator, PileUpper, pileup
+
+    t, (clr, feats) = timed(
+        workload or (lambda: engine_workload(n_sites=WIDE_CELL_SITES)),
+        lambda: None,
+    )
+    print(f"wide workload: {clr.n_bins} bins, {clr.n_pixels} pixels, "
+          f"{len(feats)} sites in {t:.1f} s")
+
+    def run(f, device=dev):
+        return pileup(clr, f, device=device, **WIDE_CELL_KW)
+
+    W = 2 * (WIDE_CELL_KW["flank"] // clr.binsize) + 1
+    t, checked = timed(lambda: run(feats), sync)
+    route = checked["accumulate"].iloc[0]
+    n_snips = engine_snips(checked)
+    data = np.stack(checked["data"].to_list())
+    if route != "generic_torch" or data.shape[1:] != (W, W) or \
+            not np.isfinite(data).any():
+        raise AssertionError(f"wide checked run: route {route!r}, data "
+                             f"{data.shape}")
+    print(f"wide checked run: {n_snips} snips, {len(checked)} rows, W {W}, "
+          f"route {route} on {checked['device'].iloc[0]}, {t:.2f} s")
+    sub = feats.iloc[:WIDE_SUBSET_SITES]
+    got = run(sub)
+    t, want = timed(lambda: run(sub, device="cpu"), lambda: None)
+    err = compare_tables(got, want, rtol=ENGINE_RTOL, atol=1e-7,
+                         what="wide subset card vs cpu")
+    print(f"wide subset ({len(sub)} sites, {engine_snips(want)} snips, CPU "
+          f"{t:.1f} s) card vs CPU: counts exact, data max_abs_err "
+          f"{err:.3g} (rtol {ENGINE_RTOL}) ok")
+
+    def run_timed():
+        kw = {k: v for k, v in WIDE_CELL_KW.items()
+              if k not in ("by_strand", "nshifts")}
+        cc = CoordCreator(feats, clr.binsize,
+                          nshifts=WIDE_CELL_KW["nshifts"], **kw)
+        pu = PileUpper(clr, cc, control=True, device=dev)
+        return pu, pu.pileupsByStrandWithControl()
+
+    return time_cell("wide", run_timed, engine_snips, n_snips,
+                     "generic_accumulate", dev, sync, card,
+                     lambda: run(feats))
+
+
 def main():
     import torch
 
@@ -1151,6 +1579,11 @@ def main():
     # -- 6. the 2D modes: toy map, then bench.py --modes' cells ---------
     check_modes_2d(dev)
     record["modes_launches"] = check_modes(dev, sync, card)
+
+    # -- 7. rescale and W > 120: toy map, then the two cells -------------
+    check_rescale_wide_toy(dev)
+    check_rescale_cell(dev, sync, card)
+    check_wide_cell(dev, sync, card)
 
     # -- result -----------------------------------------------------------
     print(card)

@@ -13,7 +13,8 @@ It covers BED features (cis, local and trans feature products) and BEDPE
 rows (cis and trans). Two departures of the JAX package from upstream
 coolpuppy are copied as they are: trans controls shift side 2 by its own
 amount, and reversed BEDPE trans rows are swapped into the region-1 frame.
-``rescale_flank`` raises ``NotImplementedError`` (ROADMAP Queue 1 item 5).
+``rescale_flank`` scales every interval by ``2*rescale_flank + 1`` about its
+center (rescaled pileups) in place of the fixed ``flank``.
 """
 
 from __future__ import annotations
@@ -161,11 +162,6 @@ class CoordCreator:
         seed=None,
         chunk_size=262_144,
     ):
-        if rescale_flank is not None:
-            raise NotImplementedError(
-                "rescale_flank (rescaled pileups) is not ported yet "
-                "(ROADMAP Queue 1 item 5)"
-            )
         self.intervals = features.copy()
         self.resolution = int(resolution)
         self.features_format = features_format
@@ -231,7 +227,7 @@ class CoordCreator:
                 self.intervals["start"] + self.intervals["end"]
             ) / 2
             self.intervals = expand_intervals(
-                self.intervals, self.flank, self.resolution
+                self.intervals, self.flank, self.resolution, self.rescale_flank
             )
         else:
             if not {"chrom1", "start1", "end1", "chrom2", "start2",
@@ -263,7 +259,7 @@ class CoordCreator:
             if not keep.all():
                 self.intervals = self.intervals[keep].reset_index(drop=True)
             self.intervals = expand_intervals_2d(
-                self.intervals, self.flank, self.resolution
+                self.intervals, self.flank, self.resolution, self.rescale_flank
             )
 
         if self.intervals.shape[0] == 0:

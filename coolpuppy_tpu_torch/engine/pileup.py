@@ -1,23 +1,33 @@
 """The pile-up engine: PileUpper + pileup() (counterpart of
 ``coolpuppy_tpu/engine/pileup.py``, reference coolpup.py:752–2279).
 
-Per region, the host collects every snip's window start and group into flat
-index arrays, scatters the tiles those windows touch, and hands both to
-``ops/quad_gather.QuadPileupSession``: the tile stack is expanded and
-normalized on ``device``, the snips are quad-sorted, and
-``quad_gather.quad_accumulate`` adds every window into per-group sums and
-finite counts (the hand-written CUDA kernel on a CUDA device, the plain
-PyTorch version on the CPU). The host finishes with the reference's
-normalization algebra: division by shifted controls or expected, coverage
-normalization, local symmetrization.
+Per region, the host collects every snip's window start, size and group
+into flat index arrays and scatters the B=128 tiles those windows touch; the
+tile stack is expanded and normalized on ``device`` into one NaN-encoded
+stack. Three routes accumulate the windows:
+
+- ``cuda_kernel`` / ``plain`` (W <= 120, not rescaled):
+  ``ops/quad_gather.QuadPileupSession`` quad-sorts the snips and
+  ``quad_gather.quad_accumulate`` adds every window into per-group sums and
+  finite counts (the hand-written CUDA kernel on a CUDA device, the plain
+  PyTorch version on the CPU);
+- ``generic_torch`` (W > 120, the reference's cutoff): windows cut from the
+  stack by one index gather per block, summed by ``index_add_``
+  (``ops/gather.generic_accumulate``);
+- ``rescale_torch`` (``rescale=True``): variable-size windows in pow2 extent
+  buckets (at least 128), each resized to R×R by float32 area-overlap
+  matmuls (``ops/rescale.rescale_accumulate``).
+
+The host finishes with the reference's normalization algebra: division by
+shifted controls or expected, coverage normalization, local symmetrization.
 
 The port covers cis and trans pileups of BED features and of BEDPE rows:
 observed-over-expected, expected emission, shifted controls, by strand / by
 distance / by window / custom groupby, ignore_group_order,
-flip_negative_strand, local, coverage_norm and stripes. Rescaled pileups,
-the extension hooks, by-window pileups of BEDPE rows (they group through a
-hook) and windows wider than the kernel takes (W > 120) raise
-``NotImplementedError`` naming their ROADMAP item.
+flip_negative_strand, local, coverage_norm, stripes and rescale, at any
+window size. The extension hooks and by-window pileups of BEDPE rows or
+under rescale (they group through a hook) raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -58,9 +68,15 @@ from ..ops.gather import (
     coverage_histogram_sums,
     coverage_scatter_sums,
     expected_toeplitz_sums,
+    generic_accumulate,
     merge_flip_banks,
 )
-from ..ops.tiles import build_tile_stack_slab, build_tile_stack_slab_sym
+from ..ops.rescale import RescaleConfig, rescale_accumulate
+from ..ops.tiles import (
+    build_tile_stack_slab,
+    build_tile_stack_slab_sym,
+    normalized_stack,
+)
 
 logger = logging.getLogger("coolpuppy_tpu_torch")
 
@@ -89,6 +105,11 @@ _BLOCK_BYTES = 256 << 20
 # the feature coordinates each stripe row carries
 _COORD_COLS = ("chrom1", "start1", "end1", "chrom2", "start2", "end2")
 
+# the smallest pow2 extent bucket of the rescale route (the reference's B0)
+_RESCALE_MIN_BUCKET = 128
+
+_STRIPE_KEYS = ("horizontal_stripe", "vertical_stripe")
+
 
 def _next_pow2(x):
     return 1 << max(0, int(np.ceil(np.log2(max(1, int(x))))))
@@ -101,6 +122,36 @@ def _block_half(W):
     W = 120)."""
     h = max(1, _BLOCK_BYTES // (2 * W * W * 8))
     return min(1 << (int(h).bit_length() - 1), quad_gather.C_MAX // 2)
+
+
+def _group_blocks(cidl, G, half):
+    """The accumulator blocks of a snip stream: ``(sel, base, span)`` with
+    ``sel`` the snips of groups [base, base + span), or None for all of
+    them when the G groups fit one block of ``half``. Past that, blocks of
+    ``half`` groups in cid order; a block's local group ids are ``cid -
+    base``, and its flip bank rides rows [half, half + span)."""
+    if G <= half:
+        yield None, 0, G
+        return
+    order = np.argsort(cidl, kind="stable")
+    bounds = np.searchsorted(cidl[order], np.arange(0, G + half, half))
+    for bi in range(len(bounds) - 1):
+        lo, hi = int(bounds[bi]), int(bounds[bi + 1])
+        if hi > lo:
+            yield order[lo:hi], bi * half, min(half, G - bi * half)
+
+
+def _put_block(out, part, base, G):
+    """Write one block's flip-merged totals into ``out``'s [G, ...]
+    arrays (allocated at the first block) at rows [base, base + span); the
+    one block of all G groups is taken as it is."""
+    for k, v in part.items():
+        if len(v) == G:
+            out[k] = v
+            continue
+        if k not in out:
+            out[k] = np.zeros((G,) + v.shape[1:])
+        out[k][base : base + len(v)] = v
 
 
 def _fast_all(pups):
@@ -211,8 +262,6 @@ class PileUpper:
         trace_dir=None,
         device="cuda",
     ):
-        if rescale:
-            raise _not_ported("rescale", 5)
         self.device = _resolve_device(device)
         self.clr = clr
         self.resolution = clr.binsize
@@ -245,12 +294,6 @@ class PileUpper:
         self.ooe = ooe
         self.control = control
         self.pad_bins = self.CC.flank // self.resolution
-        if self._window_bins() > quad_gather.W_MAX:
-            raise _not_ported(
-                f"a {self._window_bins()}-bin window (the quad kernel takes "
-                f"W <= {quad_gather.W_MAX}; wider windows need the generic "
-                "path)", 5,
-            )
         self.coverage_norm = coverage_norm
         self.rescale = rescale
         self.rescale_size = rescale_size
@@ -358,9 +401,25 @@ class PileUpper:
                     f"coverage_norm {self.coverage_norm} not found in cooler bins"
                 )
 
+        if self.rescale:
+            if self.rescale_flank is None:
+                raise ValueError("Cannot use rescale without setting rescale_flank")
+            if self.rescale_size % 2 == 0:
+                raise ValueError("Please provide an odd rescale_size")
+            iv = self.CC.intervals
+            if self.CC.kind == "bed":
+                self.max_extent_bins = int((iv["endBin"] - iv["stBin"]).max())
+            else:
+                self.max_extent_bins = int(max(
+                    (iv["endBin1"] - iv["stBin1"]).max(),
+                    (iv["endBin2"] - iv["stBin2"]).max(),
+                ))
+
     # ------------------------------------------------------------------
 
     def make_outmap(self):
+        if self.rescale:
+            return np.zeros((self.rescale_size, self.rescale_size))
         return np.zeros((2 * self.pad_bins + 1, 2 * self.pad_bins + 1))
 
     def _window_bins(self):
@@ -439,10 +498,18 @@ class PileUpper:
         )
 
     def _stage_region(self, region1, region2):
-        """Fetch + stage one region pair's inputs."""
+        """Fetch + stage one region pair's inputs. Under rescale the per-bin
+        vectors are padded past the largest extent bucket, whose coverage
+        slices read ``Hmax`` bins from every window start (reference
+        :1002-1016)."""
         timers = self.timers
         ctx = timers.phase("ingest") if timers else contextlib.nullcontext()
         with ctx:
+            if self.rescale:
+                hmax = max(_RESCALE_MIN_BUCKET,
+                           _next_pow2(self.max_extent_bins))
+                return self._region_device_inputs(region1, region2,
+                                                  minpad=hmax + 8)
             return self._region_device_inputs(region1, region2)
 
     # -- one region ----------------------------------------------------------
@@ -465,9 +532,10 @@ class PileUpper:
         vectorized snip frames into flat index arrays (bounds-checked, group
         ids factorized in first-appearance order); (2) one tile stack of the
         touched tiles is built and staged once, and every snip runs through
-        one quad accumulation (``_quad_accumulate``). ``dual_anchor`` (the
-        by-window mode) adds every snip to the groups of both its anchors,
-        keyed by the integer anchor id."""
+        one route: ``_rescale_accumulate`` under rescale,
+        ``_generic_accumulate`` for W > 120, ``_quad_accumulate`` otherwise.
+        ``dual_anchor`` (the by-window mode) adds every snip to the groups
+        of both its anchors, keyed by the integer anchor id."""
         groupby = groupby or []
         if region2 is None:
             region2 = region1
@@ -501,7 +569,8 @@ class PileUpper:
                 column_hint |= {"anchor_idx1", "anchor_idx2"}
 
         # -- phase 1: host coordinate collection -----------------------
-        cols = {k: [] for k in ("r1", "r2", "dd0", "cidl", "flip", "roi")}
+        cols = {k: [] for k in ("r1", "r2", "h1", "w2", "dd0", "cidl", "flip",
+                                "roi")}
         coord_blocks = []
         dual_lut = None
         with phase("coords"):
@@ -530,9 +599,12 @@ class PileUpper:
                 chunk = chunk.loc[inb]
                 if len(chunk) == 0:
                     continue
-                h1 = chunk["endBin1"].values - chunk["stBin1"].values
-                w2 = chunk["endBin2"].values - chunk["stBin2"].values
-                if not ((h1 == W).all() and (w2 == W).all()):
+                h1 = (chunk["endBin1"].values
+                      - chunk["stBin1"].values).astype(np.int32)
+                w2 = (chunk["endBin2"].values
+                      - chunk["stBin2"].values).astype(np.int32)
+                if not self.rescale and not ((h1 == W).all()
+                                             and (w2 == W).all()):
                     raise ValueError(
                         "inconsistent window size; flank must be a multiple "
                         "of the resolution"
@@ -561,6 +633,8 @@ class PileUpper:
                 for cidc in cid_parts:
                     cols["r1"].append(r1c)
                     cols["r2"].append(r2c)
+                    cols["h1"].append(h1)
+                    cols["w2"].append(w2)
                     cols["dd0"].append(dd0c)
                     cols["flip"].append(flipc)
                     cols["cidl"].append(cidc)
@@ -581,10 +655,22 @@ class PileUpper:
             for i, c in enumerate(counts):
                 n_counts[i] = int(c)
             # -- phase 2: one tile stack, one accumulation ------------------
-            with phase("tiles"):
-                tile_stack = self._build_tile_stack(dev, arr, W)
-            with phase("device"):
-                acc = self._quad_accumulate(tile_stack, dev, arr, W, G)
+            if self.rescale:
+                with phase("tiles"):
+                    tile_stack = self._build_tile_stack(dev, arr, arr["h1"],
+                                                        arr["w2"])
+                with phase("device"):
+                    acc = self._rescale_accumulate(tile_stack, dev, arr, G)
+            else:
+                with phase("tiles"):
+                    tile_stack = self._build_tile_stack(dev, arr, W)
+                with phase("device"):
+                    if W > quad_gather.W_MAX:
+                        acc = self._generic_accumulate(tile_stack, dev, arr,
+                                                       W, G)
+                    else:
+                        acc = self._quad_accumulate(tile_stack, dev, arr, W,
+                                                    G)
             if self.store_stripes:
                 with phase("stripes"):
                     stripes = self._package_stripes(acc, arr, coord_blocks, G)
@@ -686,18 +772,17 @@ class PileUpper:
         return [lut[isctl, a1], lut[isctl, a2], lut]
 
     @staticmethod
-    def _build_tile_stack(dev, arr, W):
-        """The tiles the windows touch: the upper-triangle stack of a
-        mirrored cis slab, the dense stack of any other rectangle (trans
-        region pairs)."""
+    def _build_tile_stack(dev, arr, window1, window2=None):
+        """The B=128 tiles the windows touch (heights ``window1``, widths
+        ``window2``, scalars or per-snip arrays): the upper-triangle stack
+        of a mirrored cis slab, the dense stack of any other rectangle
+        (trans region pairs)."""
+        window2 = window1 if window2 is None else window2
         slab = dev["slab"]
-        if dev["cis"] and slab.mirror:
-            return build_tile_stack_slab_sym(
-                slab, quad_gather.B_TILE, arr["r1"], arr["r2"], W, W
-            )
-        return build_tile_stack_slab(
-            slab, quad_gather.B_TILE, arr["r1"], arr["r2"], W, W
-        )
+        build = (build_tile_stack_slab_sym if dev["cis"] and slab.mirror
+                 else build_tile_stack_slab)
+        return build(slab, quad_gather.B_TILE, arr["r1"], arr["r2"],
+                     window1, window2)
 
     def _quad_accumulate(self, tile_stack, dev, arr, W, G):
         """The counterpart of the reference's ``_pallas_accumulate``: one
@@ -712,7 +797,9 @@ class PileUpper:
         host total. ``QuadPileupSession.run_many`` looks ``quad_accumulate``
         up in its module at call time, so a caller can count its launches
         (``quad_gather.LAUNCHES``) or swap it. Returns flip-merged float64
-        accumulators [G, ...] plus the side outputs (``_side_outputs``)."""
+        accumulators [G, ...] plus the side outputs (``_side_outputs``) and
+        the ROI snips' stripe planes, gathered from the session's stack (the
+        vertical one reversed, reference coolpup.py:1164–1188)."""
         half = min(_next_pow2(G), _block_half(W))
         session = quad_gather.QuadPileupSession(
             tile_stack,
@@ -728,51 +815,162 @@ class PileUpper:
             ),
             self.device,
         )
-        cidl, flip = arr["cidl"], arr["flip"]
         launches = quad_gather.LAUNCHES
-
-        def accumulate(sel, cid, span):
-            r1 = arr["r1"] if sel is None else arr["r1"][sel]
-            r2 = arr["r2"] if sel is None else arr["r2"][sel]
+        out = {}
+        for sel, base, span in _group_blocks(arr["cidl"], G, half):
+            ix = slice(None) if sel is None else sel
+            cid = arr["cidl"][ix] - base + half * arr["flip"][ix]
             total = session.finalize(
-                [session.run_many(r1, r2, cid, fetch=False)],
+                [session.run_many(arr["r1"][ix], arr["r2"][ix],
+                                  cid.astype(np.int32), fetch=False)],
                 compact=(span, half),
             )
-            return merge_flip_banks(total, span)
-
-        if G <= half:
-            out = accumulate(None, (cidl + half * flip).astype(np.int32), G)
-        else:
-            order = np.argsort(cidl, kind="stable")
-            sorted_cid = cidl[order]
-            bounds = np.searchsorted(sorted_cid, np.arange(0, G + half, half))
-            out = {k: np.zeros((G, W, W)) for k in ("sum", "num", "poison")}
-            for bi in range(len(bounds) - 1):
-                lo, hi = int(bounds[bi]), int(bounds[bi + 1])
-                if hi <= lo:
-                    continue
-                base = bi * half
-                span = min(half, G - base)
-                sel = order[lo:hi]
-                local = (sorted_cid[lo:hi] - base + half * flip[sel]).astype(
-                    np.int32
-                )
-                for k, v in accumulate(sel, local, span).items():
-                    out[k][base : base + span] = v
+            _put_block(out, merge_flip_banks(total, span), base, G)
         self._routes.add(
             "cuda_kernel" if quad_gather.LAUNCHES > launches else "plain"
         )
-        self._side_outputs(session, dev, arr, W, G, out)
+        self._side_outputs(dev, arr, W, G, out)
+        if self.store_stripes:
+            roi = arr["roi"]
+            hv = session.run_stripes(arr["r1"][roi], arr["r2"][roi])
+            out["horizontal_stripe"] = hv[:, :W]
+            out["vertical_stripe"] = hv[:, W:][:, ::-1]
         return out
 
-    def _side_outputs(self, session, dev, arr, W, G, out):
-        """The side sums beside the quad kernel (the reference's
+    def _device_stack(self, tile_stack, dev):
+        """The region's normalized stack on ``self.device``
+        (``ops/tiles.normalized_stack``: masked pixels NaN, OOE-divided
+        values) and its tile map as an int64 device tensor."""
+        stiles = normalized_stack(
+            tile_stack, dev["valid1"], dev["valid2"], dev["evec"],
+            self.device, ooe=bool(self.expected and self.ooe),
+            cis=dev["cis"], ignore_diags=int(self.ignore_diags),
+        )
+        tmap = torch.from_numpy(
+            np.asarray(tile_stack.tile_map, np.int64)
+        ).to(self.device)
+        return stiles, tmap
+
+    def _torch_blocks(self, arr, G, half, step):
+        """Run a torch step over the snip stream, one call per accumulator
+        block (``_group_blocks``): ``step(ix, cid, C)`` gets the block's
+        snip selection (a device index tensor, or ``slice(None)``), its
+        local group ids ``cid - base + half * flip`` on the device and the
+        capacity ``2 * half``, and returns device accumulators. Returns the
+        flip-merged float64 totals [G, ...] and, where the step returns
+        stripes, every snip's stripe rows in stream order."""
+        out = {}
+        ntot = len(arr["cidl"])
+        for sel, base, span in _group_blocks(arr["cidl"], G, half):
+            ix = slice(None) if sel is None else sel
+            cid = arr["cidl"][ix] - base + half * arr["flip"][ix]
+            acc = step(
+                ix if sel is None else torch.from_numpy(sel).to(self.device),
+                torch.from_numpy(cid.astype(np.int64)).to(self.device),
+                2 * half,
+            )
+            for k in _STRIPE_KEYS:
+                if k in acc:
+                    v = acc.pop(k).cpu().numpy()
+                    if k not in out:
+                        out[k] = np.empty((ntot, v.shape[1]), np.float32)
+                    out[k][ix] = v
+            banks = {
+                k: torch.cat([v[:span], v[half : half + span]])
+                .to(torch.float64).cpu().numpy()
+                for k, v in acc.items()
+            }
+            _put_block(out, merge_flip_banks(banks, span), base, G)
+        return out
+
+    def _generic_accumulate(self, tile_stack, dev, arr, W, G):
+        """The generic route for windows wider than the quad kernel takes
+        (the reference's ``_device_accumulate`` with
+        ``make_pileup_step_fn``, :1536-1594): ``generic_accumulate`` over
+        the region's normalized stack in blocks of ``_block_half(W)``
+        groups; coverage and expected emission from the exact host sums
+        (``_side_outputs``); stripes of the ROI snips, non-finite values as
+        NaN."""
+        stiles, tmap = self._device_stack(tile_stack, dev)
+        r1, r2 = (torch.from_numpy(arr[k].astype(np.int64)).to(self.device)
+                  for k in ("r1", "r2"))
+
+        def step(ix, cid, C):
+            return generic_accumulate(stiles, tmap, r1[ix], r2[ix], cid, W,
+                                      C, stripes=bool(self.store_stripes))
+
+        half = min(_next_pow2(G), _block_half(W))
+        out = self._torch_blocks(arr, G, half, step)
+        self._routes.add("generic_torch")
+        self._side_outputs(dev, arr, W, G, out)
+        for k in _STRIPE_KEYS:
+            if k in out:
+                out[k] = out[k][arr["roi"]]
+        return out
+
+    def _rescale_accumulate(self, tile_stack, dev, arr, G):
+        """The rescale route (the reference's ``_rescale_accumulate``,
+        :2228-2372): one normalized B=128 stack per region; snips in pow2
+        extent buckets of at least ``_RESCALE_MIN_BUCKET`` bins, each bucket
+        through ``rescale_accumulate`` at Hmax = its extent, in blocks of
+        ``_block_half(R)`` groups. Windows are cut from the stack directly
+        (no bucket restack). Returns flip-merged float64 totals [G, R, R]
+        (``poison`` all zero) and the ROI snips' stripes."""
+        R = self.rescale_size
+        stiles, tmap = self._device_stack(tile_stack, dev)
+
+        def upload(a, dtype=torch.int64):
+            return torch.from_numpy(np.asarray(a)).to(self.device, dtype)
+
+        evec = upload(dev["evec"], torch.float32)
+        cov1 = upload(dev["cov1"], torch.float32)
+        cov2 = upload(dev["cov2"], torch.float32)
+        extent = np.maximum(arr["h1"], arr["w2"]).astype(np.int64)
+        buckets = np.maximum(
+            _RESCALE_MIN_BUCKET,
+            1 << np.ceil(np.log2(np.maximum(extent, 1))).astype(np.int64),
+        )
+        half = min(_next_pow2(G), _block_half(R))
+        out = {}
+        ntot = len(extent)
+        for hb in np.unique(buckets):
+            idx = np.flatnonzero(buckets == hb)
+            sub = {k: arr[k][idx] for k in ("cidl", "flip")}
+            d = {k: upload(arr[k][idx]) for k in ("r1", "r2", "h1", "w2", "dd0")}
+            cfg = RescaleConfig(
+                R=R, Hmax=int(hb), capacity=2 * half,
+                emit_expected=bool(self.expected and not self.ooe),
+                coverage=bool(self.coverage_norm),
+                stripes=bool(self.store_stripes), local=bool(self.local),
+            )
+
+            def step(ix, cid, C, d=d, cfg=cfg):
+                return rescale_accumulate(
+                    stiles, tmap, evec, cov1, cov2, d["r1"][ix], d["r2"][ix],
+                    d["h1"][ix], d["w2"][ix], d["dd0"][ix], cid, cfg,
+                )
+
+            part = self._torch_blocks(sub, G, half, step)
+            for k, v in part.items():
+                if k in _STRIPE_KEYS:
+                    if k not in out:
+                        out[k] = np.empty((ntot, R), np.float32)
+                    out[k][idx] = v
+                else:
+                    out[k] = v if k not in out else out[k] + v
+        out["poison"] = np.zeros_like(out["sum"])
+        for k in _STRIPE_KEYS:
+            if k in out:
+                out[k] = out[k][arr["roi"]]
+        self._routes.add("rescale_torch")
+        return out
+
+    def _side_outputs(self, dev, arr, W, G, out):
+        """The side sums beside the window accumulation (the reference's
         ``_pallas_side_outputs``): coverage from the exact (group,
         start-bin) histogram, or by device scatter-add where its [G, n]
         table would pass ``_COV_HIST_MAX`` entries; expected emission from
-        the (group, dd0) histogram; and the ROI snips' stripe planes,
-        gathered from the session's normalized stack (the vertical one
-        reversed, reference coolpup.py:1164–1188)."""
+        the (group, dd0) histogram."""
         cidl = arr["cidl"]
         if self.coverage_norm:
             n_cov = max(len(dev["cov1"]), len(dev["cov2"]))
@@ -788,11 +986,6 @@ class PileUpper:
             out["exp_sum"], out["exp_num"] = expected_toeplitz_sums(
                 cidl, arr["dd0"], dev["evec"], W, G
             )
-        if self.store_stripes:
-            roi = arr["roi"]
-            hv = session.run_stripes(arr["r1"][roi], arr["r2"][roi])
-            out["horizontal_stripe"] = hv[:, :W]
-            out["vertical_stripe"] = hv[:, W:][:, ::-1]
 
     @staticmethod
     def _package_stripes(acc, arr, coord_blocks, G):
@@ -1007,9 +1200,10 @@ class PileUpper:
 
     def _annotation(self):
         """Run-parameter provenance columns (reference coolpup.py:1628–1654),
-        plus the port's own: the backend, the device, the accumulate route
-        each region took (``cuda_kernel`` or ``plain``) and the reference
-        keywords the port accepts and ignores."""
+        plus the port's own: the backend, the device, the accumulate routes
+        the regions took (``cuda_kernel`` or ``plain`` for the quad kernel,
+        ``generic_torch``, ``rescale_torch``) and the reference keywords the
+        port accepts and ignores."""
         fname = self.clr.filename
         device_name = str(self.device)
         if self.device.type == "cuda":
@@ -1177,14 +1371,20 @@ class PileUpper:
         """One pup per anchor window: every snip contributes to the groups
         of both its anchors (reference coolpup.py:1696–1756). Groups ride
         the integer anchor id of ``CoordCreator`` and map back to window
-        labels once per group. BEDPE rows have no shared anchor id; the
-        reference groups them through its ``postprocess_frame_func`` hook,
-        which is not ported yet."""
+        labels once per group. BEDPE rows have no shared anchor id, and
+        rescaled windows do not fit the dual-anchor path; the reference
+        groups both through its ``postprocess_frame_func`` hook, which is
+        not ported yet."""
         if self.local:
             raise ValueError("Cannot do by-window pileups for local")
         if self.CC.kind != "bed":
             raise _not_ported(
                 "by-window pileups of BEDPE features (grouped through the "
+                "postprocess_frame_func hook)", 4,
+            )
+        if self.rescale:
+            raise _not_ported(
+                "by-window pileups under rescale (grouped through the "
                 "postprocess_frame_func hook)", 4,
             )
         pups = self.pileupsWithControl(nproc=nproc, dual_anchor=True)
@@ -1318,8 +1518,7 @@ def pileup(
     package's parameters minus ``mesh`` and ``backend``, plus ``device``
     (``"cuda"``: the hand-written kernel on the card, raising without one;
     ``"cpu"``: the plain PyTorch version). ``clr`` is a
-    ``coolpuppy_tpu_torch.Cooler``. ``rescale`` raises
-    NotImplementedError."""
+    ``coolpuppy_tpu_torch.Cooler``."""
     groupby = groupby or []
     distance_edges = "default"
     if by_distance is not False:
@@ -1343,6 +1542,9 @@ def pileup(
                 "Invalid by_distance value: True, 'default' or a list of "
                 "integers"
             )
+
+    if not rescale:
+        rescale_flank = None
 
     if view_df is None:
         view_df = make_cooler_view(clr)
@@ -1369,6 +1571,8 @@ def pileup(
         mindist = "auto"
     if maxdist is None:
         maxdist = np.inf
+    if rescale and rescale_size % 2 == 0:
+        raise ValueError("Please provide an odd rescale_size")
     if by_window:
         if features_format != "bed":
             raise ValueError(
@@ -1382,7 +1586,7 @@ def pileup(
         resolution=clr.binsize,
         features_format=features_format,
         flank=flank,
-        rescale_flank=None,
+        rescale_flank=rescale_flank,
         chroms=list(view_df["chrom"].unique()),
         minshift=minshift,
         maxshift=maxshift,

@@ -1,9 +1,6 @@
 """Host-side genomic interval algebra (counterpart of
 ``coolpuppy_tpu/genomics/intervals.py``): natural sort, interval expansion,
 viewframes and expected-table checks, copied as pandas/numpy.
-
-The rescale forms of the expansions (``rescale_flank``) come with rescaled
-pileups.
 """
 
 from __future__ import annotations
@@ -28,12 +25,19 @@ def natsorted(seq):
     return sorted(seq, key=natsort_key)
 
 
-def expand_intervals(intervals, flank, resolution):
+def expand_intervals(intervals, flank, resolution, rescale_flank=None):
     """Pad bed intervals by ``flank`` around the bin of their center
-    (reference coolpup.py:78–91; the rescale form comes with rescaled
-    pileups)."""
+    (reference coolpup.py:78–91). With ``rescale_flank`` set, scale each
+    interval by ``2*rescale_flank + 1`` about its center instead
+    (bioframe.expand(scale=...) semantics)."""
     # shallow: only NEW exp_* columns are assigned
     intervals = intervals.copy(deep=False)
+    if rescale_flank is not None:
+        scale = 2 * rescale_flank + 1
+        pad = (scale - 1) / 2 * (intervals["end"] - intervals["start"])
+        intervals["exp_start"] = np.round(intervals["start"] - pad)
+        intervals["exp_end"] = np.round(intervals["end"] + pad)
+        return intervals
     s = intervals["start"].to_numpy()
     e = intervals["end"].to_numpy()
     if s.dtype.kind in "iu" and e.dtype.kind in "iu":
@@ -53,10 +57,19 @@ def expand_intervals(intervals, flank, resolution):
     return intervals
 
 
-def expand_intervals_2d(intervals, flank, resolution):
+def expand_intervals_2d(intervals, flank, resolution, rescale_flank=None):
     """2D (bedpe) version of ``expand_intervals``: each side padded around
-    the bin of its own center (reference coolpup.py:94–115)."""
+    the bin of its own center, or scaled about it under ``rescale_flank``
+    (reference coolpup.py:94–115)."""
     intervals = intervals.copy(deep=False)  # only adds exp_* columns
+    if rescale_flank is not None:
+        scale = 2 * rescale_flank + 1
+        for side in ("1", "2"):
+            st, en = intervals[f"start{side}"], intervals[f"end{side}"]
+            pad = (scale - 1) / 2 * (en - st)
+            intervals[f"exp_start{side}"] = np.round(st - pad)
+            intervals[f"exp_end{side}"] = np.round(en + pad)
+        return intervals
     for side in ("1", "2"):
         s = intervals[f"start{side}"].to_numpy()
         e = intervals[f"end{side}"].to_numpy()

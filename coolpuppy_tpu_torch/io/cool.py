@@ -292,6 +292,31 @@ class Cooler:
             shape=(hi1 - lo1, hi2 - lo2), mirror=mirror, weights=weights,
         )
 
+    def fetch_coo(self, region1, region2=None, balance="weight"):
+        """Sparse COO of the query rectangle with both triangles present,
+        optionally balanced (counterpart of the reference's ``fetch_coo``,
+        ``clr.matrix(sparse=True, balance=...).fetch(r1, r2)``): counts in
+        float64, bad-bin (NaN-weight) products mapped to 0."""
+        from scipy import sparse as sp
+
+        slab = self.fetch_slab(region1, region2, balance=balance,
+                               dtype=np.float64)
+        rows, cols, vals = slab.rows, slab.cols, slab.vals
+        if slab.weights is not None:
+            balance = "weight" if balance is True else balance
+            w = np.nan_to_num(self._bins_df[balance].values.astype(np.float64))
+            vals = vals * w[rows] * w[cols]
+        if slab.mirror:
+            off = rows != cols
+            rows, cols, vals = (
+                np.concatenate([rows, cols[off]]),
+                np.concatenate([cols, rows[off]]),
+                np.concatenate([vals, vals[off]]),
+            )
+        return sp.coo_matrix(
+            (vals, (rows - slab.lo1, cols - slab.lo2)), shape=slab.shape
+        )
+
     def pixels_chunk(self, start, stop):
         """Raw pixels [start, stop) as (bin1, bin2, count float64)."""
         return (

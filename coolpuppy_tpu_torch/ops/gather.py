@@ -1,8 +1,12 @@
-"""Accumulator helpers (counterpart of ``coolpuppy_tpu/ops/gather.py``),
-copied as numpy because the reference module imports jax at its top: the
+"""The generic pile-up step and the accumulator helpers (counterpart of
+``coolpuppy_tpu/ops/gather.py``).
+
+Copied as numpy, because the reference module imports jax at its top: the
 flip-bank merge and the exact histogram forms of the coverage and
-expected-emission side sums; and, as torch ops, the coverage scatter-add
-that replaces the histogram at by-window group counts.
+expected-emission side sums. As torch ops: the coverage scatter-add that
+replaces the histogram at by-window group counts, and ``generic_accumulate``,
+the counterpart of ``make_pileup_step_fn`` for windows wider than the quad
+kernel takes (W > 120).
 """
 
 from __future__ import annotations
@@ -10,7 +14,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .tiles import cut_windows
+
 COV_CHUNK = 131072  # snips per coverage scatter-add (coverage_scatter_sums)
+GENERIC_PIXELS = 1 << 24  # window pixels per block of generic_accumulate
 
 
 def merge_flip_banks(out, half):
@@ -102,3 +109,41 @@ def expected_toeplitz_sums(cid, dd0, evec, W, G):
 
     kmap = (np.arange(W)[:, None] - np.arange(W)[None, :]) + (W - 1)
     return m_sum[:, kmap], m_num[:, kmap]
+
+
+def generic_accumulate(stiles, tile_map, r1, r2, cid, W, C, stripes=False,
+                       block=None):
+    """The generic fused step (the reference's ``make_pileup_step_fn``,
+    ops/gather.py:111-234) for any window size W: each snip's [W, W] window
+    is cut from the NaN-encoded normalized stack ``stiles`` (masked pixels
+    NaN, OOE-divided values, +inf poison; ``ops/tiles.cut_windows``) and
+    added into float32 accumulators [C, W, W] by ``index_add_`` over
+    ``cid``: ``sum`` the finite values, ``num`` their count, ``poison`` the
+    count of infinite values. Blocks of ``block`` snips bound the
+    temporaries (``GENERIC_PIXELS`` window pixels, ~300 MB). With
+    ``stripes``, also returns every snip's centre row and reversed centre
+    column [n, W], non-finite values as NaN (reference :157-165).
+    ``r1``, ``r2`` and ``cid`` are int tensors on ``stiles.device``."""
+    dev = stiles.device
+    block = block or max(1, GENERIC_PIXELS // (W * W))
+    acc = {k: torch.zeros((C, W, W), dtype=torch.float32, device=dev)
+           for k in ("sum", "num", "poison")}
+    hs, vs = [], []
+    mid = W // 2
+    for lo in range(0, len(r1), block):
+        sl = slice(lo, lo + block)
+        win = cut_windows(stiles, tile_map, r1[sl], r2[sl], W)
+        fin = torch.isfinite(win)
+        g = cid[sl]
+        acc["sum"].index_add_(0, g, torch.where(fin, win, 0.0))
+        acc["num"].index_add_(0, g, fin.to(torch.float32))
+        acc["poison"].index_add_(0, g, torch.isinf(win).to(torch.float32))
+        if stripes:
+            snip = torch.where(fin, win, torch.nan)
+            hs.append(snip[:, mid, :])
+            vs.append(snip[:, :, mid].flip(1))
+    if stripes:
+        empty = torch.zeros((0, W), dtype=torch.float32, device=dev)
+        acc["horizontal_stripe"] = torch.cat(hs) if hs else empty
+        acc["vertical_stripe"] = torch.cat(vs) if vs else empty
+    return acc

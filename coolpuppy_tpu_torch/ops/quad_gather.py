@@ -255,7 +255,7 @@ class QuadPileupSession:
     ``fold_weights=True`` raises NotImplementedError."""
 
     def __init__(self, tile_stack, valid1, valid2, evec, cfg_kw, device):
-        from .tiles import SymTileStack, TileStack, expand_sym, normalize_tiles
+        from .tiles import normalized_stack
 
         cfg_kw = dict(cfg_kw)
         self.W = int(cfg_kw.pop("W"))
@@ -283,19 +283,8 @@ class QuadPileupSession:
                              f"[1, {C_MAX}]")
         self.device = torch.device(device)
         self.tile_stack = tile_stack
-        if isinstance(tile_stack, SymTileStack):
-            tiles = expand_sym(tile_stack, self.device)
-        elif isinstance(tile_stack, TileStack):
-            tiles = torch.from_numpy(
-                np.ascontiguousarray(tile_stack.tiles, np.float32)
-            ).to(self.device)
-        else:
-            raise TypeError(
-                f"QuadPileupSession: unsupported {type(tile_stack).__name__}"
-            )
-        self.stiles = normalize_tiles(
-            tiles, tile_stack.tile_map, B_TILE, valid1, valid2, evec=evec,
-            **norm,
+        self.stiles = normalized_stack(
+            tile_stack, valid1, valid2, evec, self.device, **norm
         )
 
     def stage(self, r1, r2, cid):

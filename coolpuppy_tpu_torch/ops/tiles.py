@@ -8,8 +8,11 @@ any ``coolpuppy_tpu`` module imports jax. The native C++ scatter of the
 reference is not ported; the numpy branch is the only path.
 
 The device half ports the reference's jnp functions as torch ops:
-``expand_sym`` (upper tiles -> full raw stack) and ``normalize_tiles``
-(raw stack -> one NaN-encoded observed-over-expected stack).
+``expand_sym`` (upper tiles -> full raw stack), ``normalize_tiles`` (raw
+stack -> one NaN-encoded observed-over-expected stack), ``normalized_stack``
+(both, from a host tile stack) and ``cut_windows`` (windows of any size cut
+from that stack through its tile map: the generic and rescale paths, in
+place of the reference's bucket restack and 2×2 superwindows).
 """
 
 from __future__ import annotations
@@ -127,25 +130,32 @@ def _sym_maps(want, nr, nc):
 
 def touched_tiles(r1, r2, window1, window2, B, shape):
     """Set of (tile_row, tile_col) touched by windows starting at (r1, r2)
-    with heights window1 and widths window2 (arrays or scalars)."""
+    with heights window1 and widths window2 (arrays or scalars), as flat
+    ids ``tile_row * nc + tile_col``; windows may span any number of
+    tiles."""
     n1, n2 = shape
     nr, nc = -(-n1 // B), -(-n2 // B)
     w1 = np.broadcast_to(np.asarray(window1), np.shape(r1))
     w2 = np.broadcast_to(np.asarray(window2), np.shape(r2))
-    t1a = np.asarray(r1) // B
-    t1b = (np.asarray(r1) + w1 - 1) // B
-    t2a = np.asarray(r2) // B
-    t2b = (np.asarray(r2) + w2 - 1) // B
-    # windows span at most 2 tiles per axis (B >= max window): flag the four
-    # corner tiles per window in a bitmap
+    r1, r2 = np.asarray(r1), np.asarray(r2)
+
+    def lines(ta, tb):
+        # each window's first and last tile on one axis (the four corner
+        # tiles of the reference, for windows narrower than B) and, for
+        # wider windows (rescale extents, W > B), the d-th tile between
+        # them, min(ta + d, tb)
+        span = int((tb - ta).max(initial=0))
+        mids = [np.minimum(ta + d, tb) for d in range(1, span)]
+        return [t.astype(np.int64, copy=False)
+                for t in ([ta, *mids, tb] if span else [ta])]
+
+    rows = lines(r1 // B, (r1 + w1 - 1) // B)
+    cols = lines(r2 // B, (r2 + w2 - 1) // B)
     flags = np.zeros(nr * nc, dtype=bool)
-    for rr, cc in (
-        (t1a, t2a),
-        (t1a, t2b),
-        (t1b, t2a),
-        (t1b, t2b),
-    ):
-        flags[rr.astype(np.int64) * nc + cc.astype(np.int64)] = True
+    for rr in rows:
+        rr = rr * nc
+        for cc in cols:
+            flags[rr + cc] = True
     return np.flatnonzero(flags), nr, nc
 
 
@@ -517,3 +527,44 @@ def normalize_tile_stack_device(
         cis=cis, ignore_diags=ignore_diags, frame_shift=frame_shift,
         slab=slab,
     )
+
+
+def normalized_stack(tile_stack, valid1, valid2, evec, device, **norm):
+    """A host ``TileStack`` or ``SymTileStack`` uploaded to ``device``,
+    expanded and normalized into ONE NaN-encoded float32 stack
+    [K+1, B, B] (``normalize_tiles`` with the keywords ``norm``)."""
+    if isinstance(tile_stack, SymTileStack):
+        tiles = expand_sym(tile_stack, device)
+    elif isinstance(tile_stack, TileStack):
+        tiles = torch.from_numpy(
+            np.ascontiguousarray(tile_stack.tiles, np.float32)
+        ).to(device)
+    else:
+        raise TypeError(
+            f"normalized_stack: unsupported {type(tile_stack).__name__}"
+        )
+    return normalize_tiles(
+        tiles, tile_stack.tile_map, tile_stack.B, valid1, valid2, evec=evec,
+        **norm,
+    )
+
+
+def cut_windows(stiles, tile_map, r1, r2, H, h1=None, w2=None):
+    """[b, H, H] windows cut from a NaN-encoded stack ``stiles`` [K, B, B]
+    through its device tile map (int64 [nr+1, nc+1]): pixel (i, j) of the
+    window starting at (r1, r2) is
+    ``stiles[tile_map[(r1+i)//B, (r2+j)//B], (r1+i)%B, (r2+j)%B]``, one
+    gather per block. With logical sizes ``h1``/``w2`` (rescale), offsets
+    past them are clamped to the last row/column of the logical window,
+    whose tiles the window touches; the caller masks those pixels."""
+    B = stiles.shape[-1]
+    ar = torch.arange(H, device=stiles.device)
+    i = ar[None, :] if h1 is None else torch.minimum(ar[None, :],
+                                                     h1[:, None] - 1)
+    j = ar[None, :] if w2 is None else torch.minimum(ar[None, :],
+                                                     w2[:, None] - 1)
+    rows = r1[:, None] + i  # [b, H]
+    cols = r2[:, None] + j
+    tid = tile_map[(rows // B)[:, :, None], (cols // B)[:, None, :]]
+    idx = (tid * B + (rows % B)[:, :, None]) * B + (cols % B)[:, None, :]
+    return stiles.reshape(-1)[idx]

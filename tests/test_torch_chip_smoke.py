@@ -40,3 +40,36 @@ def test_modes_phase_rehearsal(monkeypatch, capsys):
         assert f"modes {cell} snips/s:" in out
     assert "stripe rows equal stripes_host" in out
 
+
+def test_rescale_and_wide_phase_rehearsal(monkeypatch, capsys):
+    """Phase 7b and 7c at a tiny size: 50 TADs (widths cut to a quarter so
+    the extents stay within two 128-bin buckets) held against the host
+    loop, and 200 sites at W = 123."""
+    full_rescale = chip_smoke.rescale_workload
+
+    def rescale_workload():
+        clr, feats = full_rescale(n_tads=50, n_bins=1_500, n_contacts=150_000)
+        bins = (feats["end"] - feats["start"]) // clr.binsize
+        return clr, feats.assign(end=feats["start"] + bins // 4 * clr.binsize)
+
+    ms = chip_smoke.check_rescale_cell(torch.device("cpu"), lambda: None,
+                                       "cpu rehearsal",
+                                       workload=rescale_workload)
+    assert sorted(ms) == ["local", "local_ooe"]
+    monkeypatch.setattr(chip_smoke, "WIDE_CELL_KW", dict(
+        chip_smoke.WIDE_CELL_KW, flank=610_000, maxdist=1_500_000))
+    chip_smoke.check_wide_cell(
+        torch.device("cpu"), lambda: None, "cpu rehearsal",
+        workload=lambda: chip_smoke.engine_workload(
+            n_sites=200, n_bins=1_500, n_contacts=150_000),
+    )
+    out = capsys.readouterr().out
+    for variant in ("local", "local_ooe"):
+        assert f"rescale {variant} checked run:" in out
+        assert f"rescale {variant} vs the host loop" in out
+        assert f"rescale {variant} rescale_accumulate: device span" in out
+        assert f"rescale {variant} snips/s:" in out
+    assert "W 123, route generic_torch" in out
+    assert "wide generic_accumulate: device span" in out
+    assert "wide snips/s:" in out
+

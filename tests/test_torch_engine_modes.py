@@ -10,6 +10,7 @@ import pandas as pd
 import pytest
 import torch
 
+import coolpuppy_tpu as ref
 import coolpuppy_tpu_torch as port
 from fixtures import make_toy_cooler, toy_expected, toy_features, toy_regions
 from test_golden_modes import many_features
@@ -59,6 +60,10 @@ GOLDEN_MODES = {
                    ("data", "num", "n")),
     "mode_by_window": (dict(by_window=True, mindist=0, flank=3_000_000),
                        None),
+    # many_features() as 4 Mb TADs (tests/test_golden_modes.py:153-165)
+    "mode_rescale": (dict(local=True, rescale=True, rescale_flank=1,
+                          rescale_size=33, mindist=0, tad_width=4_000_000),
+                     ("data", "n")),
 }
 
 
@@ -123,6 +128,8 @@ def test_golden_modes(golden_toy, name):
     feats = _golden_bedpe() if kw["features_format"] == "bedpe" else (
         many_features()
     )
+    if "tad_width" in kw:
+        feats = feats.assign(end=feats["start"] + kw.pop("tad_width"))
     pup = port.pileup(clr, feats, view_df=toy_regions(), device="cpu", **kw)
     _check_golden(name, _golden_values(pup, keys))
 
@@ -143,28 +150,44 @@ _KW = dict(features_format="bed", view_df=toy_regions(), mindist=0,
            flank=2_000_000, device="cpu")
 
 
-@pytest.mark.parametrize(
-    "kw",
-    [
-        dict(rescale=True, local=True),
-        dict(flank=61_000_000),  # W = 123 > 120, the generic path
-    ],
-    ids=["rescale", "wide_window"],
-)
-def test_out_of_slice_modes_raise(property_toy, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.pileup(property_toy, toy_features(), **dict(_KW, **kw))
+def _bedpe(feats):
+    """BEDPE rows pairing each toy feature with itself."""
+    return feats.rename(columns={"chrom": "chrom1", "start": "start1",
+                                 "end": "end1"}).assign(
+        chrom2=feats["chrom"], start2=feats["start"], end2=feats["end"])
+
+
+@pytest.mark.parametrize("kind", ["bed", "bedpe"],
+                         ids=["rescale", "rescale_bedpe"])
+def test_out_of_slice_modes_raise(property_toy, kind):
+    """By-window pileups under rescale group through the
+    postprocess_frame_func hook in the reference: they raise, for BED
+    features and for BEDPE rows."""
+    feats = toy_features()
+    feats = feats.assign(end=feats["start"] + 3_000_000)
+    cc = port.CoordCreator(feats if kind == "bed" else _bedpe(feats),
+                           1_000_000, features_format=kind, rescale_flank=1,
+                           mindist=0)
+    pu = port.PileUpper(property_toy, cc, rescale=True, rescale_size=9,
+                        view_df=toy_regions(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 4"):
+        pu.pileupsByWindowWithControl()
 
 
 def test_bedpe_and_hooks_raise(property_toy):
-    """The extension hooks, rescale_flank, and by-window pileups of BEDPE
-    rows (the reference groups those through a hook) raise."""
+    """The extension hooks and by-window pileups of BEDPE rows (the
+    reference groups those through a hook) raise; ``rescale_flank`` gives
+    the reference's expanded intervals."""
     feats = toy_features()
-    bedpe = feats.rename(columns={"chrom": "chrom1", "start": "start1",
-                                  "end": "end1"}).assign(
-        chrom2=feats["chrom"], start2=feats["start"], end2=feats["end"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.CoordCreator(feats, 1_000_000, rescale_flank=1)
+    bedpe = _bedpe(feats)
+    for f, fmt, cols in ((feats, "bed", ["exp_start", "exp_end"]),
+                         (bedpe, "bedpe", ["exp_start1", "exp_end1",
+                                           "exp_start2", "exp_end2"])):
+        got = port.CoordCreator(f, 1_000_000, features_format=fmt,
+                                rescale_flank=1.5, mindist=0).intervals
+        want = ref.CoordCreator(f, 1_000_000, features_format=fmt,
+                                rescale_flank=1.5, mindist=0).intervals
+        pd.testing.assert_frame_equal(got[cols], want[cols])
     cc = port.CoordCreator(feats, 1_000_000, features_format="bed",
                            flank=2_000_000, mindist=0)
     pu = port.PileUpper(property_toy, cc, device="cpu")
