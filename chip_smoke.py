@@ -10,25 +10,38 @@ printing its lines:
 1. probe: torch/CUDA and pandas versions, the card's name and power limit
    (``nvidia-smi``), the ``nvcc`` release, and which of triton, pandas, h5py
    and jax are importable (jax is only looked up, never imported);
-2. build: compiles ``coolpuppy_tpu_torch/csrc/*.cu`` for sm_90a and loads it;
-3. kernel vs plain: the CUDA quad gather-accumulate against its plain
-   PyTorch version at W = 11, 21, 65 and 120 on small synthetic stacks (a
-   900-snip quad, group ids above 512, zero ``evec`` entries that poison
-   sums with +inf, an empty stream): ``num`` exact, poison planes equal,
-   finite ``sum`` within rtol 1e-5 / atol 1e-5;
+2. build: compiles ``coolpuppy_tpu_torch/csrc/*.cu`` for sm_90a and loads
+   it, with ptxas' register and spill report, and the staged kernel's
+   shared memory, threads and resident blocks per SM at W = 21, 33, 65;
+3. kernel vs plain: both CUDA quad kernels (the staged one wherever its
+   corner fits shared memory, the direct one at every W) against the plain
+   PyTorch version on small inputs: W = 11, 21, 65 and 120 on synthetic
+   stacks (a 900-snip quad, group ids above 512, zero ``evec`` entries that
+   poison sums with +inf, an empty stream), the largest staged W and the
+   first direct W, a quad of more than 50 groups in runs of 1-3 snips, quads
+   of exactly ``ITEM_MAX`` and ``ITEM_MAX + 1`` snips, an item longer than
+   the kernel's chunk, and quads with missing tiles (slot 0): ``num`` exact,
+   poison planes equal, finite ``sum`` within rtol 1e-5 / atol 1e-5; the
+   routed ``quad_accumulate`` must take the variant ``corner_layout`` names;
 4. the slice at the headline size (``bench.make_workload``: a 20,000-bin
    chromosome, 12M contacts, 1M loci, W = 21, observed-over-expected, 4
    groups, 25% flips): COO -> ``build_tile_stack_sym`` ->
    ``QuadPileupSession(device="cuda")`` -> ``run_many`` -> ``finalize`` ->
-   ``merge_flip_banks``. It checks that the kernel ran on that path, holds
-   the path's own accumulators and a second launch of the kernel against
-   the plain version on the card (``num`` exact, poison
+   ``merge_flip_banks``. It checks that the staged kernel ran on that path,
+   holds the path's own accumulators and one more launch of each kernel
+   against the plain version on the card (``num`` exact, poison
    equal, ``sum`` rtol 1e-4: float32 atomics add ~250k snips per (group,
    pixel) in an order that changes from run to run) and a 20,000-snip subset
    against the host oracle (numpy normalize + window cuts + nansum: ``num``
-   exact, ``sum`` rtol 1e-5), then times the kernel, the plain version and
-   the whole path (with its phases), and prints the device's busy share of
-   one end-to-end run from ``torch.profiler``;
+   exact, ``sum`` rtol 1e-5), then times the two kernels in turns (direct,
+   staged, staged, direct; the kernel's device time from the profiler, the
+   launcher call between CUDA events), the staged kernel's alternatives
+   (pixels a thread, ``ITEM_MAX``), the plain version and
+   the whole path (with its phases), prints the kernel's bound (bytes over
+   3.35 TB/s against float adds over 67 TFLOP/s) and its share of it, the
+   device's busy share of one end-to-end run from ``torch.profiler``, and a
+   sweep over W = 11, 33, 65, the largest staged W and the first direct W
+   at 100,000 loci of the same map, each held against the plain version;
 5. the engine: ``coolpuppy_tpu_torch.pileup`` on an in-memory ``Cooler``.
    (a) Every mode of the port (``ENGINE_MODES``) on a toy two-chromosome
    map with ``device="cuda"`` and with ``device="cpu"`` (the plain
@@ -38,12 +51,12 @@ printing its lines:
    chromosome at 10 kb, 12M zipf contacts, 3% NaN-weight bins, 20,000
    stranded sites; ``pileup(flank=100_000, maxdist=2_000_000, nshifts=1,
    seed=0, by_strand=True)``, W = 21): a 1,000-site warm-up, then a checked
-   run that must launch the kernel and record ``cuda_kernel``, the same run
-   with ``quad_accumulate`` swapped for the plain version (0 launches; ``n``,
-   ``control_n`` and ``num`` exact, ``data`` rtol 1e-4), three timed runs
-   (engine snips/s = ROI ``n`` + ``control_n`` of the ``all`` row over the
-   wall, median, with the engine's phase breakdown) and the busy share of
-   one run.
+   run that must launch the staged kernel and record ``cuda_kernel``, the
+   same run with ``quad_accumulate`` swapped for the plain version (0
+   launches; ``n``, ``control_n`` and ``num`` exact, ``data`` rtol 1e-4),
+   three timed runs (engine snips/s = ROI ``n`` + ``control_n`` of the
+   ``all`` row over the wall, median, with the engine's phase breakdown),
+   the busy share of one run and the kernel's time there beside its bound.
 6. the 2D modes. (a) The trans, BEDPE, by-window and stripes modes
    (``MODES_2D``) on the toy map, card against CPU as in 5a, with
    by-window rows keyed on chrom/start/end, stripe planes within rtol 1e-5
@@ -57,9 +70,10 @@ printing its lines:
    route ``cuda_kernel``), the same run with ``quad_accumulate`` swapped for
    the plain version (0 launches; counts exact, ``data`` rtol 1e-4), two
    timed runs (snips/s = the ``all`` row's ``n`` over the wall, median,
-   with the phase breakdown) and the busy share and kernel share of one
-   run. The stripes cell also holds 20,000 of the card's stripe rows
-   against ``quad_gather.stripes_host`` on the fetched stack.
+   with the phase breakdown), the busy share and kernel share of one
+   run and the kernel's time beside its bound. The stripes cell also holds
+   20,000 of the card's stripe rows against ``quad_gather.stripes_host`` on
+   the fetched stack.
 7. rescale and wide windows (no kernel of their own: torch ops).
    (a) The rescale modes (``RESCALE_MODES``: local, with controls, with
    stripes, OOE, expected emission, coverage_norm, BEDPE, trans) and the
@@ -105,6 +119,16 @@ B = 128
 SMALL_TOL = dict(rtol=1e-5, atol=1e-5)
 HEADLINE_RTOL = 1e-4
 REPEATS = 5
+PLAIN_REPEATS = 3
+KERNEL_ROUNDS = 3  # rounds of (direct, staged, staged, direct)
+# published peaks of one H100 SXM: device memory bytes/s, float32 FLOP/s
+# outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+SWEEP_LOCI = 100_000
+SWEEP_W = (11, 33, 65)  # plus the largest staged W and the first direct W
+SWEEP_FULL_W = 11  # also swept over every locus of the headline
+ITEM_MAX_SWEEP = (512, 1024, 2048, 4096, 8192)
 
 # phase 5: the modes of the port's pileup() on the toy map (TOY_KW plus
 # these); "expected_df": True stands for the toy expected table
@@ -294,22 +318,209 @@ def small_problem(W, seed):
     return coo, r1, r2, cid, valid, evec, cfg_kw
 
 
-def kernel_cases(device):
-    """Phase 3's inputs on ``device``: ``(name, args)`` where ``args`` are
-    the ``quad_accumulate`` arguments ``(stiles, k, qstart, qcount, snips,
-    W, C)``."""
-    from coolpuppy_tpu_torch.ops.quad_gather import QuadPileupSession
+def staged_limit():
+    """``(largest staged W, first direct W)`` from ``corner_layout``."""
+    from coolpuppy_tpu_torch.ops.quad_gather import W_MAX, corner_layout
+
+    first = next(W for W in range(1, W_MAX + 1)
+                 if not corner_layout(W).staged)
+    return first - 1, first
+
+
+def synthetic_case(W, seed, counts, k, runs=None, C=64):
+    """A stack of random tiles (10% NaN, 1% +inf, slot 0 all NaN) and
+    quads ``k`` ([nq, 4] slots, 0 = a missing tile) of ``counts`` snips
+    each at random offsets (some at 127), groups sorted inside a quad: drawn
+    from [0, C), or with ``runs`` in runs of 1..runs snips of rising groups.
+    Returns ``(stiles, (snips, k, qstart, qcount), W, C)`` as numpy."""
+    rng = np.random.default_rng(seed)
+    k = np.asarray(k, np.int32)
+    counts = np.asarray(counts, np.int32)
+    st = rng.gamma(1.0, 1.0, (int(k.max()) + 1, B, B)).astype(np.float32)
+    st[rng.random(st.shape) < 0.1] = np.nan
+    st[rng.random(st.shape) < 0.01] = np.inf
+    st[0] = np.nan
+    n = int(counts.sum())
+    o1, o2 = rng.integers(0, 128, (2, n))
+    o1[::97], o2[::89] = 127, 127
+    if runs:
+        g = [np.repeat(np.arange(c), rng.integers(1, runs + 1, c))[:c]
+             for c in counts]
+        C = max(C, int(max(x.max() for x in g if len(x)) + 1))
+    else:
+        g = [np.sort(rng.integers(0, C, c)) for c in counts]
+    from coolpuppy_tpu_torch.ops.quad_gather import pack_snips
+
+    snips = pack_snips(o1, o2, np.concatenate(g))
+    qstart = (np.cumsum(counts) - counts).astype(np.int32)
+    return st, (snips, k, qstart, counts), W, C
+
+
+def kernel_cases():
+    """Phase 3's inputs: ``(name, stiles, quads, W, C)`` with ``stiles`` a
+    float32 numpy stack and ``quads = (snips, k, qstart, qcount)`` the
+    unsplit output of ``sort_quads`` (numpy)."""
+    from coolpuppy_tpu_torch.ops.quad_gather import (
+        ITEM_MAX,
+        STAGE_CHUNK,
+        QuadPileupSession,
+        sort_quads,
+    )
     from coolpuppy_tpu_torch.ops.tiles import build_tile_stack_sym
 
-    for W, seed in ((11, 7), (21, 8), (65, 9), (120, 10)):
+    last_staged, first_direct = staged_limit()
+    for W, seed in ((11, 7), (21, 8), (65, 9), (120, 10), (last_staged, 11),
+                    (first_direct, 12)):
         coo, r1, r2, cid, valid, evec, cfg_kw = small_problem(W, seed)
         ts = build_tile_stack_sym(coo, B, r1=r1, r2=r2, window1=W, window2=W)
-        sess = QuadPileupSession(ts, valid, valid, evec, cfg_kw, device)
-        yield f"W={W}", (sess.stiles, *sess.stage(r1, r2, cid), W, sess.C)
+        sess = QuadPileupSession(ts, valid, valid, evec, cfg_kw, "cpu")
+        st = sess.stiles.numpy()
+        yield (f"W={W}", st, sort_quads(r1, r2, cid, ts.tile_map, B), W,
+               sess.C)
         if W == 21:
             empty = np.zeros(0, np.int32)
-            yield "W=21 empty", (sess.stiles, *sess.stage(empty, empty, empty),
-                                 W, sess.C)
+            yield ("W=21 empty", st,
+                   sort_quads(empty, empty, empty, ts.tile_map, B), W, sess.C)
+    full = [1, 2, 3, 4]
+    yield ("W=21 by-window runs", *synthetic_case(
+        21, 13, [150, 90, 3], [full, [5, 6, 7, 8], full], runs=3))
+    yield ("W=21 ITEM_MAX cuts", *synthetic_case(
+        21, 14, [ITEM_MAX, ITEM_MAX + 1, 1], [full, [5, 6, 7, 8], full]))
+    yield ("W=21 item longer than the chunk", *synthetic_case(
+        21, 15, [2 * STAGE_CHUNK + 77, 40], [full, [5, 6, 7, 8]], C=9))
+    missing = [[1, 0, 2, 0], [0, 0, 3, 4], [0, 0, 0, 0], [0, 5, 0, 0]]
+    for W in (21, 33, first_direct):
+        yield (f"W={W} missing tiles", *synthetic_case(
+            W, 16 + W, [60, 50, 7, 40], missing))
+
+
+def variant_args(quads, variant, device):
+    """``quad_accumulate`` arguments on ``device`` for one kernel: the
+    quads cut by ``split_items`` ("staged"), by ``split_runs`` ("direct"),
+    or left whole ("whole": one item per quad, many groups, any length)."""
+    import torch
+
+    from coolpuppy_tpu_torch.ops.quad_gather import split_items, split_runs
+
+    snips, k, qstart, qcount = quads
+    if variant == "staged":
+        k, qstart, qcount = split_items(k, qstart, qcount)
+    elif variant == "direct":
+        k, qstart, qcount = split_runs(snips, k, qstart, qcount)
+    return tuple(
+        torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+        for a in (k, qstart, qcount, snips)
+    )
+
+
+def check_case(name, stiles, quads, W, C, device, sync):
+    """One phase-3 case: every kernel that takes this W against the plain
+    version (``num`` exact, poison equal, ``sum`` within SMALL_TOL), and the
+    routed ``quad_accumulate`` on the items its kernel takes. Returns the
+    variants held and the largest absolute error."""
+    import torch
+
+    import coolpuppy_tpu_torch.ops.quad_gather as qg
+
+    st = torch.from_numpy(stiles).to(device)
+    want = qg.quad_accumulate_plain(
+        st, *variant_args(quads, "whole", device), W, C)
+    staged = qg.corner_layout(W).staged
+    runs = [("direct", qg.quad_accumulate_direct, "direct")]
+    if staged:
+        runs += [("staged", qg.quad_accumulate_staged, "staged"),
+                 ("staged, whole quads", qg.quad_accumulate_staged, "whole")]
+    runs.append(("routed", qg.quad_accumulate,
+                 "staged" if staged else "direct"))
+    err = 0.0
+    for label, fn, split in runs:
+        args = variant_args(quads, split, device)
+        before = dict(qg.VARIANT_LAUNCHES)
+        got = fn(st, *args, W, C)
+        sync()
+        took = {v: qg.VARIANT_LAUNCHES[v] - before[v] for v in before}
+        n_items = int(args[0].shape[0])
+        if label == "routed" and took != {
+                "staged": int(staged and n_items > 0),
+                "direct": int(not staged and n_items > 0)}:
+            raise AssertionError(f"{name}: routed launch counted {took}")
+        err = max(err, compare(got, want, what=f"{label} vs plain {name}",
+                               **SMALL_TOL))
+    return [label for label, _, _ in runs], err, want
+
+
+def check_kernels(dev, sync):
+    """Phase 3: both kernels against the plain version at small shapes."""
+    import torch
+
+    for name, stiles, quads, W, C in kernel_cases():
+        held, err, want = check_case(name, stiles, quads, W, C, dev, sync)
+        print(f"kernel vs plain {name}: quads {len(quads[2])} snips "
+              f"{len(quads[0])} C {C} [{'; '.join(held)}] "
+              f"max_abs_err {err:.3g} num {int(want[1].sum())} "
+              f"poison {int(torch.isinf(want[0]).sum())} ok")
+
+
+def kernel_bound(calls):
+    """The least time the card could take for ``calls`` (one dict of
+    ``tiles``, ``items``, ``snips``, ``W``, ``C`` per launch): the bytes the
+    function must move (the stack, the snip words and the item arrays read
+    once, float32 ``sum`` and int32 ``num`` written once) over the card's
+    memory rate, against one float add per window pixel over its float32
+    rate. Returns ``(ms, "bytes" or "operations", bytes, operations)``."""
+    nbytes = sum(4 * c["tiles"] * B * B + 4 * c["snips"] + 24 * c["items"]
+                 + 8 * c["C"] * c["W"] ** 2 for c in calls)
+    ops = sum(c["snips"] * c["W"] ** 2 for c in calls)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_FLOPS
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return 1e3 * max(t_bytes, t_ops), by, nbytes, ops
+
+
+def call_shape(stiles, k, qstart, qcount, snips, W, C):
+    """The ``kernel_bound`` record of one ``quad_accumulate`` call."""
+    return dict(tiles=int(stiles.shape[0]), items=int(k.shape[0]),
+                snips=int(snips.shape[0]), W=int(W), C=int(C))
+
+
+class launch_shapes:
+    """Record the shape of every ``quad_accumulate`` call made during a
+    block (``calls``), for the kernel's bound on that run's own inputs."""
+
+    def __enter__(self):
+        import coolpuppy_tpu_torch.ops.quad_gather as qg
+
+        self.inner = inner = qg.quad_accumulate
+        self.calls = calls = []
+
+        def recording(*args):
+            calls.append(call_shape(*args))
+            return inner(*args)
+
+        qg.quad_accumulate = recording
+        return self
+
+    def __exit__(self, *exc):
+        import coolpuppy_tpu_torch.ops.quad_gather as qg
+
+        qg.quad_accumulate = self.inner
+
+
+def shape_record(what, calls, kernel_ms, launches, card):
+    """Print and return one shape's row of the kernel table: launches,
+    the kernel's time, its bound on these inputs and the share of it."""
+    ms, by, nbytes, ops = kernel_bound(calls)
+    rec = dict(launches=launches, bound_ms=ms, bound_by=by, ms=kernel_ms,
+               tiles=sum(c["tiles"] for c in calls),
+               items=sum(c["items"] for c in calls),
+               snips=sum(c["snips"] for c in calls),
+               C=max((c["C"] for c in calls), default=0))
+    share = ("not measured" if not kernel_ms
+             else f"{kernel_ms:.3f} ms, bound/kernel {ms / kernel_ms:.4f}")
+    print(f"{what} kernel bound: {ms:.5f} ms by {by} ({nbytes} bytes, {ops} "
+          f"adds; tiles {rec['tiles']}, items {rec['items']}, snips "
+          f"{rec['snips']}, C {rec['C']}, launches {launches}); kernel "
+          f"{share} on {card}")
+    return rec
 
 
 def host_oracle(ts, r1, r2, cid, valid, evec, W, C):
@@ -332,12 +543,13 @@ def host_oracle(ts, r1, r2, cid, valid, evec, W, C):
     return stiles, s, m
 
 
-def busy_share(fn, sync):
-    """Device time of the CUDA kernels and copies that ``fn`` issued, over
-    its wall time, from one ``torch.profiler`` run, and the quad kernel's
-    own share of the wall. Only device-side events count (a host op's
-    device time would count its kernels twice), less the profiler's own
-    buffer requests."""
+def profile_run(fn, sync):
+    """One ``torch.profiler`` run of ``fn``: ``text``, the device time of
+    the CUDA kernels and copies that ``fn`` launched over its wall time and
+    the quad kernels' own share of the wall, and ``kernel_ms``, the quad
+    kernels' device time (None where the profiler saw no device time).
+    Only device-side events count (a host op's device time would count its
+    kernels twice), less the profiler's own buffer requests."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -352,16 +564,101 @@ def busy_share(fn, sync):
            and not e.key.startswith("Activity Buffer")]
     dev_us = sum(e.self_device_time_total for e in dev)
     if dev_us <= 0:
-        return "not measured (the profiler saw no device time)"
+        return dict(text="not measured (the profiler saw no device time)",
+                    kernel_ms=None)
     dev.sort(key=lambda e: -e.self_device_time_total)
     names = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms"
                       for e in dev[:4])
     kern_us = sum(e.self_device_time_total for e in dev
                   if "quad_accumulate" in e.key)
-    return (f"{dev_us / 1e6 / wall:.4f} (device {dev_us / 1e3:.3f} ms of "
+    text = (f"{dev_us / 1e6 / wall:.4f} (device {dev_us / 1e3:.3f} ms of "
             f"{wall * 1e3:.1f} ms wall, profiled; quad kernel "
             f"{kern_us / 1e3:.3f} ms = {kern_us / 1e6 / wall:.5f} of the "
             f"wall; top: {names})")
+    return dict(text=text, kernel_ms=kern_us / 1e3)
+
+
+def busy_share(fn, sync):
+    """``profile_run``'s text."""
+    return profile_run(fn, sync)["text"]
+
+
+def event_ms(fn, sync):
+    """Device time of what ``fn`` enqueues, between two CUDA events."""
+    import torch
+
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    sync()
+    t0.record()
+    fn()
+    t1.record()
+    sync()
+    return t0.elapsed_time(t1)
+
+
+class quad_kernel_trace:
+    """The device time of every quad kernel launched during a block, from
+    one ``torch.profiler`` trace: ``ms``, in launch order."""
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+        self.prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        from torch.autograd import DeviceType
+
+        self.prof.__exit__(*exc)
+        evs = [e for e in self.prof.events()
+               if e.device_type == DeviceType.CUDA
+               and "quad_accumulate" in e.name]
+        evs.sort(key=lambda e: e.time_range.start)
+        self.ms = [e.time_range.elapsed_us() / 1e3 for e in evs]
+
+
+TRACE_TRIES = 3
+
+
+def kernel_and_call_ms(fn, sync):
+    """Two calls of one launcher: the whole call between two CUDA events
+    (two memsets, the kernel and the launch gaps between them), then the
+    quad kernel's own device time from a profiler trace around the second
+    call alone. A trace now and then comes back without the kernel's record
+    (seen once in ~130 calls on the H100); the call is then made again, at
+    most TRACE_TRIES times."""
+    call = event_ms(fn, sync)
+    for _ in range(TRACE_TRIES):
+        with quad_kernel_trace() as trace:
+            fn()
+            sync()
+        if len(trace.ms) == 1:
+            return trace.ms[0], call
+    raise AssertionError(f"{TRACE_TRIES} profiler traces around one "
+                         f"launcher call saw {len(trace.ms)} quad kernels")
+
+
+def in_turns(fns, sync, rounds=None):
+    """Time the named launcher calls in turns (a, b, ..., b, a per round).
+    Returns ``{name: {"kernel": [ms, ...], "call": [ms, ...]}}`` in the
+    order run (``kernel_and_call_ms``)."""
+    names = list(fns)
+    ms = {name: {"kernel": [], "call": []} for name in names}
+    for _ in range(rounds or KERNEL_ROUNDS):
+        for name in names + names[::-1]:
+            kern, call = kernel_and_call_ms(fns[name], sync)
+            ms[name]["kernel"].append(kern)
+            ms[name]["call"].append(call)
+    return ms
+
+
+def ms_line(ms):
+    return "; ".join(
+        f"{name}: kernel {json.dumps([round(x, 4) for x in t['kernel']])} "
+        f"median {statistics.median(t['kernel']):.4f}, call median "
+        f"{statistics.median(t['call']):.4f}" for name, t in ms.items())
 
 
 def timed(fn, sync):
@@ -372,27 +669,11 @@ def timed(fn, sync):
     return time.perf_counter() - t0, out
 
 
-def check_kernels(dev, sync):
-    """Phase 3: the kernel against the plain version at small shapes."""
-    import torch
-
-    import coolpuppy_tpu_torch.ops.quad_gather as qg
-
-    for name, args in kernel_cases(dev):
-        got = qg.quad_accumulate(*args)
-        sync()
-        want = qg.quad_accumulate_plain(*args)
-        err = compare(got, want, what=f"kernel vs plain {name}", **SMALL_TOL)
-        print(f"kernel vs plain {name}: items {int(args[1].shape[0])} "
-              f"max_abs_err {err:.3g} num {int(want[1].sum())} "
-              f"poison {int(torch.isinf(want[0]).sum())} ok")
-
-
 def check_slice(dev, sync, workload, card):
     """Phase 4: the slice on ``workload`` (``bench.make_workload``'s
-    tuple): drive it once with the launch count reset, check it against the
-    plain version and the host oracle, and time it. Returns the kernel's
-    JSON record."""
+    tuple): drive it once with the launch counts reset, check it and both
+    kernels against the plain version and the host oracle, and time them.
+    Returns the kernel's JSON record."""
     import torch
 
     import coolpuppy_tpu_torch.ops.quad_gather as qg
@@ -425,10 +706,14 @@ def check_slice(dev, sync, workload, card):
         return ts, sess, total, merged
 
     qg.LAUNCHES = 0
+    qg.VARIANT_LAUNCHES.update(staged=0, direct=0)
     ts, sess, total, merged = run_slice()
     launches = qg.LAUNCHES
-    if launches < 1:
-        raise AssertionError("the headline path launched no kernel")
+    if launches < 1 or qg.VARIANT_LAUNCHES != {"staged": launches,
+                                               "direct": 0}:
+        raise AssertionError(
+            f"the headline path launched {launches} kernels, by variant "
+            f"{qg.VARIANT_LAUNCHES}: it must take the staged kernel at W=21")
     for k in ("sum", "num", "poison"):
         if merged[k].shape != (half, W, W):
             raise AssertionError(f"merged {k} has shape {merged[k].shape}")
@@ -436,27 +721,48 @@ def check_slice(dev, sync, workload, card):
         raise AssertionError("headline sums are not finite")
     if int(merged["num"].sum()) <= 0:
         raise AssertionError("headline counts are empty")
-    args = (sess.stiles, *sess.stage(r1, r2, cid), W, C)
-    print(f"slice: launches {launches} items {int(args[1].shape[0])} "
-          f"tiles {ts.n_tiles} num {int(merged['num'].sum())} ok")
+    quads = qg.sort_quads(r1, r2, cid, ts.tile_map, B)
+    args = {v: (sess.stiles, *variant_args(quads, v, dev), W, C)
+            for v in ("staged", "direct")}
+    lay = qg.corner_layout(W)
+    pixels, threads = qg.pixels_per_thread(W)
+    print(f"slice: launches {launches} variant staged, items "
+          f"{int(args['staged'][1].shape[0])} (direct: "
+          f"{int(args['direct'][1].shape[0])}) quads {len(quads[2])} "
+          f"tiles {ts.n_tiles} corner_bytes {lay.corner_bytes} smem_bytes "
+          f"{lay.smem_bytes} stride {lay.stride} threads {threads} "
+          f"pixels/thread {pixels} blocks/SM {qg.staged_occupancy(W, dev)} "
+          f"num {int(merged['num'].sum())} ok")
     sync()
-    got = qg.quad_accumulate(*args)
-    sync()
-    want = qg.quad_accumulate_plain(*args)
-    # the main path's own accumulators, and a second launch on the same
-    # staged inputs, both against the plain version
+    want = qg.quad_accumulate_plain(*args["staged"])
+    # the main path's own accumulators, and one more launch of each kernel
+    # and of each alternative that is timed below, against the plain version
     session = tuple(torch.from_numpy(total[k]) for k in ("sum", "num"))
     if not np.array_equal(total["poison"], np.isinf(total["sum"])):
         raise AssertionError("session poison plane differs from its sums")
-    max_err = max(
-        compare(session, want, rtol=HEADLINE_RTOL, atol=1e-6,
-                what="session vs plain headline"),
-        compare(got, want, rtol=HEADLINE_RTOL, atol=1e-6,
-                what="kernel vs plain headline"),
-    )
-    print(f"kernel vs plain headline (session and relaunch): "
-          f"max_abs_err {max_err:.3g} "
-          f"max_sum {float(want[0].max()):.6g} ok")
+    kernels = {
+        "direct": lambda: qg.quad_accumulate_direct(*args["direct"]),
+        "staged": lambda: qg.quad_accumulate_staged(*args["staged"]),
+    }
+    alternatives = {
+        "1 pixel": kernels["staged"],
+        "2 pixels": lambda: qg.quad_accumulate_staged(
+            *args["staged"], pixels=2),
+        "4 pixels": lambda: qg.quad_accumulate_staged(
+            *args["staged"], pixels=4),
+    }
+    errs = {"main path": compare(session, want, rtol=HEADLINE_RTOL,
+                                 atol=1e-6,
+                                 what="session vs plain headline")}
+    for name, fn in {**kernels, **alternatives}.items():
+        got = fn()
+        sync()
+        errs[name] = compare(got, want, rtol=HEADLINE_RTOL, atol=1e-6,
+                             what=f"{name} vs plain headline")
+    max_err = max(errs["main path"], errs["staged"])
+    print("kernels vs plain headline: max_abs_err " + json.dumps(
+        {k: float(f"{v:.3g}") for k, v in errs.items()})
+        + f" max_sum {float(want[0].max()):.6g} ok")
 
     n_sub = min(20_000, n_snips)
     s_r1, s_r2, s_cid = r1[:n_sub], r2[:n_sub], cid[:n_sub]
@@ -474,37 +780,128 @@ def check_slice(dev, sync, workload, card):
                                err_msg="subset sum vs host oracle")
     print(f"host oracle subset ({n_sub} snips): num exact, sum rtol 1e-5 ok")
 
-    # timing: kernel and plain on the same pre-staged inputs, then the path
-    kern_t = [timed(lambda: qg.quad_accumulate(*args), sync)[0]
+    # timing: the two kernels in turns on the same pre-staged inputs, the
+    # staged kernel's alternatives, then the wrapper, the plain version and
+    # the path on the host clock
+    kern_ms = in_turns(kernels, sync)
+    print("kernel timing in turns (direct, staged, staged, direct; kernel "
+          "device time from the profiler, launcher call between CUDA "
+          "events; ms): " + ms_line(kern_ms))
+    print("staged alternatives in turns (ms): "
+          + ms_line(in_turns(alternatives, sync)))
+    by_item_max = {}
+    for item_max in ITEM_MAX_SWEEP:
+        items = qg.split_items(*quads[1:], item_max=item_max)
+        a = (sess.stiles, *(torch.from_numpy(x).to(dev) for x in items),
+             args["staged"][4], W, C)
+        by_item_max[f"item_max {item_max} ({len(items[1])} items)"] = (
+            lambda a=a: qg.quad_accumulate_staged(*a))
+    print("staged by ITEM_MAX in turns (ms): "
+          + ms_line(in_turns(by_item_max, sync)))
+    staged_ms = statistics.median(kern_ms["staged"]["kernel"])
+    direct_ms = statistics.median(kern_ms["direct"]["kernel"])
+    shape = shape_record("slice", [call_shape(*args["staged"])], staged_ms,
+                         launches, card)
+    wrap_t = [timed(lambda: qg.quad_accumulate(*args["staged"]), sync)[0]
               for _ in range(REPEATS)]
-    plain_t = [timed(lambda: qg.quad_accumulate_plain(*args), sync)[0]
-               for _ in range(REPEATS)]
+    plain_t = [timed(lambda: qg.quad_accumulate_plain(*args["staged"]),
+                     sync)[0] for _ in range(PLAIN_REPEATS)]
     stage_t = [timed(lambda: sess.stage(r1, r2, cid), sync)[0]
                for _ in range(REPEATS)]
     e2e_t, e2e_phases = [], []
     for _ in range(REPEATS):
         e2e_t.append(timed(run_slice, sync)[0])
         e2e_phases.append(dict(phases))
-    kern_med = statistics.median(kern_t)
+    wrap_med = statistics.median(wrap_t)
     plain_med = statistics.median(plain_t)
     e2e_med = statistics.median(e2e_t)
     mid = e2e_phases[int(np.argsort(e2e_t)[len(e2e_t) // 2])]
     mid["of_which_sort_split_upload"] = statistics.median(stage_t)
-    print("timing: kernel_ms "
-          + json.dumps([round(x * 1e3, 3) for x in kern_t])
+    print("timing: wrapper_ms (host clock, with the float64 widening) "
+          + json.dumps([round(x * 1e3, 3) for x in wrap_t])
           + " plain_ms " + json.dumps([round(x * 1e3, 3) for x in plain_t])
           + " e2e_s " + json.dumps([round(x, 4) for x in e2e_t]))
     print("e2e phases (median run, s): " + json.dumps(
         {k: round(v, 4) for k, v in mid.items()}))
     print("device busy share of one end-to-end run: "
           + busy_share(run_slice, sync))
-    print(f"snips/s: device-only {n_snips / kern_med:.0f} "
-          f"(kernel median {kern_med * 1e3:.3f} ms, "
+    print(f"snips/s: device-only {n_snips / staged_ms * 1e3:.0f} "
+          f"(staged kernel median {staged_ms:.4f} ms, direct "
+          f"{direct_ms:.4f} ms, wrapper {wrap_med * 1e3:.3f} ms, "
           f"plain {plain_med * 1e3:.3f} ms), "
           f"end-to-end {n_snips / e2e_med:.0f} (median {e2e_med:.3f} s)"
           f" on {card}")
     return dict(KERNEL, launches=launches, max_abs_err=max_err,
-                ms=kern_med * 1e3, plain_ms=plain_med * 1e3)
+                ms=staged_ms, plain_ms=plain_med * 1e3,
+                bound_ms=shape["bound_ms"], bound_by=shape["bound_by"],
+                library_ms=None, direct_ms=direct_ms, variant="staged",
+                call_ms=statistics.median(kern_ms["staged"]["call"]),
+                shapes={"slice": shape})
+
+
+def check_sweep(dev, sync, workload, card):
+    """Phase 4's sweep over window sizes: the first SWEEP_LOCI loci of the
+    headline map at W = 11, 33, 65, the largest staged W and the first
+    direct W, and every locus at W = 11; every kernel that takes the W is
+    held against the plain version (``num`` exact, poison equal, ``sum``
+    rtol 1e-4) and timed in turns beside its bound."""
+    import coolpuppy_tpu_torch.ops.quad_gather as qg
+    from coolpuppy_tpu_torch.ops.tiles import build_tile_stack_sym
+
+    _, coo, r1, r2, gid, flip, valid, evec = workload
+    half = 4
+    C = 2 * half + 8
+    cid_all = (gid + half * flip).astype(np.int32)
+    chunk = qg.PLAIN_CHUNK
+    qg.PLAIN_CHUNK = 8192  # bounds the plain version's index tensors
+    try:
+        for W, loci in ((SWEEP_FULL_W, len(r1)),
+                        *((W, SWEEP_LOCI)
+                          for W in (*SWEEP_W, *staged_limit()))):
+            a = np.minimum(r1[:loci], coo.shape[0] - W - 1)
+            b = np.minimum(r2[:loci], coo.shape[0] - W - 1)
+            cid = cid_all[:loci]
+            ts = build_tile_stack_sym(coo, B, r1=a, r2=b, window1=W,
+                                      window2=W)
+            sess = qg.QuadPileupSession(
+                ts, valid, valid, evec,
+                dict(W=W, capacity=C, cis=True, ignore_diags=2, ooe=True),
+                dev)
+            quads = qg.sort_quads(a, b, cid, ts.tile_map, B)
+            variants = ["direct"]
+            if qg.corner_layout(W).staged:
+                variants.append("staged")
+            args = {v: (sess.stiles, *variant_args(quads, v, dev), W, C)
+                    for v in variants}
+            launchers = {"direct": qg.quad_accumulate_direct,
+                         "staged": qg.quad_accumulate_staged}
+            fns = {v: (lambda v=v: launchers[v](*args[v])) for v in variants}
+            t_plain, want = timed(
+                lambda: qg.quad_accumulate_plain(*args["direct"]), sync)
+            err = 0.0
+            for v, fn in fns.items():
+                got = fn()
+                sync()
+                err = max(err, compare(got, want, rtol=HEADLINE_RTOL,
+                                       atol=1e-6,
+                                       what=f"sweep W={W} {v} vs plain"))
+            ms = in_turns(fns, sync)
+            routed = variants[-1]
+            bound, by, _, _ = kernel_bound([call_shape(*args[routed])])
+            med = statistics.median(ms[routed]["kernel"])
+            lay = qg.corner_layout(W)
+            print(f"sweep W={W}: {len(a)} snips, quads {len(quads[2])}, "
+                  f"items {int(args[routed][1].shape[0])}, tiles "
+                  f"{ts.n_tiles}, routed {routed}, smem_bytes "
+                  f"{lay.smem_bytes if lay.staged else 0}, threads "
+                  f"{qg.pixels_per_thread(W) if lay.staged else 256}, "
+                  f"max_abs_err {err:.3g}; ms in turns: {ms_line(ms)}; "
+                  f"plain {t_plain * 1e3:.1f} ms (one run); bound "
+                  f"{bound:.5f} ms by {by}, bound/kernel {bound / med:.4f} "
+                  f"on {card}")
+            del sess, args, want
+    finally:
+        qg.PLAIN_CHUNK = chunk
 
 
 def toy_cooler(seed=1, binsize=1_000_000, bad_bin_frac=0.05):
@@ -930,9 +1327,10 @@ def all_row(pups):
     return pups.loc[pups[key] == "all"].iloc[0]
 
 
-def check_modes(dev, sync, card):
+def check_modes(dev, sync, card, shapes=None):
     """Phase 6b: ``bench.py --modes``' four cells at full size. Returns the
-    checked runs' kernel launch counts per cell."""
+    checked runs' kernel launch counts per cell; ``shapes``, a dict, gets
+    each cell's ``shape_record``."""
     import coolpuppy_tpu_torch.ops.quad_gather as qg
     from coolpuppy_tpu_torch import CoordCreator, PileUpper, pileup
 
@@ -973,7 +1371,9 @@ def check_modes(dev, sync, card):
         qg.QuadPileupSession.run_stripes = recording
         try:
             qg.LAUNCHES = 0
-            t, checked = timed(lambda: run(f), sync)
+            qg.VARIANT_LAUNCHES.update(staged=0, direct=0)
+            with launch_shapes() as called:
+                t, checked = timed(lambda: run(f), sync)
             launches[cell] = qg.LAUNCHES
         finally:
             qg.QuadPileupSession.run_stripes = gather
@@ -981,6 +1381,7 @@ def check_modes(dev, sync, card):
         if launches[cell] < 1 or route != "cuda_kernel":
             raise AssertionError(f"modes {cell}: {launches[cell]} launches, "
                                  f"route {route!r}; the kernel did not run")
+        check_variant(f"modes {cell}", dev, launches[cell])
         row = all_row(checked)
         n_snips = int(row["n"])
         data = np.stack(checked["data"].to_list())
@@ -1038,8 +1439,12 @@ def check_modes(dev, sync, card):
               + json.dumps([round(x, 4) for x in walls]))
         print(f"modes {cell} phases (median run, s): " + json.dumps(
             {k: round(v, 4) for k, v in sorted(mid.items())}))
-        print(f"modes {cell} device busy share of one run: "
-              + busy_share(lambda: run(f), sync))
+        prof = profile_run(lambda: run(f), sync)
+        print(f"modes {cell} device busy share of one run: " + prof["text"])
+        rec = shape_record(f"modes {cell}", called.calls, prof["kernel_ms"],
+                           launches[cell], card)
+        if shapes is not None:
+            shapes[cell] = rec
         print(f"modes {cell} snips/s: {n_snips / med:.0f} ({n_snips} snips, "
               f"median {med:.3f} s of {MODES_REPEATS}) on {card}")
     return launches
@@ -1076,9 +1481,22 @@ def engine_snips(pups):
     return int(row["n"]) + int(row["control_n"])
 
 
-def check_engine(dev, sync, card):
+def check_variant(what, dev, launches):
+    """On the card, a checked run at W = 21 must have taken the staged
+    kernel for every launch (a CPU rehearsal launches none)."""
+    import coolpuppy_tpu_torch.ops.quad_gather as qg
+
+    if dev.type == "cuda" and qg.VARIANT_LAUNCHES != {"staged": launches,
+                                                      "direct": 0}:
+        raise AssertionError(f"{what}: {launches} launches, by variant "
+                             f"{qg.VARIANT_LAUNCHES}; expected the staged "
+                             "kernel")
+
+
+def check_engine(dev, sync, card, shapes=None):
     """Phase 5b: the engine at bench_engine's size. Returns the checked
-    run's kernel launch count."""
+    run's kernel launch count; ``shapes``, a dict, gets the cell's
+    ``shape_record``."""
     import coolpuppy_tpu_torch.ops.quad_gather as qg
     from coolpuppy_tpu_torch import CoordCreator, PileUpper, pileup
 
@@ -1094,12 +1512,15 @@ def check_engine(dev, sync, card):
           f"{engine_snips(warm)} snips in {t:.2f} s")
 
     qg.LAUNCHES = 0
-    t, checked = timed(lambda: run(feats), sync)
+    qg.VARIANT_LAUNCHES.update(staged=0, direct=0)
+    with launch_shapes() as called:
+        t, checked = timed(lambda: run(feats), sync)
     launches = qg.LAUNCHES
     route = checked["accumulate"].iloc[0]
     if launches < 1 or route != "cuda_kernel":
         raise AssertionError(f"engine run: {launches} launches, route "
                              f"{route!r}; the kernel did not run")
+    check_variant("engine run", dev, launches)
     n_snips = engine_snips(checked)
     data = np.stack(checked["data"].to_list())
     if data.shape[1:] != (21, 21) or not np.isfinite(data).any():
@@ -1148,8 +1569,12 @@ def check_engine(dev, sync, card):
     print("engine timing: wall_s " + json.dumps([round(x, 4) for x in walls]))
     print("engine phases (median run, s): " + json.dumps(
         {k: round(v, 4) for k, v in sorted(mid.items())}))
-    print("engine device busy share of one run: "
-          + busy_share(lambda: run(feats), sync))
+    prof = profile_run(lambda: run(feats), sync)
+    print("engine device busy share of one run: " + prof["text"])
+    rec = shape_record("engine", called.calls, prof["kernel_ms"], launches,
+                       card)
+    if shapes is not None:
+        shapes["engine"] = rec
     print(f"engine snips/s: {n_snips / med:.0f} ({n_snips} snips, median "
           f"{med:.3f} s of {ENGINE_REPEATS}) on {card}")
     return launches
@@ -1535,8 +1960,12 @@ def main():
               file=sys.stderr)
         return 1
 
+    # bench.py is the JAX package's frozen benchmark script; its top level
+    # imports only numpy, and make_workload imports scipy alone: nothing of
+    # jax or of the JAX package comes in with it
     from bench import make_workload
     from coolpuppy_tpu_torch.kernels.build import build, load_kernels
+    from coolpuppy_tpu_torch.ops import quad_gather as qg
 
     dev = torch.device("cuda", 0)
     sync = torch.cuda.synchronize
@@ -1560,6 +1989,15 @@ def main():
     t, lib = timed(lambda: build(verbose=True), lambda: None)
     load_kernels()
     print(f"build: {lib} in {t:.1f} s")
+    last_staged, first_direct = staged_limit()
+    for W in (21, 33, 65, last_staged):
+        lay = qg.corner_layout(W)
+        pixels, threads = qg.pixels_per_thread(W)
+        print(f"staged kernel W={W}: corner {lay.side} x {lay.stride} floats, "
+              f"smem_bytes {lay.smem_bytes}, threads {threads}, pixels/thread "
+              f"{pixels}, blocks/SM {qg.staged_occupancy(W, dev)}")
+    print(f"staged kernel: largest staged W {last_staged}, first direct W "
+          f"{first_direct} ({qg.SMEM_MAX} bytes of shared memory a block)")
 
     # -- 3. kernel vs plain at small shapes -------------------------------
     check_kernels(dev, sync)
@@ -1570,15 +2008,17 @@ def main():
     print(f"workload: {coo.shape[0]} bins, {coo.nnz} nnz, {len(r1)} snips "
           f"in {t:.1f} s")
     record = check_slice(dev, sync, workload, card)
+    check_sweep(dev, sync, workload, card)
     del workload, coo, r1
 
     # -- 5. the engine: pileup() modes, then bench_engine's size ----------
     check_engine_modes(dev)
-    record["engine_launches"] = check_engine(dev, sync, card)
+    record["engine_launches"] = check_engine(dev, sync, card,
+                                             record["shapes"])
 
     # -- 6. the 2D modes: toy map, then bench.py --modes' cells ---------
     check_modes_2d(dev)
-    record["modes_launches"] = check_modes(dev, sync, card)
+    record["modes_launches"] = check_modes(dev, sync, card, record["shapes"])
 
     # -- 7. rescale and W > 120: toy map, then the two cells -------------
     check_rescale_wide_toy(dev)

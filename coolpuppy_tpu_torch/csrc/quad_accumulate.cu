@@ -1,10 +1,8 @@
-// Quad gather-accumulate for Hopper (sm_90a).
+// Quad gather-accumulate for Hopper (sm_90a): two kernels, one function.
 //
 // Replaces the Pallas TPU kernel coolpuppy_tpu/ops/pallas_gather.py::
-// _make_pallas_call (kernel body :86-182, pl.pallas_call :209). It computes
-// what that kernel computes, for every work item: a run of snips that share
-// one tile quad and one group g (``split_runs`` on the host makes every item
-// so; the kernel takes g from the item's first word):
+// _make_pallas_call (kernel body :86-182, pl.pallas_call :209). For every
+// work item, a span of quad-sorted snip words that share one tile quad:
 //
 //   for each snip word w of the item:
 //     a = w >> 24, b = (w >> 17) & 0x7F, g = w & 0x1FFFF
@@ -13,30 +11,64 @@
 //     sum[g] += (v == v) ? v : 0            (a NaN adds nothing, +inf adds)
 //     num[g] += (v == v) && |v| != inf
 //
-// What bounds it on this card. Every snip reads W*W floats and does two
-// compares and one add per float: at W = 21 that is 441 loads a snip, all
-// of them from a quad's four tiles (256 KB), and the whole normalized stack
-// of the loop-APA headline (about 40 MB) fits in the 50 MB L2. So the loop
-// is bound by load latency and L1/L2 bandwidth, not by device memory. The
-// TPU kernel stages the superwindow in VMEM and carries its accumulators in
-// VMEM across a sequential grid; Hopper has neither: a block can hold 227 KB
-// of shared memory, less than the superwindow and even than the reachable
-// (128 + W - 1)^2 corner at W = 120, and blocks run in parallel, so sums
-// cross blocks by atomics.
+// What bounds it on an H100 (published peaks: 3.35 TB/s of device memory,
+// 67 TFLOP/s float32). At the loop-APA headline (1M snips, W = 21, a
+// ~40 MB stack) the function must move ~44.5 MB (the stack, 4 MB of words,
+// 28 KB of accumulators): 13 us; it does 441M float adds: 6.6 us. The bound
+// is the bytes'. No design that reads each window once from on-chip memory
+// comes near it: the 1M windows are 1.76 GB of 4-byte reads, and shared
+// memory delivers 128 B a clock an SM, ~29 TB/s over 132 SMs at 1.7 GHz, so
+// ~61 us is the working ceiling, with ~5 issue slots a pixel about as much
+// again on 132 x 4 schedulers.
 //
-// What the design does about it:
-//   - one block per work item, all items in one launch; the host caps an
-//     item at 1024 snips so heavy quads spread over many SMs;
-//   - windows are read straight from global memory (the quad's tiles stay
-//     resident in L1/L2); no shared-memory staging;
-//   - each thread owns pixels p of the window (stride blockDim.x) and keeps
-//     its sum in a float register and its count in an int register over the
-//     item's snips, loading 8 snips ahead so that 8 independent loads are in
-//     flight; it flushes with one atomicAdd each at the end of the item;
-//   - num is int32, so counts stay exact far past float32's 2^24.
-// Shared-memory staging of the reachable corner, fewer atomics and TMA are
-// later work.
+// The staged kernel (quad_accumulate_staged_kernel), taken wherever its
+// shared memory fits:
+//   - Offsets are below 128, so a window never reaches past row or column
+//     128 + W - 2. The block copies that (128 + W - 1)^2 corner of the
+//     superwindow (88 KB at W = 21; the superwindow would be 256 KB, more
+//     than a block's 227 KB) from the item's four tiles into ONE shared
+//     array with one row stride S, bits untouched (slot 0 is the all-NaN
+//     tile, +inf is poison), with cp.async, once per item. A pixel's address
+//     is then (a*S + b) + (i*S + j): the first term is decoded once per
+//     snip per block into shared memory, the second once per thread, and
+//     the inner loop is an add, a shared load, two compares and two adds.
+//   - S = W + 128, so S = W (mod 32): a warp's 32 consecutive pixels span
+//     two window rows and still hit 32 distinct banks. Rows are then not
+//     16-byte aligned and the copy moves 4 bytes a cp.async. The other
+//     choice, S rounded up to 4 floats with 16-byte cp.async and a few
+//     2-way conflicts, was measured beside it at the headline on an H100 at
+//     700 W and lost: 0.1856 ms against 0.1783 ms (medians of 6, in turns),
+//     because the copy is a few percent of an item's work and the window
+//     loads nearly all of it. TMA is not used: a TMA box lands
+//     dense, so four boxes would give four regions and bring a per-pixel
+//     region select back.
+//   - An item holds up to ITEM_MAX snips of one quad whatever their groups
+//     (the host's split_items), sorted by group. The block finds the group
+//     runs with warp ballots, keeps each pixel's sum and count in registers
+//     over a run and flushes them with one atomicAdd each at the run's end:
+//     as many atomics as one item per run would make, but the corner is
+//     staged once per item.
+//   - Every pixel is held at once: threads = ceil(W*W / P) rounded up to a
+//     warp, P = 1, 2, 4, 8 or 16 pixels a thread in registers, so the
+//     item's snips are walked once. The fewest pixels that cover the window
+//     are the fastest (W = 21: 0.182 ms at P = 1, 0.197 at 2, 0.321 at 4).
+//   - Items longer than kChunk snips are walked in chunks of kChunk (the
+//     decoded offsets and run starts live in shared memory); a run that
+//     crosses a chunk boundary is flushed twice, which changes no result.
+//     The host cuts items at ITEM_MAX = kChunk = 1024 snips: 0.182 ms at
+//     the headline against 0.204 at 512 and 0.189 at 2048.
+//
+// The direct kernel (quad_accumulate_kernel), where the corner and the
+// chunk buffers exceed a block's 232,448 bytes (from W = 111): one block per
+// single-group item (the host's split_runs), windows read straight from
+// global memory through L1/L2 with the region select and address arithmetic
+// per pixel, 8 loads in flight, 256 threads striding the pixels. It is also
+// the earlier design at every W, timed beside the staged kernel (the
+// headline: 0.547 ms direct, 0.182 ms staged).
+//
+// num is int32 in both, so counts stay exact far past float32's 2^24.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,6 +78,15 @@ constexpr int kTile = 128;
 constexpr int kTileElems = kTile * kTile;
 constexpr int kUnroll = 8;
 constexpr int kMaxThreads = 256;
+constexpr int kGroupMask = 0x1FFFF;
+// staged kernel: snips decoded per pass, and the bytes after the corner:
+// int32 offsets [kChunk], uint16 run starts [kChunk + 8], uint32 run-start
+// masks [kChunk / 32], the run count (16 bytes)
+constexpr int kChunk = 1024;
+constexpr int kOffBytes = 4 * kChunk;
+constexpr int kRunBytes = 2 * (kChunk + 8);
+constexpr int kMaskBytes = 4 * (kChunk / 32);
+constexpr int kTailBytes = kOffBytes + kRunBytes + kMaskBytes + 16;
 
 __device__ __forceinline__ float window_value(const float* __restrict__ t00,
                                               const float* __restrict__ t01,
@@ -93,7 +134,7 @@ quad_accumulate_kernel(const float* __restrict__ stiles,
   const float* __restrict__ t10 = stiles + (size_t)k[4 * q + 2] * kTileElems;
   const float* __restrict__ t11 = stiles + (size_t)k[4 * q + 3] * kTileElems;
   const int WW = W * W;
-  const int g = __ldg(sn) & 0x1FFFF;  // one group per item
+  const int g = __ldg(sn) & kGroupMask;  // one group per item
 
   for (int p = threadIdx.x; p < WW; p += blockDim.x) {
     const int i = p / W;
@@ -116,16 +157,210 @@ quad_accumulate_kernel(const float* __restrict__ stiles,
   }
 }
 
+// One snip into a thread's P pixels: `off` is the snip's byte offset
+// (a*S + b)*4 into the corner, pix[m] the pixel's (i*S + j)*4.
+template <int P>
+__device__ __forceinline__ void add_snip(const unsigned char* corner, int off,
+                                         const int (&pix)[P], float (&s)[P],
+                                         int (&n)[P]) {
+  float v[P];
+#pragma unroll
+  for (int m = 0; m < P; ++m)
+    v[m] = *reinterpret_cast<const float*>(corner + (off + pix[m]));
+#pragma unroll
+  for (int m = 0; m < P; ++m) {
+    s[m] += v[m] == v[m] ? v[m] : 0.0f;
+    // finite: neither NaN nor +-inf
+    n[m] += fabsf(v[m]) < __int_as_float(0x7f800000) ? 1 : 0;
+  }
+}
+
+template <int P>
+__global__ void __launch_bounds__(P <= 8 ? 1024 : 768)
+quad_accumulate_staged_kernel(const float* __restrict__ stiles,
+                              const int32_t* __restrict__ k,
+                              const int32_t* __restrict__ qstart,
+                              const int32_t* __restrict__ qcount,
+                              const int32_t* __restrict__ snips, int W, int C,
+                              int S, int corner_bytes,
+                              float* __restrict__ sum,
+                              int32_t* __restrict__ num) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int q = blockIdx.x;
+  const int cnt = qcount[q];
+  if (cnt <= 0) return;  // uniform across the block: no barrier is skipped
+  float* corner = reinterpret_cast<float*>(smem);
+  int32_t* soff = reinterpret_cast<int32_t*>(smem + corner_bytes);
+  uint16_t* srun =
+      reinterpret_cast<uint16_t*>(smem + corner_bytes + kOffBytes);
+  uint32_t* smask = reinterpret_cast<uint32_t*>(smem + corner_bytes +
+                                                kOffBytes + kRunBytes);
+  int* snruns = reinterpret_cast<int*>(smem + corner_bytes + kOffBytes +
+                                       kRunBytes + kMaskBytes);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int side = kTile + W - 1;
+  const int WW = W * W;
+
+  // 1. the reachable corner, one warp a row: all of tile 00, W - 1 columns
+  // of 01, W - 1 rows of 10, the (W - 1)^2 corner of 11
+  {
+    const float* t00 = stiles + (size_t)k[4 * q + 0] * kTileElems;
+    const float* t01 = stiles + (size_t)k[4 * q + 1] * kTileElems;
+    const float* t10 = stiles + (size_t)k[4 * q + 2] * kTileElems;
+    const float* t11 = stiles + (size_t)k[4 * q + 3] * kTileElems;
+    for (int r = warp; r < side; r += nwarps) {
+      const int tr = (r & (kTile - 1)) * kTile;
+      const float* left = (r < kTile ? t00 : t10) + tr;
+      const float* right = (r < kTile ? t01 : t11) + tr;
+      float* dst = corner + r * S;
+      for (int c = lane; c < side; c += 32)
+        __pipeline_memcpy_async(
+            dst + c, c < kTile ? left + c : right + (c - kTile), 4);
+    }
+    __pipeline_commit();
+  }
+
+  // each thread's pixels p = tid + m * blockDim.x, as byte offsets
+  int pix[P];
+#pragma unroll
+  for (int m = 0; m < P; ++m) {
+    const int p = tid + m * blockDim.x;
+    const int pp = p < WW ? p : 0;  // idle slots read pixel 0, flush nothing
+    const int i = pp / W;
+    pix[m] = (i * S + (pp - i * W)) * 4;
+  }
+
+  const int32_t* __restrict__ item = snips + qstart[q];
+  for (int c0 = 0; c0 < cnt; c0 += kChunk) {
+    const int32_t* __restrict__ sn = item + c0;
+    const int m_snips = min(kChunk, cnt - c0);
+    // the last chunk's offsets and run starts are still being read
+    if (c0 > 0) __syncthreads();
+
+    // 2. decode the chunk's words into corner byte offsets
+    for (int e = tid; e < m_snips; e += blockDim.x) {
+      const int w = __ldg(sn + e);
+      soff[e] = (((w >> 24) & 0x7F) * S + ((w >> 17) & 0x7F)) * 4;
+    }
+    // 3. group runs: a ballot of run starts per 32 snips, then each start's
+    // rank among all starts
+    const int nmask = (m_snips + 31) >> 5;
+    for (int c = warp; c < nmask; c += nwarps) {
+      const int e = c * 32 + lane;
+      bool start = false;
+      if (e < m_snips) {
+        const int g = __ldg(sn + e) & kGroupMask;
+        start = e == 0 || g != (__ldg(sn + e - 1) & kGroupMask);
+      }
+      const unsigned msk = __ballot_sync(0xffffffffu, start);
+      if (lane == 0) smask[c] = msk;
+    }
+    __syncthreads();
+    for (int c = warp; c < nmask; c += nwarps) {
+      int before = 0;
+      for (int d = lane; d < c; d += 32) before += __popc(smask[d]);
+      before = __reduce_add_sync(0xffffffffu, before);
+      const unsigned msk = smask[c];
+      if ((msk >> lane) & 1u)
+        srun[before + __popc(msk & ((1u << lane) - 1u))] =
+            (uint16_t)(c * 32 + lane);
+      if (c == nmask - 1 && lane == 0) {
+        const int total = before + __popc(msk);
+        srun[total] = (uint16_t)m_snips;
+        *snruns = total;
+      }
+    }
+    if (c0 == 0) __pipeline_wait_prior(0);
+    __syncthreads();
+
+    // 4. accumulate run by run
+    const int nruns = *snruns;
+    for (int r = 0; r < nruns; ++r) {
+      const int e0 = srun[r];
+      const int e1 = srun[r + 1];
+      const int g = __ldg(sn + e0) & kGroupMask;
+      float s[P];
+      int n[P];
+#pragma unroll
+      for (int m = 0; m < P; ++m) {
+        s[m] = 0.0f;
+        n[m] = 0;
+      }
+      int e = e0;
+      for (; e < e1 && (e & 3); ++e) add_snip<P>(smem, soff[e], pix, s, n);
+      for (; e + 4 <= e1; e += 4) {
+        const int4 o = *reinterpret_cast<const int4*>(soff + e);
+        add_snip<P>(smem, o.x, pix, s, n);
+        add_snip<P>(smem, o.y, pix, s, n);
+        add_snip<P>(smem, o.z, pix, s, n);
+        add_snip<P>(smem, o.w, pix, s, n);
+      }
+      for (; e < e1; ++e) add_snip<P>(smem, soff[e], pix, s, n);
+#pragma unroll
+      for (int m = 0; m < P; ++m) {
+        const int p = tid + m * blockDim.x;
+        if (p < WW) flush(sum, num, g, C, WW, p, s[m], n[m]);
+      }
+    }
+  }
+}
+
+// threads of the staged launch for P pixels a thread, 0 if P does not fit W
+int staged_threads(int W, int P) {
+  if (P != 1 && P != 2 && P != 4 && P != 8 && P != 16) return 0;
+  const int ww = W * W;
+  const int threads = (((ww + P - 1) / P + 31) / 32) * 32;
+  return threads <= (P <= 8 ? 1024 : 768) ? threads : 0;
+}
+
+// the staged launch's dynamic shared memory, 0 if S is too short for W
+int staged_smem_bytes(int W, int S) {
+  const int side = kTile + W - 1;
+  if (W < 1 || S < side) return 0;
+  return ((side * S * 4 + 15) / 16) * 16 + kTailBytes;
+}
+
+template <int P>
+cudaError_t staged_launch(const void* stiles, const void* k,
+                          const void* qstart, const void* qcount,
+                          const void* snips, int nq, int W, int C, int S,
+                          int threads, int smem_bytes, void* sum, void* num,
+                          cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      quad_accumulate_staged_kernel<P>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  quad_accumulate_staged_kernel<P><<<nq, threads, smem_bytes, stream>>>(
+      (const float*)stiles, (const int32_t*)k, (const int32_t*)qstart,
+      (const int32_t*)qcount, (const int32_t*)snips, W, C, S,
+      smem_bytes - kTailBytes, (float*)sum, (int32_t*)num);
+  return cudaGetLastError();
+}
+
+template <int P>
+cudaError_t staged_occupancy(int* blocks, int threads, int smem_bytes) {
+  cudaError_t err = cudaFuncSetAttribute(
+      quad_accumulate_staged_kernel<P>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, quad_accumulate_staged_kernel<P>, threads, smem_bytes);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches the kernel over nq work items on `stream` (a cudaStream_t) of
-// device `device`. Every item's snips must share one group (the group of
-// its first word takes them all). All pointers are device pointers; sum
-// [C, W, W] float32 and num [C, W, W] int32 must be zeroed by the caller.
-// Returns the CUDA error code of the launch (0 on success); nothing is
-// synchronized.
+// Launches the direct kernel over nq work items on `stream` (a
+// cudaStream_t) of device `device`. Every item's snips must share one group
+// (the group of its first word takes them all). All pointers are device
+// pointers; sum [C, W, W] float32 and num [C, W, W] int32 must be zeroed by
+// the caller. Returns the CUDA error code of the launch (0 on success);
+// nothing is synchronized.
 int quad_accumulate_launch(const void* stiles, const void* k,
                            const void* qstart, const void* qcount,
                            const void* snips, int nq, int W, int C, void* sum,
@@ -141,6 +376,63 @@ int quad_accumulate_launch(const void* stiles, const void* k,
       (const int32_t*)qcount, (const int32_t*)snips, W, C, (float*)sum,
       (int32_t*)num);
   return (int)cudaGetLastError();
+}
+
+// Launches the staged kernel over nq work items; an item may hold many
+// groups, sorted. S is the corner's row stride in floats, P the pixels a
+// thread holds, smem_bytes the dynamic shared memory the caller worked out:
+// it must equal this file's own layout, or the launch is refused with
+// cudaErrorInvalidValue, as is a P that does not fit W. Otherwise as
+// quad_accumulate_launch.
+int quad_accumulate_staged_launch(const void* stiles, const void* k,
+                                  const void* qstart, const void* qcount,
+                                  const void* snips, int nq, int W, int C,
+                                  int S, int P, int smem_bytes, void* sum,
+                                  void* num, void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = staged_threads(W, P);
+  if (threads == 0 || smem_bytes != staged_smem_bytes(W, S))
+    return (int)cudaErrorInvalidValue;
+  if (nq <= 0) return (int)cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (P) {
+    case 1:
+      return (int)staged_launch<1>(stiles, k, qstart, qcount, snips, nq, W, C,
+                                   S, threads, smem_bytes, sum, num, st);
+    case 2:
+      return (int)staged_launch<2>(stiles, k, qstart, qcount, snips, nq, W, C,
+                                   S, threads, smem_bytes, sum, num, st);
+    case 4:
+      return (int)staged_launch<4>(stiles, k, qstart, qcount, snips, nq, W, C,
+                                   S, threads, smem_bytes, sum, num, st);
+    case 8:
+      return (int)staged_launch<8>(stiles, k, qstart, qcount, snips, nq, W, C,
+                                   S, threads, smem_bytes, sum, num, st);
+    default:
+      return (int)staged_launch<16>(stiles, k, qstart, qcount, snips, nq, W,
+                                    C, S, threads, smem_bytes, sum, num, st);
+  }
+}
+
+// Resident blocks of the staged kernel on one SM for (W, S, P), as the
+// runtime's occupancy calculator gives them; a negative CUDA error code on
+// failure or on arguments the staged launch would refuse.
+int quad_accumulate_staged_occupancy(int W, int S, int P, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -(int)err;
+  const int threads = staged_threads(W, P);
+  const int smem_bytes = staged_smem_bytes(W, S);
+  if (threads == 0 || smem_bytes == 0) return -(int)cudaErrorInvalidValue;
+  int blocks = 0;
+  switch (P) {
+    case 1: err = staged_occupancy<1>(&blocks, threads, smem_bytes); break;
+    case 2: err = staged_occupancy<2>(&blocks, threads, smem_bytes); break;
+    case 4: err = staged_occupancy<4>(&blocks, threads, smem_bytes); break;
+    case 8: err = staged_occupancy<8>(&blocks, threads, smem_bytes); break;
+    default: err = staged_occupancy<16>(&blocks, threads, smem_bytes); break;
+  }
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 const char* quad_accumulate_error_string(int err) {

@@ -52,6 +52,7 @@ from ..coords import (
     flip_mark_intervals,
     swap_paired_columns_for_flipped,
 )
+from ..device import resolve_device
 from ..genomics.intervals import (
     is_compatible_viewframe,
     is_valid_expected,
@@ -210,22 +211,6 @@ def _codes(col):
     return pd.factorize(col, use_na_sentinel=False)
 
 
-def _resolve_device(device):
-    """The torch device to run on; a CUDA device must exist."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device={device!r} but torch sees no CUDA device; pass "
-                "device='cpu' to run the plain PyTorch version"
-            )
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
-    return dev
-
-
 class PileUpper:
     """See reference coolpup.py:752–836 for parameter semantics; the
     constructor surface is the JAX package's minus ``mesh`` and
@@ -262,7 +247,7 @@ class PileUpper:
         trace_dir=None,
         device="cuda",
     ):
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.clr = clr
         self.resolution = clr.binsize
         self.CC = CC

@@ -9,14 +9,21 @@ semantics on PyTorch tensors:
    the device into ONE NaN-encoded stack (``ops/tiles.py``): masked-out
    pixels are NaN, division-by-zero poison stays +inf.
 2. ``sort_quads`` sorts the packed snip words (``pack_snips``) on the host by
-   (quad, group), so each quad's snips form one run per group, and
-   ``split_runs`` cuts those runs into work items of bounded length.
+   (quad, group), so each quad's snips form one run per group. Work items
+   are cut from that order: ``split_items`` cuts a quad into items of at
+   most ``ITEM_MAX`` snips whatever their groups (the staged kernel),
+   ``split_runs`` into one item per (quad, group) run (the direct kernel).
 3. ``quad_accumulate`` adds every snip's W×W window into per-group
    accumulators: ``sum[g] += where(v==v, v, 0)`` and
-   ``num[g] += (v==v) & (|v| != inf)``. On a CUDA tensor it launches the
-   hand-written Hopper kernel (``csrc/quad_accumulate.cu``), one block per
-   work item over all items in one launch; on a CPU tensor it runs the plain
-   PyTorch version ``quad_accumulate_plain``.
+   ``num[g] += (v==v) & (|v| != inf)``. On a CUDA tensor it launches one of
+   the two hand-written Hopper kernels of ``csrc/quad_accumulate.cu``, one
+   block per work item over all items in one launch: the staged kernel
+   (``quad_accumulate_staged``), which copies the corner of the quad that
+   windows can reach into shared memory, wherever ``corner_layout(W)`` says
+   that corner fits a block, and the direct kernel
+   (``quad_accumulate_direct``), which reads windows from global memory,
+   elsewhere. On a CPU tensor it runs the plain PyTorch version
+   ``quad_accumulate_plain``.
 
 ``QuadPileupSession.run_stripes`` gathers each snip's centre row and
 centre column (the stripe planes) from the same normalized stack as torch
@@ -28,19 +35,75 @@ compiles and are not ported: the card takes one launch over all items.
 
 from __future__ import annotations
 
+from collections import namedtuple
+
 import numpy as np
 import torch
+
+from ..device import resolve_device
 
 B_TILE = 128  # tile size; the packed word's 7-bit offsets require it
 W_MAX = 120  # the reference kernel's limit (pallas_gather.py:76)
 C_MAX = 1 << 17  # the packed word's 17-bit group field
-RUN_MAX = 1024  # longest run of snips one kernel block accumulates
+RUN_MAX = 1024  # longest run of snips one direct-kernel block accumulates
+ITEM_MAX = 1024  # most snips in one staged-kernel work item
 PLAIN_CHUNK = 65536  # snips per gather in the plain version
 STRIPE_CHUNK = 131072  # snips per stripe gather (run_stripes)
 
-# launches of the CUDA kernel in this process (quad_accumulate on a CUDA
-# tensor adds one per launch; chip_smoke.py resets and reads it)
+# the staged kernel's shared memory (csrc/quad_accumulate.cu holds the same
+# layout and refuses a launch whose size disagrees): the corner, then per
+# STAGE_CHUNK snips decoded at once an int32 offset and a uint16 run start
+# each, a run-start mask per 32 snips, and the run count
+SMEM_MAX = 232_448  # dynamic shared memory a block can take on sm_90
+STAGE_CHUNK = 1024
+_STAGE_TAIL = (4 * STAGE_CHUNK + 2 * (STAGE_CHUNK + 8)
+               + 4 * (STAGE_CHUNK // 32) + 16)
+# pixels a staged-kernel thread may hold, and the most threads of a block
+# at each
+_PIXELS_PER_THREAD = ((1, 1024), (2, 1024), (4, 1024), (8, 1024), (16, 768))
+
+# launches of the CUDA kernels in this process (each launcher adds one per
+# launch, to the total and to its variant; chip_smoke.py resets and reads
+# them)
 LAUNCHES = 0
+VARIANT_LAUNCHES = {"staged": 0, "direct": 0}
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+CornerLayout = namedtuple(
+    "CornerLayout", "side stride corner_bytes smem_bytes staged"
+)
+
+
+def corner_layout(W):
+    """The staged kernel's shared-memory layout for W×W windows.
+
+    Window offsets are below 128, so a window reaches no further than row
+    and column ``side = 128 + W - 1`` of its quad: that corner is staged as
+    ``side`` rows of ``stride`` floats. ``stride = W + 128`` is congruent to
+    W mod 32, which puts a warp's 32 consecutive pixels in 32 distinct
+    banks. ``smem_bytes`` adds the chunk buffers, and ``staged`` says
+    whether a block can take it; where it cannot, ``quad_accumulate``
+    launches the direct kernel."""
+    side = B_TILE + W - 1
+    stride = side + 1
+    corner_bytes = _cdiv(side * stride * 4, 16) * 16
+    smem_bytes = corner_bytes + _STAGE_TAIL
+    return CornerLayout(side, stride, corner_bytes, smem_bytes,
+                        smem_bytes <= SMEM_MAX)
+
+
+def pixels_per_thread(W):
+    """``(P, threads)`` of the staged launch: the fewest pixels a thread
+    holds such that one block covers the W×W window, and the block's
+    threads (a whole number of warps)."""
+    for P, most in _PIXELS_PER_THREAD:
+        threads = _cdiv(_cdiv(W * W, P), 32) * 32
+        if threads <= most:
+            return P, threads
+    raise ValueError(f"pixels_per_thread: no block covers W={W}")
 
 
 def pack_snips(o1, o2, cid):
@@ -122,6 +185,53 @@ def split_runs(snips, k, qstart, qcount, run_max=RUN_MAX):
             count.astype(np.int32))
 
 
+def split_items(k, qstart, qcount, item_max=ITEM_MAX):
+    """Cut each quad's snips into work items of at most ``item_max`` snips,
+    whatever their groups: a quad of n snips gives ceil(n / item_max) items
+    of equal length (the last may be shorter). Returns ``(k, start, count)``
+    per item. Inside an item the snips keep ``sort_quads``' order, sorted by
+    group; the staged kernel flushes at each change of group."""
+    qcount = np.asarray(qcount, np.int64)
+    pieces = _cdiv(qcount, item_max)
+    size = _cdiv(qcount, np.maximum(pieces, 1))
+    quad_of = np.repeat(np.arange(len(qcount)), pieces)
+    first = np.repeat(np.cumsum(pieces) - pieces, pieces)
+    off = (np.arange(len(quad_of)) - first) * size[quad_of]
+    start = np.asarray(qstart, np.int64)[quad_of] + off
+    count = np.minimum(qcount[quad_of] - off, size[quad_of])
+    return k[quad_of], start.astype(np.int32), count.astype(np.int32)
+
+
+def stage_corner_plain(stiles, k4, W):
+    """Plain PyTorch version of the staged kernel's copy: the corner of one
+    quad that W×W windows can reach, as float32 [side, stride]
+    (``corner_layout``), bits untouched: all of tile ``k4[0]``, W - 1
+    columns of ``k4[1]``, W - 1 rows of ``k4[2]`` and the (W - 1)² corner of
+    ``k4[3]``; the columns past ``side`` are zero. The pixel (i, j) of the
+    window at offsets (a, b) is element ``(a*stride + b) + (i*stride + j)``
+    of the flattened corner (``corner_offsets``)."""
+    lay = corner_layout(W)
+    t00, t01, t10, t11 = (stiles[int(s)] for s in k4)
+    corner = torch.zeros((lay.side, lay.stride), dtype=stiles.dtype,
+                         device=stiles.device)
+    corner[:B_TILE, :B_TILE] = t00
+    corner[:B_TILE, B_TILE:lay.side] = t01[:, :W - 1]
+    corner[B_TILE:, :B_TILE] = t10[:W - 1]
+    corner[B_TILE:, B_TILE:lay.side] = t11[:W - 1, :W - 1]
+    return corner
+
+
+def corner_offsets(snips, W, stride):
+    """What the staged kernel decodes and what each thread holds: per snip
+    word the corner offset ``a*stride + b`` and the group, and per window
+    pixel the offset ``i*stride + j`` ([W*W], row-major), as int64 tensors
+    on ``snips.device``."""
+    w = snips.to(torch.int64)
+    ar = torch.arange(W, device=snips.device)
+    pix = (ar[:, None] * stride + ar[None, :]).reshape(-1)
+    return (w >> 24) * stride + ((w >> 17) & 0x7F), w & 0x1FFFF, pix
+
+
 def quad_accumulate_plain(stiles, k, qstart, qcount, snips, W, C):
     """Plain PyTorch version of the quad gather-accumulate, on any device.
 
@@ -198,24 +308,17 @@ def _check_kernel_args(stiles, k, qstart, qcount, snips, W, C):
                              f"got {t.dtype}")
 
 
-def quad_accumulate(stiles, k, qstart, qcount, snips, W, C):
-    """Per-group window sums and finite counts over quad-sorted snips.
-
-    ``stiles`` float32 [K, 128, 128] (NaN-encoded), ``k`` int32 [nq, 4] tile
-    slots per item, ``qstart``/``qcount`` int32 [nq] spans into ``snips``
-    (int32 packed words, ``pack_snips``). Every item's snips must share one
-    group, as ``split_runs`` makes them: the CUDA kernel adds a whole item to
-    the group of its first word. Returns float64 ``(sum, num)`` [C, W, W] on
-    ``stiles.device``.
-
-    A CPU tensor runs ``quad_accumulate_plain``. A CUDA tensor launches the
-    CUDA kernel (built at first use) and raises on any failure."""
+def _launch(variant, entry, extra, stiles, k, qstart, qcount, snips, W, C):
+    """Zeroed float32 ``sum`` and int32 ``num`` [C, W, W] on the card and
+    one launch of the library's ``entry`` over them (``extra``: the
+    launcher's own integers, after C); the launch's error code is raised,
+    the launch counted."""
     global LAUNCHES
     _check_kernel_args(stiles, k, qstart, qcount, snips, W, C)
-    if stiles.device.type == "cpu":
-        return quad_accumulate_plain(stiles, k, qstart, qcount, snips, W, C)
     if stiles.device.type != "cuda":
-        raise ValueError(f"quad_accumulate: no kernel for {stiles.device}")
+        raise ValueError(
+            f"quad_accumulate_{variant}: no kernel for {stiles.device}"
+        )
     from ..kernels.build import load_kernels
 
     lib = load_kernels()
@@ -223,9 +326,9 @@ def quad_accumulate(stiles, k, qstart, qcount, snips, W, C):
     out_num = torch.zeros((C, W, W), dtype=torch.int32, device=stiles.device)
     nq = int(qstart.shape[0])
     if nq:
-        err = lib.quad_accumulate_launch(
+        err = getattr(lib, entry)(
             stiles.data_ptr(), k.data_ptr(), qstart.data_ptr(),
-            qcount.data_ptr(), snips.data_ptr(), nq, W, C,
+            qcount.data_ptr(), snips.data_ptr(), nq, W, C, *extra,
             out_sum.data_ptr(), out_num.data_ptr(),
             torch.cuda.current_stream(stiles.device).cuda_stream,
             stiles.device.index,
@@ -233,10 +336,82 @@ def quad_accumulate(stiles, k, qstart, qcount, snips, W, C):
         if err != 0:
             msg = lib.quad_accumulate_error_string(err).decode()
             raise RuntimeError(
-                f"quad_accumulate: kernel launch failed, CUDA error {err} "
-                f"({msg})"
+                f"quad_accumulate_{variant}: kernel launch failed, CUDA "
+                f"error {err} ({msg})"
             )
         LAUNCHES += 1
+        VARIANT_LAUNCHES[variant] += 1
+    return out_sum, out_num
+
+
+def quad_accumulate_direct(stiles, k, qstart, qcount, snips, W, C):
+    """One launch of the direct kernel (windows read from global memory) on
+    CUDA tensors. Every item's snips must share one group, as ``split_runs``
+    makes them: the kernel adds a whole item to the group of its first word.
+    Returns float32 ``sum`` and int32 ``num`` [C, W, W]; raises where the
+    launch fails."""
+    return _launch("direct", "quad_accumulate_launch", (), stiles, k, qstart,
+                   qcount, snips, W, C)
+
+
+def quad_accumulate_staged(stiles, k, qstart, qcount, snips, W, C,
+                           pixels=None):
+    """One launch of the staged kernel (the reachable corner of each item's
+    quad copied into shared memory) on CUDA tensors. An item may hold many
+    groups, sorted by group (``split_items``), and any number of snips.
+    ``pixels`` is the pixels a thread holds (1, 2, 4, 8 or 16; default: the
+    fewest that cover the window, ``pixels_per_thread``, which the card
+    showed fastest; another value only for timing it). Returns float32
+    ``sum`` and int32 ``num`` [C, W, W]; raises where the corner does not
+    fit a block or the launch fails."""
+    lay = corner_layout(W)
+    if not lay.staged:
+        raise ValueError(
+            f"quad_accumulate_staged: W={W} needs {lay.smem_bytes} bytes of "
+            f"shared memory, a block has {SMEM_MAX}"
+        )
+    P = pixels_per_thread(W)[0] if pixels is None else int(pixels)
+    return _launch("staged", "quad_accumulate_staged_launch",
+                   (lay.stride, P, lay.smem_bytes), stiles, k, qstart, qcount,
+                   snips, W, C)
+
+
+def staged_occupancy(W, device):
+    """Blocks of the staged kernel that one SM of CUDA ``device`` holds at
+    once for W×W windows, from the runtime's occupancy calculator."""
+    from ..kernels.build import load_kernels
+
+    P = pixels_per_thread(W)[0]
+    blocks = load_kernels().quad_accumulate_staged_occupancy(
+        W, corner_layout(W).stride, P, torch.device(device).index or 0)
+    if blocks < 0:
+        raise RuntimeError(
+            f"staged_occupancy: CUDA error {-blocks} for W={W}, P={P}"
+        )
+    return blocks
+
+
+def quad_accumulate(stiles, k, qstart, qcount, snips, W, C):
+    """Per-group window sums and finite counts over quad-sorted snips.
+
+    ``stiles`` float32 [K, 128, 128] (NaN-encoded), ``k`` int32 [nq, 4] tile
+    slots per item, ``qstart``/``qcount`` int32 [nq] spans into ``snips``
+    (int32 packed words, ``pack_snips``). Returns float64 ``(sum, num)``
+    [C, W, W] on ``stiles.device``.
+
+    A CPU tensor runs ``quad_accumulate_plain``, which takes items of any
+    shape. A CUDA tensor launches a CUDA kernel (built at first use) and
+    raises on any failure; W alone picks it: the staged kernel where
+    ``corner_layout(W).staged``, whose items may hold many groups
+    (``split_items``), the direct kernel elsewhere, whose items must each
+    hold one group (``split_runs``). ``QuadPileupSession.stage`` cuts the
+    items to match."""
+    if stiles.device.type == "cpu":
+        _check_kernel_args(stiles, k, qstart, qcount, snips, W, C)
+        return quad_accumulate_plain(stiles, k, qstart, qcount, snips, W, C)
+    kernel = (quad_accumulate_staged if corner_layout(W).staged
+              else quad_accumulate_direct)
+    out_sum, out_num = kernel(stiles, k, qstart, qcount, snips, W, C)
     return out_sum.to(torch.float64), out_num.to(torch.float64)
 
 
@@ -289,7 +464,9 @@ class QuadPileupSession:
 
     def stage(self, r1, r2, cid):
         """Host quad sort + work-item split, uploaded to the device: the
-        ``(k, qstart, qcount, snips)`` arguments of ``quad_accumulate``."""
+        ``(k, qstart, qcount, snips)`` arguments of ``quad_accumulate``,
+        with the items that the kernel for this W takes (``split_items``
+        where the corner is staged, ``split_runs`` elsewhere)."""
         cid = np.asarray(cid)
         if len(cid) and (cid.min() < 0 or cid.max() >= self.C):
             raise ValueError(
@@ -301,7 +478,10 @@ class QuadPileupSession:
         snips, k, qstart, qcount = sort_quads(
             r1, r2, cid, self.tile_stack.tile_map, B_TILE
         )
-        k, qstart, qcount = split_runs(snips, k, qstart, qcount)
+        if corner_layout(self.W).staged:
+            k, qstart, qcount = split_items(k, qstart, qcount)
+        else:
+            k, qstart, qcount = split_runs(snips, k, qstart, qcount)
         return tuple(
             torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(self.device)
             for a in (k, qstart, qcount, snips)
@@ -392,9 +572,10 @@ def stripes_host(stiles, tile_map, r1, r2, W):
 
 
 def run_quad_pileup(tile_stack, r1, r2, dd0, cid, valid1, valid2, evec,
-                    cfg_kw, device="cpu"):
+                    cfg_kw, device="cuda"):
     """One-shot wrapper around QuadPileupSession (counterpart of
-    ``run_pallas_pileup``)."""
+    ``run_pallas_pileup``). Runs on the card and raises without one;
+    ``device="cpu"`` runs the plain PyTorch version."""
     session = QuadPileupSession(tile_stack, valid1, valid2, evec, cfg_kw,
-                                device)
+                                resolve_device(device))
     return session.run(r1, r2, dd0, cid)

@@ -22,6 +22,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 
 @dataclass
 class TileStack:
@@ -516,12 +518,13 @@ def normalize_tile_stack_device(
     ignore_diags=2,
     frame_shift=0,
     slab=1024,
-    device="cpu",
+    device="cuda",
 ):
     """``normalize_tile_stack`` on ``device`` for a dense TileStack: upload
-    the raw tiles, then ``normalize_tiles``."""
+    the raw tiles, then ``normalize_tiles``. Runs on the card and raises
+    without one; ``device="cpu"`` runs it there."""
     tiles = torch.from_numpy(np.ascontiguousarray(ts.tiles, np.float32))
-    tiles = tiles.to(device)
+    tiles = tiles.to(resolve_device(device))
     return normalize_tiles(
         tiles, ts.tile_map, ts.B, valid1, valid2, evec=evec, ooe=ooe,
         cis=cis, ignore_diags=ignore_diags, frame_shift=frame_shift,

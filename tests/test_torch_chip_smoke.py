@@ -73,3 +73,112 @@ def test_rescale_and_wide_phase_rehearsal(monkeypatch, capsys):
     assert "wide generic_accumulate: device span" in out
     assert "wide snips/s:" in out
 
+
+
+def _fake_kernels(monkeypatch):
+    """Stand-ins for the two CUDA launchers and the routed wrapper that run
+    the plain version on the CPU and count launches as the launchers do."""
+    plain = qg.quad_accumulate_plain
+
+    def launcher(variant):
+        def launch(stiles, k, qstart, qcount, snips, W, C, **kw):
+            assert set(kw) <= {"pixels"}
+            if variant == "staged":
+                assert qg.corner_layout(W).staged
+            else:  # the direct kernel takes single-group items only
+                g = (snips & 0x1FFFF).tolist()
+                for s, c in zip(qstart.tolist(), qcount.tolist()):
+                    assert len(set(g[s:s + c])) <= 1
+            if k.shape[0]:
+                qg.LAUNCHES += 1
+                qg.VARIANT_LAUNCHES[variant] += 1
+            s, n = plain(stiles, k, qstart, qcount, snips, W, C)
+            return s.to(torch.float32), n.to(torch.int32)
+        return launch
+
+    staged, direct = launcher("staged"), launcher("direct")
+
+    def routed(stiles, k, qstart, qcount, snips, W, C):
+        kernel = staged if qg.corner_layout(W).staged else direct
+        s, n = kernel(stiles, k, qstart, qcount, snips, W, C)
+        return s.to(torch.float64), n.to(torch.float64)
+
+    monkeypatch.setattr(qg, "quad_accumulate_staged", staged)
+    monkeypatch.setattr(qg, "quad_accumulate_direct", direct)
+    monkeypatch.setattr(qg, "quad_accumulate", routed)
+    monkeypatch.setattr(qg, "staged_occupancy", lambda *a, **k: 2)
+    monkeypatch.setattr(chip_smoke, "event_ms",
+                        lambda fn, sync: chip_smoke.timed(fn, sync)[0] * 1e3)
+
+    class trace:
+        """One fake kernel time per launch counted during the block."""
+
+        def __enter__(self):
+            self.before = qg.LAUNCHES
+            return self
+
+        def __exit__(self, *exc):
+            self.ms = [1.0] * (qg.LAUNCHES - self.before)
+
+    monkeypatch.setattr(chip_smoke, "quad_kernel_trace", trace)
+
+
+def test_kernel_phase_rehearsal(monkeypatch, capsys):
+    """Phase 3 with the launchers replaced by counting plain versions: every
+    case reaches every variant that takes its W, with the items that variant
+    takes, and the routed wrapper takes the variant ``corner_layout``
+    names."""
+    _fake_kernels(monkeypatch)
+    chip_smoke.check_kernels(torch.device("cpu"), lambda: None)
+    out = capsys.readouterr().out
+    last_staged, first_direct = chip_smoke.staged_limit()
+    assert qg.corner_layout(last_staged).staged
+    assert not qg.corner_layout(first_direct).staged
+    for name in ("W=11", "W=21", "W=21 empty", "W=65", "W=120",
+                 f"W={last_staged}", f"W={first_direct}",
+                 "W=21 by-window runs", "W=21 ITEM_MAX cuts",
+                 "W=21 item longer than the chunk", "W=33 missing tiles",
+                 f"W={first_direct} missing tiles"):
+        assert f"kernel vs plain {name}: " in out
+    lines = {ln.split(": ")[0]: ln for ln in out.splitlines()}
+    assert "[direct; staged; staged, whole quads; routed]" in \
+        lines["kernel vs plain W=21"]
+    assert "[direct; routed]" in lines["kernel vs plain W=120"]
+
+
+def test_slice_phase_rehearsal(monkeypatch, capsys):
+    """Phase 4 (the slice and the W sweep) at a tiny size on the CPU, with
+    the launchers replaced: control flow, checks, the bound and the JSON
+    record's keys."""
+    from bench import make_workload
+
+    _fake_kernels(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "SWEEP_LOCI", 300)
+    monkeypatch.setattr(chip_smoke, "ITEM_MAX_SWEEP", (64, 1024))
+    monkeypatch.setattr(chip_smoke, "KERNEL_ROUNDS", 1)
+    monkeypatch.setattr(chip_smoke, "REPEATS", 1)
+    monkeypatch.setattr(chip_smoke, "PLAIN_REPEATS", 1)
+    workload = make_workload(n_bins=1_500, nnz_target=100_000, n_loci=3_000)
+    dev = torch.device("cpu")
+    rec = chip_smoke.check_slice(dev, lambda: None, workload, "cpu rehearsal")
+    assert set(rec) >= {"name", "route", "source", "replaces", "launches",
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms", "direct_ms", "variant"}
+    assert rec["variant"] == "staged" and rec["library_ms"] is None
+    assert rec["launches"] == 1 and rec["bound_by"] == "bytes"
+    shape = rec["shapes"]["slice"]
+    want_bytes = (4 * shape["tiles"] * 128 * 128 + 4 * 3_000
+                  + 24 * shape["items"] + 8 * 16 * 21 * 21)
+    assert shape["snips"] == 3_000 and shape["C"] == 16
+    assert rec["bound_ms"] == 1e3 * want_bytes / chip_smoke.PEAK_BYTES_S
+    chip_smoke.check_sweep(dev, lambda: None, workload, "cpu rehearsal")
+    out = capsys.readouterr().out
+    assert "slice: launches 1 variant staged" in out
+    assert "kernel timing in turns (direct, staged, staged, direct" in out
+    assert "staged by ITEM_MAX in turns" in out
+    last_staged, first_direct = chip_smoke.staged_limit()
+    for W, routed in ((11, "staged"), (33, "staged"), (65, "staged"),
+                      (last_staged, "staged"), (first_direct, "direct")):
+        assert f"sweep W={W}: 300 snips" in out
+        assert f"routed {routed}" in out
+    assert "sweep W=11: 3000 snips" in out

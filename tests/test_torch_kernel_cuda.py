@@ -1,7 +1,12 @@
-"""The CUDA quad gather-accumulate against its plain PyTorch version, on the
-card: chip_smoke.py's phase-3 inputs (W = 11, 21, 65, 120; a 900-snip quad;
-group ids above 512; +inf poison; an empty stream) with its tolerances:
-``num`` exact, poison planes equal, finite ``sum`` within rtol/atol 1e-5.
+"""The two CUDA quad gather-accumulate kernels against the plain PyTorch
+version, on the card: chip_smoke.py's phase-3 inputs (W = 11, 21, 65, 120,
+the largest staged W and the first direct W; a 900-snip quad; group ids
+above 512; +inf poison; an empty stream; by-window runs of 1-3 snips; quads
+cut exactly at ITEM_MAX; an item longer than the kernel's chunk; missing
+tiles) through every variant that takes the W, the direct kernel, the
+staged kernel on split and on whole quads, and the routed wrapper, with its
+tolerances: ``num`` exact, poison planes equal,
+finite ``sum`` within rtol/atol 1e-5.
 
 Needs a CUDA device and nvcc; skipped elsewhere. On a machine with a card:
 
@@ -28,15 +33,15 @@ def cuda_device():
 def test_quad_accumulate_kernel_matches_plain(cuda_device):
     sys.path.insert(0, str(REPO))
     try:
-        from chip_smoke import SMALL_TOL, compare, kernel_cases
+        from chip_smoke import check_case, kernel_cases
     finally:
         sys.path.remove(str(REPO))
     from coolpuppy_tpu_torch.ops import quad_gather as qg
 
-    for name, args in kernel_cases(cuda_device):
+    for name, stiles, quads, W, C in kernel_cases():
         before = qg.LAUNCHES
-        got = qg.quad_accumulate(*args)
-        torch.cuda.synchronize()
-        assert qg.LAUNCHES == before + (1 if args[1].shape[0] else 0)
-        want = qg.quad_accumulate_plain(*args)
-        compare(got, want, what=name, **SMALL_TOL)
+        held, _, _ = check_case(name, stiles, quads, W, C, cuda_device,
+                                torch.cuda.synchronize)
+        assert "direct" in held and "routed" in held
+        assert ("staged" in held) == qg.corner_layout(W).staged
+        assert qg.LAUNCHES == before + (len(held) if len(quads[2]) else 0)

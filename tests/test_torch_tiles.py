@@ -115,7 +115,7 @@ def test_normalize_matches_reference(case):
         tiles, ts.tile_map, B, valid, valid, evec=evec, slab=4, **kw
     ).numpy()
     got2 = port.normalize_tile_stack_device(
-        ts, valid, valid, evec=evec, **kw
+        ts, valid, valid, evec=evec, device="cpu", **kw
     ).numpy()
     np.testing.assert_array_equal(got, got2)
     host_port = port.normalize_tile_stack(ts, valid, valid, evec=evec, **kw)
