@@ -1,15 +1,18 @@
 """Drive the PyTorch/CUDA port's loop-APA path and its ``pileup()`` engine,
 in all its modes, once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 4,8]
 
 Run from the root of a checkout on a machine with a CUDA device, ``nvcc``
-and PyTorch built for CUDA. It needs no network and no JAX. Phases, each
-printing its lines:
+and PyTorch built for CUDA. It needs no network and no JAX. With no
+argument every phase runs; ``--phases`` runs the probe, the build and the
+phases named (the record of the kernel then holds what those phases
+measured). Phases, each printing its lines:
 
 1. probe: torch/CUDA and pandas versions, the card's name and power limit
-   (``nvidia-smi``), the ``nvcc`` release, and which of triton, pandas, h5py
-   and jax are importable (jax is only looked up, never imported);
+   (``nvidia-smi``), the ``nvcc`` release, and which of triton, pandas,
+   h5py, matplotlib, scipy, yaml and jax are importable (jax is only looked
+   up, never imported);
 2. build: compiles ``coolpuppy_tpu_torch/csrc/*.cu`` for sm_90a and loads
    it, with ptxas' register and spill report, and the staged kernel's
    shared memory, threads and resident blocks per SM at W = 21, 33, 65;
@@ -36,7 +39,7 @@ printing its lines:
    exact, ``sum`` rtol 1e-5), then times the two kernels in turns (direct,
    staged, staged, direct; the kernel's device time from the profiler, the
    launcher call between CUDA events), the staged kernel's alternatives
-   (pixels a thread, ``ITEM_MAX``), the plain version and
+   (pixels a thread, ``ITEM_MAX``; one round each), the plain version and
    the whole path (with its phases), prints the kernel's bound (bytes over
    3.35 TB/s against float adds over 67 TFLOP/s) and its share of it, the
    device's busy share of one end-to-end run from ``torch.profiler``, and a
@@ -91,6 +94,27 @@ printing its lines:
    shifted control: a checked run (route ``generic_torch``), 300 sites
    card against CPU (counts exact, ``data`` rtol 1e-4), and the timings of
    (b).
+8. the extension hooks. (a) Every route of the hooks and every by-window
+   case that groups through the frame hook (``HOOK_MODES``: the frame func,
+   frame-column extras by strand and with controls, the batch hook, snip
+   hooks for the domain score and one snip per anchor, an opaque extra
+   func, extras under expected emission, the host stream with stripes and
+   with rescale, by-window of BEDPE rows, by-window under rescale for BED
+   and BEDPE) on the toy map, card against CPU as in 5a, the extras columns
+   equal (frame columns) or within rtol 1e-5 (computed), in the same order,
+   with the route each side took. (b) ``bench.py``'s ``bench_extension`` at
+   its own size on the engine map: frame-column extras at 20,000 sites (a
+   checked run that must launch the staged kernel, the plain-swapped run,
+   two timed runs, busy share, the kernel's time beside its bound), the
+   batch hook and the snip hook at 6,000 sites (checked runs, the batch
+   route on 1,000 sites card against CPU, two and one timed runs), and the
+   three routes on the same sites: ``n`` equal, ``data`` within rtol 1e-4,
+   the snip route's ``center`` list equal to the batch route's within rtol
+   1e-5. (c) By-window of BEDPE rows: every pair within 2 Mb of 5,000 sites
+   of that map as rows, through ``pileupsByWindowWithControl`` (the staged
+   kernel must launch), held window by window against the BED dual-anchor
+   run over the same pairs (counts exact, ``data`` rtol 1e-4), two timed
+   runs, busy share and the kernel's time beside its bound.
 
 Any failure raises and exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel JSON
@@ -121,6 +145,9 @@ HEADLINE_RTOL = 1e-4
 REPEATS = 5
 PLAIN_REPEATS = 3
 KERNEL_ROUNDS = 3  # rounds of (direct, staged, staged, direct)
+# rounds of the pixels-a-thread and ITEM_MAX sweeps, whose constants are
+# settled: one reading each shows they still hold
+SWEEP_ROUNDS = 1
 # published peaks of one H100 SXM: device memory bytes/s, float32 FLOP/s
 # outside the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -238,6 +265,85 @@ WIDE_CELL_KW = dict(features_format="bed", flank=1_000_000,
 WIDE_CELL_SITES = 2_000
 WIDE_SUBSET_SITES = 300
 CELL_REPEATS = 2
+
+# phase 8a: the extension routes and the by-window cases that group through
+# a frame hook, on the toy map. Per mode: "features" (toy_features() with
+# distinct scores unless "bedpe", "tads" or "bedpe_tads"), CoordCreator and
+# PileUpper keywords ("expected": True stands for the toy expected table),
+# "run" (pileupsWithControl keywords; hooks and extras by name, resolved in
+# hook_mode_table), "by_window", the accumulate routes on the card and on
+# the CPU, and the extras columns with the tolerance they are held to (None:
+# equal, copied from frame columns)
+HOOK_MODES = {
+    "frame_func": dict(run={"postprocess_frame_func": "group_by_region"},
+                       routes=("cuda_kernel", "plain")),
+    "frame_column_by_strand": dict(
+        run={"extras": "score1", "groupby": ["strand1", "strand2"]},
+        routes=("cuda_kernel", "plain"), extras=(["score1"], None)),
+    "frame_column_controls": dict(
+        cc={"nshifts": 2, "seed": 3}, run={"extras": "score1"},
+        routes=("cuda_kernel", "plain"),
+        extras=(["score1", "control_score1"], None)),
+    "batch_hook": dict(
+        run={"postprocess_batch_func": "center_batch", "extras": "center"},
+        routes=("batch_hook",) * 2, extras=(["center"], 1e-5)),
+    "batch_hook_flip_controls": dict(
+        cc={"nshifts": 1, "seed": 5}, pu={"flip_negative_strand": True},
+        run={"postprocess_batch_func": "center_batch", "extras": "center",
+             "groupby": ["strand1", "strand2"]},
+        routes=("batch_hook",) * 2,
+        extras=(["center", "control_center"], 1e-5)),
+    "snip_domain_score": dict(
+        features="tads", cc={"local": True, "rescale_flank": 1},
+        pu={"rescale": True, "rescale_size": 33},
+        run={"postprocess_snip_func": "domain_score",
+             "extras": "domain_score"},
+        routes=("host_stream",) * 2, extras=(["domain_score"], 1e-5)),
+    "snip_per_anchor": dict(
+        run={"postprocess_snip_func": "per_anchor"},
+        routes=("host_stream",) * 2),
+    "opaque_extra": dict(
+        run={"extras": "count_snips"}, routes=("host_stream",) * 2,
+        extras=(["snipcount"], None)),
+    "extras_expected_emission": dict(
+        pu={"expected": True, "ooe": False}, run={"extras": "score1"},
+        routes=("host_stream",) * 2, extras=(["score1"], None)),
+    "host_stripes": dict(
+        cc={"nshifts": 1, "seed": 4}, pu={"store_stripes": True},
+        run={"postprocess_snip_func": "center_snip", "extras": "center"},
+        routes=("host_stream",) * 2,
+        extras=(["center", "control_center"], 1e-5)),
+    "host_rescale": dict(
+        features="tads", cc={"rescale_flank": 1},
+        pu={"rescale": True, "rescale_size": 33, "expected": True},
+        run={"postprocess_snip_func": "noop"},
+        routes=("host_stream",) * 2),
+    "by_window_bedpe": dict(features="bedpe", by_window=True,
+                            routes=("cuda_kernel", "plain")),
+    "by_window_bedpe_controls": dict(
+        features="bedpe", cc={"nshifts": 2, "seed": 6}, by_window=True,
+        routes=("cuda_kernel", "plain")),
+    "by_window_rescale": dict(
+        features="tads", cc={"rescale_flank": 1},
+        pu={"rescale": True, "rescale_size": 33}, by_window=True,
+        routes=("rescale_torch",) * 2),
+    "by_window_rescale_bedpe": dict(
+        features="bedpe_tads", cc={"rescale_flank": 1},
+        pu={"rescale": True, "rescale_size": 33}, by_window=True,
+        routes=("rescale_torch",) * 2),
+}
+EXTRAS_RTOL = 1e-5
+# phase 8b: bench.py:575 bench_extension (its sizes, keywords and hooks)
+EXTENSION_KW = dict(features_format="bed", flank=100_000, maxdist=1_000_000,
+                    nshifts=0)
+EXTENSION_SITES = (20_000, 6_000)  # frame column; batch and snip hooks
+EXTENSION_WARMUP = {"frame": 1_000, "batch": 200, "snip": 200}
+EXTENSION_REPEATS = {"frame": 2, "batch": 2, "snip": 1}
+EXTENSION_CPU_SITES = 1_000
+# phase 8c: by-window of BEDPE rows: every pair of these sites of the engine
+# map within this distance, written out as rows
+BEDPE_WINDOW_SITES = 5_000
+BEDPE_WINDOW_KW = dict(flank=100_000, maxdist=2_000_000)
 
 
 def smi_line():
@@ -788,7 +894,7 @@ def check_slice(dev, sync, workload, card):
           "device time from the profiler, launcher call between CUDA "
           "events; ms): " + ms_line(kern_ms))
     print("staged alternatives in turns (ms): "
-          + ms_line(in_turns(alternatives, sync)))
+          + ms_line(in_turns(alternatives, sync, rounds=SWEEP_ROUNDS)))
     by_item_max = {}
     for item_max in ITEM_MAX_SWEEP:
         items = qg.split_items(*quads[1:], item_max=item_max)
@@ -797,7 +903,7 @@ def check_slice(dev, sync, workload, card):
         by_item_max[f"item_max {item_max} ({len(items[1])} items)"] = (
             lambda a=a: qg.quad_accumulate_staged(*a))
     print("staged by ITEM_MAX in turns (ms): "
-          + ms_line(in_turns(by_item_max, sync)))
+          + ms_line(in_turns(by_item_max, sync, rounds=SWEEP_ROUNDS)))
     staged_ms = statistics.median(kern_ms["staged"]["kernel"])
     direct_ms = statistics.median(kern_ms["direct"]["kernel"])
     shape = shape_record("slice", [call_shape(*args["staged"])], staged_ms,
@@ -1155,6 +1261,34 @@ def compare_tables(got, want, rtol, atol, what):
     return err
 
 
+def compare_extras(got, want, keys, what, rtol=None):
+    """Hold the extras columns ``keys`` of two pileup tables whose rows
+    ``compare_tables`` matched: per row a list of the same length in the
+    same order, equal element by element (values copied from frame columns),
+    or within ``rtol`` (values a hook computed from window pixels; NaN
+    positions equal)."""
+    for key in keys:
+        if key not in got or key not in want:
+            raise AssertionError(f"{what}: no column {key}")
+        for i, (g, w) in enumerate(zip(got[key], want[key])):
+            if (g is None) != (w is None):
+                raise AssertionError(f"{what}: {key} of row {i} on one "
+                                     "side only")
+            if w is None:
+                continue
+            g, w = np.atleast_1d(g), np.atleast_1d(w)
+            if g.shape != w.shape:
+                raise AssertionError(f"{what}: {key} of row {i} holds "
+                                     f"{g.shape} values, not {w.shape}")
+            if rtol is None:
+                if not (g == w).all():
+                    raise AssertionError(f"{what}: {key} of row {i} differs")
+            else:
+                np.testing.assert_allclose(
+                    g.astype(float), w.astype(float), rtol=rtol, atol=1e-7,
+                    equal_nan=True, err_msg=f"{what}: {key} of row {i}")
+
+
 def check_engine_modes(dev):
     """Phase 5a: every mode of the port's pileup() on the toy map, on
     ``dev`` against the plain version on the CPU."""
@@ -1393,17 +1527,7 @@ def check_modes(dev, sync, card, shapes=None):
             check_stripe_sample(gathers, row, n_snips)
         del gathers
 
-        kernel = qg.quad_accumulate
-        qg.quad_accumulate = qg.quad_accumulate_plain
-        try:
-            qg.LAUNCHES = 0
-            plain = run(f)
-            plain_launches = qg.LAUNCHES
-        finally:
-            qg.quad_accumulate = kernel
-        if plain_launches != 0 or plain["accumulate"].iloc[0] != "plain":
-            raise AssertionError(f"modes {cell}: plain-swapped run launched "
-                                 f"{plain_launches}")
+        plain = plain_swapped(f"modes {cell}", lambda: run(f))
         err = compare_tables(checked, plain, rtol=ENGINE_RTOL, atol=1e-7,
                              what=f"modes {cell} kernel vs plain")
         print(f"modes {cell} kernel vs plain (whole run): counts exact, data "
@@ -1422,31 +1546,14 @@ def check_modes(dev, sync, card, shapes=None):
                 return pu, pu.pileupsByWindowWithControl()
             return pu, pu.pileupsWithControl()
 
-        walls, phases = [], []
-        for _ in range(MODES_REPEATS):
-            t, (pu, pups) = timed(run_timed, sync)
-            if int(all_row(pups)["n"]) != n_snips:
-                raise AssertionError(f"modes {cell}: timed run counted "
-                                     "other snips")
-            walls.append(t)
-            ph = dict(pu.timers.seconds)
-            ph["outside_phases"] = t - sum(ph.values())
-            phases.append(ph)
-            del pu, pups
-        med = statistics.median(walls)
-        mid = phases[int(np.argsort(walls)[len(walls) // 2])]
-        print(f"modes {cell} timing: wall_s "
-              + json.dumps([round(x, 4) for x in walls]))
-        print(f"modes {cell} phases (median run, s): " + json.dumps(
-            {k: round(v, 4) for k, v in sorted(mid.items())}))
+        timed_runs(f"modes {cell}", run_timed, MODES_REPEATS, n_snips, sync,
+                   card)
         prof = profile_run(lambda: run(f), sync)
         print(f"modes {cell} device busy share of one run: " + prof["text"])
         rec = shape_record(f"modes {cell}", called.calls, prof["kernel_ms"],
                            launches[cell], card)
         if shapes is not None:
             shapes[cell] = rec
-        print(f"modes {cell} snips/s: {n_snips / med:.0f} ({n_snips} snips, "
-              f"median {med:.3f} s of {MODES_REPEATS}) on {card}")
     return launches
 
 
@@ -1530,16 +1637,7 @@ def check_engine(dev, sync, card, shapes=None):
           f"({list(checked['orientation'])}), launches {launches}, route "
           f"{route}, {t:.2f} s")
 
-    kernel = qg.quad_accumulate
-    qg.quad_accumulate = qg.quad_accumulate_plain
-    try:
-        qg.LAUNCHES = 0
-        plain = run(feats)
-        plain_launches = qg.LAUNCHES
-    finally:
-        qg.quad_accumulate = kernel
-    if plain_launches != 0 or plain["accumulate"].iloc[0] != "plain":
-        raise AssertionError(f"plain-swapped run launched {plain_launches}")
+    plain = plain_swapped("engine", lambda: run(feats))
     err = compare_tables(checked, plain, rtol=ENGINE_RTOL, atol=1e-7,
                          what="engine kernel vs plain")
     print(f"engine kernel vs plain (whole run): n/control_n/num exact, "
@@ -1555,28 +1653,14 @@ def check_engine(dev, sync, card, shapes=None):
         pu = PileUpper(clr, cc, control=nshifts > 0, device=dev)
         return pu, pu.pileupsByStrandWithControl()
 
-    walls, phases = [], []
-    for _ in range(ENGINE_REPEATS):
-        t, (pu, pups) = timed(run_timed, sync)
-        if engine_snips(pups) != n_snips:
-            raise AssertionError("timed run counted other snips")
-        walls.append(t)
-        ph = dict(pu.timers.seconds)
-        ph["outside_phases"] = t - sum(ph.values())
-        phases.append(ph)
-    med = statistics.median(walls)
-    mid = phases[int(np.argsort(walls)[len(walls) // 2])]
-    print("engine timing: wall_s " + json.dumps([round(x, 4) for x in walls]))
-    print("engine phases (median run, s): " + json.dumps(
-        {k: round(v, 4) for k, v in sorted(mid.items())}))
+    timed_runs("engine", run_timed, ENGINE_REPEATS, n_snips, sync, card,
+               engine_snips)
     prof = profile_run(lambda: run(feats), sync)
     print("engine device busy share of one run: " + prof["text"])
     rec = shape_record("engine", called.calls, prof["kernel_ms"], launches,
                        card)
     if shapes is not None:
         shapes["engine"] = rec
-    print(f"engine snips/s: {n_snips / med:.0f} ({n_snips} snips, median "
-          f"{med:.3f} s of {ENGINE_REPEATS}) on {card}")
     return launches
 
 
@@ -1807,29 +1891,13 @@ def time_cell(what, run_timed, count, n_snips, step, dev, sync, card,
     the engine's phase breakdown of the median run, the device time of the
     engine ``step`` in one run and the busy share of one profiled run of
     ``profiled``."""
-    walls, phases = [], []
-    for _ in range(CELL_REPEATS):
-        t, (pu, pups) = timed(run_timed, sync)
-        if count(pups) != n_snips:
-            raise AssertionError(f"{what}: a timed run counted other snips")
-        walls.append(t)
-        ph = dict(pu.timers.seconds)
-        ph["outside_phases"] = t - sum(ph.values())
-        phases.append(ph)
-        del pu, pups
+    timed_runs(what, run_timed, CELL_REPEATS, n_snips, sync, card, count)
     with step_timer(step, dev) as st:
         run_timed()
-    med = statistics.median(walls)
-    mid = phases[int(np.argsort(walls)[len(walls) // 2])]
-    print(f"{what} timing: wall_s " + json.dumps([round(x, 4) for x in walls]))
-    print(f"{what} phases (median run, s): " + json.dumps(
-        {k: round(v, 4) for k, v in sorted(mid.items())}))
     print(f"{what} {step}: device span {st.ms:.3f} ms (CUDA events around "
           f"each of {st.calls} calls, idle gaps included) in one run")
     print(f"{what} device busy share of one run: "
           + busy_share(profiled, sync))
-    print(f"{what} snips/s: {n_snips / med:.0f} ({n_snips} snips, median "
-          f"{med:.3f} s of {CELL_REPEATS}) on {card}")
     return st.ms
 
 
@@ -1952,9 +2020,438 @@ def check_wide_cell(dev, sync, card, workload=None):
                      lambda: run(feats))
 
 
-def main():
+def center_snip(snip):
+    """bench_extension's per-snip hook: the nansum of a central block (rows
+    and columns 8:13 of a 21-bin window; the toy's whole 5-bin window)."""
+    lo = 8 if snip["data"].shape[0] > 13 else 0
+    snip["center"] = float(np.nansum(snip["data"][lo : lo + 5, lo : lo + 5]))
+    yield snip
+
+
+def center_batch(frame, data):
+    """bench_extension's batch hook: ``center_snip`` for a whole chunk."""
+    lo = 8 if data.shape[1] > 13 else 0
+    frame = frame.copy(deep=False)
+    frame["center"] = np.nansum(data[:, lo : lo + 5, lo : lo + 5],
+                                axis=(1, 2))
+    return frame
+
+
+def domain_score(snip):
+    from coolpuppy_tpu_torch.lib.numutils import get_domain_score
+
+    snip["domain_score"] = get_domain_score(snip["data"], 1)
+    return snip
+
+
+def per_anchor(snip):
+    """One copy of the snip per anchor, grouped by the anchor's window (the
+    reference's per-snip ``group_by_region`` pattern)."""
+    for side in ("1", "2"):
+        yield dict(snip, group=tuple(
+            snip[c + side] for c in ("chrom", "start", "end")))
+
+
+def count_snips(acc, snip):
+    """An opaque extra sum func: no ``accumulate_values`` partial, so the
+    strictly per-snip host fold."""
+    acc["snipcount"] = acc.get("snipcount", 0) + 1
+    return acc
+
+
+def hook_run_kwargs(run):
+    """``pileupsWithControl`` keywords of a HOOK_MODES ``run`` entry, with
+    the hooks and extras resolved by name."""
+    from functools import partial
+
+    from coolpuppy_tpu_torch.lib.puputils import (
+        accumulate_values,
+        group_by_region_frame,
+    )
+
+    hooks = {"group_by_region": group_by_region_frame, "noop": lambda s: s,
+             "center_snip": center_snip, "center_batch": center_batch,
+             "domain_score": domain_score, "per_anchor": per_anchor}
+    kw = {k: hooks.get(v, v) if isinstance(v, str) else v
+          for k, v in run.items() if k != "extras"}
+    key = run.get("extras")
+    if key == "count_snips":
+        kw["extra_sum_funcs"] = {"snipcount": count_snips}
+    elif key:
+        kw["extra_sum_funcs"] = {key: partial(accumulate_values, key=key)}
+    return kw
+
+
+def hook_mode_table(name, clr, dense, weights, device):
+    """One HOOK_MODES entry on the toy map on ``device``."""
+    from coolpuppy_tpu_torch import CoordCreator, PileUpper
+
+    spec = HOOK_MODES[name]
+    kind = spec.get("features", "bed")
+    if kind == "bed":
+        features = toy_features().assign(score=[1.5, 2.5, 3.5, 4.5, 5.5, 6.5])
+    elif kind == "tads":
+        features = toy_tads()
+    else:
+        features = toy_bedpe()
+        if kind == "bedpe_tads":
+            features = features.assign(end1=features["start1"] + 2_000_000,
+                                       end2=features["start2"] + 2_000_000)
+    cc_kw = dict(features_format="bedpe" if "bedpe" in kind else "bed",
+                 mindist=0, nshifts=0)
+    cc_kw.update(spec.get("cc", {}))
+    if "rescale_flank" not in cc_kw:
+        cc_kw["flank"] = TOY_KW["flank"]
+    pu_kw = dict(spec.get("pu", {}))
+    if pu_kw.get("expected") is True:
+        pu_kw["expected"] = toy_expected(clr, dense, weights, toy_regions())
+    cc = CoordCreator(features, clr.binsize, **cc_kw)
+    pu = PileUpper(clr, cc, view_df=toy_regions(),
+                   control=cc_kw["nshifts"] > 0, device=device, **pu_kw)
+    if spec.get("by_window"):
+        return pu.pileupsByWindowWithControl()
+    return pu.pileupsWithControl(**hook_run_kwargs(spec.get("run", {})))
+
+
+def check_hook_modes(dev):
+    """Phase 8a: every extension route and every by-window case that groups
+    through the frame hook, on the toy map on ``dev`` against the CPU:
+    ``compare_tables`` as in 5a, the extras by ``compare_extras``, and the
+    accumulate route each side took."""
+    clr, dense, weights = toy_cooler()
+    for name, spec in HOOK_MODES.items():
+        got = hook_mode_table(name, clr, dense, weights, dev)
+        want = hook_mode_table(name, clr, dense, weights, "cpu")
+        err = compare_tables(got, want, what=f"hook mode {name}",
+                             **ENGINE_MODES_TOL)
+        keys, rtol = spec.get("extras", ([], None))
+        compare_extras(got, want, keys, f"hook mode {name}", rtol=rtol)
+        routes = (got["accumulate"].iloc[0], want["accumulate"].iloc[0])
+        if dev.type == "cuda" and routes != spec["routes"]:
+            raise AssertionError(f"hook mode {name}: routes {routes}")
+        extras = "".join(
+            f", {k} {[None if v is None else len(np.atleast_1d(v)) for v in got[k]]}"
+            for k in keys)
+        print(f"hook mode {name}: {len(got)} rows, n {list(got['n'])}, "
+              f"route {routes[0]}, max_abs_err {err:.3g}{extras} ok")
+
+
+def extension_workload(n_big=EXTENSION_SITES[0], n_small=EXTENSION_SITES[1],
+                       n_bins=20_000, n_contacts=12_000_000, seed=0):
+    """``bench.py:575`` ``bench_extension``'s inputs with its RNG calls: the
+    engine map (``_bench_cooler``), then ``make_feats(20_000)`` and
+    ``make_feats(6_000)`` from one generator: sorted distinct starts, a
+    score in [0, 1) rounded to 4 places, a strand. Returns ``(Cooler,
+    feats_big, feats_small)``."""
+    import pandas as pd
+
+    clr = bench_cooler(np.random.default_rng(0), n_bins, n_contacts)
+    length = clr.n_bins * clr.binsize
+    rng = np.random.default_rng(seed)
+
+    def make_feats(n):
+        starts = np.sort(rng.choice(length - 10_000, n, replace=False))
+        return pd.DataFrame({
+            "chrom": "chr1", "start": starts, "end": starts + 1_000,
+            "name": ".", "score": rng.uniform(0, 1, n).round(4),
+            "strand": rng.choice(["+", "-"], n),
+        })
+
+    return clr, make_feats(n_big), make_feats(n_small)
+
+
+def extension_run(clr, feats, route, device):
+    """One ``bench_extension`` run of ``route`` ("frame", "batch" or
+    "snip"): ``(PileUpper, table)``."""
+    from coolpuppy_tpu_torch import CoordCreator, PileUpper
+
+    run = {"frame": {"extras": "score1"},
+           "batch": {"postprocess_batch_func": "center_batch",
+                     "extras": "center"},
+           "snip": {"postprocess_snip_func": "center_snip",
+                    "extras": "center"}}[route]
+    cc = CoordCreator(feats, clr.binsize, **EXTENSION_KW)
+    pu = PileUpper(clr, cc, expected=False, control=False, device=device)
+    return pu, pu.pileupsWithControl(**hook_run_kwargs(run))
+
+
+def timed_runs(what, run_timed, repeats, n_snips, sync, card,
+               count=lambda pups: int(all_row(pups)["n"])):
+    """``repeats`` timed runs of ``run_timed`` (returns ``(PileUpper,
+    table)``; ``count(table)``, by default the 'all' row's ``n``, must give
+    ``n_snips``): the walls, the engine's phase breakdown of the median run
+    and snips/s. Returns ``(median wall, its phases)``."""
+    walls, phases = [], []
+    for _ in range(repeats):
+        t, (pu, pups) = timed(run_timed, sync)
+        if count(pups) != n_snips:
+            raise AssertionError(f"{what}: a timed run counted other snips")
+        walls.append(t)
+        ph = dict(pu.timers.seconds)
+        ph["outside_phases"] = t - sum(ph.values())
+        phases.append(ph)
+        del pu, pups
+    med = statistics.median(walls)
+    mid = phases[int(np.argsort(walls)[len(walls) // 2])]
+    print(f"{what} timing: wall_s " + json.dumps([round(x, 4) for x in walls]))
+    print(f"{what} phases (median run, s): " + json.dumps(
+        {k: round(v, 4) for k, v in sorted(mid.items())}))
+    print(f"{what} snips/s: {n_snips / med:.0f} ({n_snips} snips, median "
+          f"{med:.3f} s of {repeats}) on {card}")
+    return med, mid
+
+
+def kernel_run(what, run, dev):
+    """A checked run that must go through the staged quad kernel: the launch
+    counts set to 0 just before it and read just after. Returns ``(table,
+    launches, the recorded call shapes, seconds)``."""
+    import coolpuppy_tpu_torch.ops.quad_gather as qg
+
+    qg.LAUNCHES = 0
+    qg.VARIANT_LAUNCHES.update(staged=0, direct=0)
+    t0 = time.perf_counter()
+    with launch_shapes() as called:
+        table = run()
+    t = time.perf_counter() - t0
+    launches = qg.LAUNCHES
+    route = table["accumulate"].iloc[0]
+    if launches < 1 or route != "cuda_kernel":
+        raise AssertionError(f"{what}: {launches} launches, route {route!r}; "
+                             "the kernel did not run")
+    check_variant(what, dev, launches)
+    return table, launches, called.calls, t
+
+
+def plain_swapped(what, run):
+    """``run`` with ``quad_accumulate`` swapped for the plain version: no
+    launch, route ``plain``."""
+    import coolpuppy_tpu_torch.ops.quad_gather as qg
+
+    kernel = qg.quad_accumulate
+    qg.quad_accumulate = qg.quad_accumulate_plain
+    try:
+        qg.LAUNCHES = 0
+        plain = run()
+        launches = qg.LAUNCHES
+    finally:
+        qg.quad_accumulate = kernel
+    if launches != 0 or plain["accumulate"].iloc[0] != "plain":
+        raise AssertionError(f"{what}: plain-swapped run launched {launches}")
+    return plain
+
+
+def check_extension(dev, sync, card, shapes=None, workload=None):
+    """Phase 8b: ``bench_extension``'s three routes at its own size. Per
+    route a warm-up, a checked run and timed runs; the frame-column run
+    must launch the staged kernel and is held against the plain-swapped
+    run, the batch route against the port on the CPU at EXTENSION_CPU_SITES
+    sites, the snip route's ``center`` list against the batch route's; the
+    three routes count the same snips on the same sites. Returns
+    ``(launches of the frame-column run, the workload's map)``."""
+    t, (clr, feats_big, feats_small) = timed(workload or extension_workload,
+                                             lambda: None)
+    print(f"extension workload: {clr.n_bins} bins, {clr.n_pixels} pixels, "
+          f"{len(feats_big)} + {len(feats_small)} sites in {t:.1f} s")
+    feats = {"frame": feats_big, "batch": feats_small, "snip": feats_small}
+    tables = {}
+    launches = 0
+    for route in ("frame", "batch", "snip"):
+        what = f"extension {route}"
+        f = feats[route]
+
+        def run(f=f, route=route, device=dev):
+            return extension_run(clr, f, route, device)[1]
+
+        warm = f.iloc[:EXTENSION_WARMUP[route]]
+        t, w = timed(lambda: run(warm), sync)
+        print(f"{what} warm-up ({len(warm)} sites): "
+              f"{int(all_row(w)['n'])} snips in {t:.2f} s")
+        if route == "frame":
+            checked, launches, calls, t = kernel_run(what, run, dev)
+            plain = plain_swapped(what, run)
+            err = compare_tables(checked, plain, rtol=ENGINE_RTOL, atol=1e-7,
+                                 what=f"{what} kernel vs plain")
+            compare_extras(checked, plain, ["score1"], what)
+            print(f"{what} kernel vs plain (whole run): counts exact, "
+                  f"score1 lists equal, data max_abs_err {err:.3g} (rtol "
+                  f"{ENGINE_RTOL}) ok")
+            del plain
+        else:
+            t, checked = timed(run, sync)
+            want_route = "batch_hook" if route == "batch" else "host_stream"
+            if checked["accumulate"].iloc[0] != want_route or \
+                    str(dev) not in checked["device"].iloc[0]:
+                raise AssertionError(
+                    f"{what}: route {checked['accumulate'].iloc[0]!r} on "
+                    f"{checked['device'].iloc[0]!r}")
+        row = all_row(checked)
+        n_snips = int(row["n"])
+        key = "score1" if route == "frame" else "center"
+        data = np.asarray(row["data"], float)
+        if data.shape != (21, 21) or not np.isfinite(data).any() or \
+                len(row[key]) != n_snips:
+            raise AssertionError(f"{what} output: data {data.shape}, "
+                                 f"{len(row[key])} {key} values of {n_snips}")
+        print(f"{what} checked run: {n_snips} snips, {len(row[key])} {key} "
+              f"values, route {checked['accumulate'].iloc[0]}"
+              + (f", launches {launches}" if route == "frame" else "")
+              + f", {t:.2f} s")
+        tables[route] = checked
+        if route == "batch":
+            sub = f.iloc[:EXTENSION_CPU_SITES]
+            got = run(sub)
+            t, want = timed(lambda: run(sub, device="cpu"), lambda: None)
+            err = compare_tables(got, want, rtol=ENGINE_RTOL, atol=1e-7,
+                                 what=f"{what} card vs cpu")
+            compare_extras(got, want, ["center"], f"{what} card vs cpu",
+                           rtol=EXTRAS_RTOL)
+            print(f"{what} subset ({len(sub)} sites, "
+                  f"{int(all_row(want)['n'])} snips, CPU {t:.1f} s) card vs "
+                  f"CPU: counts exact, center rtol {EXTRAS_RTOL}, data "
+                  f"max_abs_err {err:.3g} (rtol {ENGINE_RTOL}) ok")
+        med, mid = timed_runs(
+            what, lambda f=f, route=route: extension_run(clr, f, route, dev),
+            EXTENSION_REPEATS[route], n_snips, sync, card)
+        if route == "batch":
+            share = mid.get("device", 0.0) / med
+            print(f"{what} device phase (upload, normalize, cut + fetch): "
+                  f"{mid.get('device', 0.0):.3f} s = {share:.3f} of the wall")
+        if route != "snip":
+            prof = profile_run(run, sync)
+            print(f"{what} device busy share of one run: " + prof["text"])
+        if route == "frame":
+            rec = shape_record(what, calls, prof["kernel_ms"], launches, card)
+            if shapes is not None:
+                shapes["extension_frame_column"] = rec
+    # the same sites through the three routes
+    small = extension_run(clr, feats_small, "frame", dev)[1]
+    ns = {r: int(all_row(t)["n"]) for r, t in tables.items() if r != "frame"}
+    ns["frame"] = int(all_row(small)["n"])
+    if len(set(ns.values())) != 1:
+        raise AssertionError(f"extension: the routes counted {ns}")
+    for route in ("batch", "snip"):
+        err = compare_tables(tables[route], small, rtol=ENGINE_RTOL,
+                             atol=1e-7, what=f"extension {route} vs frame")
+    compare_extras(tables["snip"], tables["batch"], ["center"],
+                   "extension snip vs batch", rtol=EXTRAS_RTOL)
+    print(f"extension routes on the same {len(feats_small)} sites: n "
+          f"{ns['frame']} on all three, data equal to the kernel route's "
+          f"(rtol {ENGINE_RTOL}), the snip route's center list equal to the "
+          f"batch route's (rtol {EXTRAS_RTOL}) ok")
+    return launches, clr
+
+
+def bedpe_window_workload(clr, n_sites=BEDPE_WINDOW_SITES, seed=1):
+    """``n_sites`` 1 kb sites on ``clr``'s chromosome and every pair of
+    them whose centres lie within BEDPE_WINDOW_KW's ``maxdist``, first
+    before second, as BEDPE rows in coordinate order. Returns ``(features,
+    bedpe)``."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    length = clr.n_bins * clr.binsize
+    starts = np.sort(rng.choice(length - 10_000, n_sites, replace=False))
+    feats = pd.DataFrame({"chrom": "chr1", "start": starts,
+                          "end": starts + 1_000})
+    last = np.searchsorted(starts, starts + BEDPE_WINDOW_KW["maxdist"],
+                           side="right")
+    counts = last - np.arange(n_sites) - 1
+    i = np.repeat(np.arange(n_sites), counts)
+    j = np.arange(counts.sum()) - np.repeat(np.cumsum(counts) - counts,
+                                            counts) + i + 1
+    bedpe = pd.DataFrame({
+        "chrom1": "chr1", "start1": starts[i], "end1": starts[i] + 1_000,
+        "chrom2": "chr1", "start2": starts[j], "end2": starts[j] + 1_000,
+    })
+    return feats, bedpe
+
+
+def check_bedpe_by_window(dev, sync, card, clr, shapes=None, n_sites=None):
+    """Phase 8c: by-window pileups of BEDPE rows at a size users run, through
+    the ``group_by_region_frame`` frame hook: a warm-up, a checked run that
+    must launch the staged kernel, held on every row against the
+    plain-swapped run on the same inputs and window by window against the
+    BED dual-anchor run over the same pairs (counts exact, ``data`` rtol
+    1e-4), and timed runs. Returns the checked run's launches."""
+    from coolpuppy_tpu_torch import CoordCreator, PileUpper, pileup
+
+    feats, bedpe = bedpe_window_workload(
+        clr, n_sites or BEDPE_WINDOW_SITES)
+    print(f"bedpe by-window workload: {len(feats)} sites, {len(bedpe)} rows "
+          f"within {BEDPE_WINDOW_KW['maxdist']} bp")
+    what = "bedpe by-window"
+
+    def run_timed(rows=bedpe):
+        cc = CoordCreator(rows, clr.binsize, features_format="bedpe",
+                          nshifts=0, **BEDPE_WINDOW_KW)
+        pu = PileUpper(clr, cc, device=dev)
+        return pu, pu.pileupsByWindowWithControl()
+
+    t, (_, warm) = timed(lambda: run_timed(bedpe.iloc[:10_000]), sync)
+    print(f"{what} warm-up (10000 rows): {int(all_row(warm)['n'])} snips in "
+          f"{t:.2f} s")
+    checked, launches, calls, t = kernel_run(what, lambda: run_timed()[1],
+                                             dev)
+    n_snips = int(all_row(checked)["n"])
+    print(f"{what} checked run: {n_snips} snips, {len(checked)} rows, "
+          f"launches {launches}, route {checked['accumulate'].iloc[0]}, "
+          f"{t:.2f} s")
+    plain = plain_swapped(what, lambda: run_timed()[1])
+    err = compare_tables(checked, plain, rtol=ENGINE_RTOL, atol=1e-7,
+                         what=f"{what} kernel vs plain")
+    print(f"{what} kernel vs plain (whole run, {len(plain)} rows): windows, "
+          f"n and num exact, data max_abs_err {err:.3g} (rtol {ENGINE_RTOL}) "
+          "ok")
+    del plain
+    t, dual = timed(lambda: pileup(clr, feats, features_format="bed",
+                                   by_window=True, device=dev,
+                                   **BEDPE_WINDOW_KW), sync)
+    err = compare_tables(checked, dual, rtol=ENGINE_RTOL, atol=1e-7,
+                         what=f"{what} vs the BED dual-anchor run")
+    print(f"{what} vs the BED dual-anchor run over the same pairs "
+          f"({len(dual)} rows, {t:.2f} s): windows, n and num exact, data "
+          f"max_abs_err {err:.3g} (rtol {ENGINE_RTOL}) ok")
+    del dual
+    timed_runs(what, run_timed, CELL_REPEATS, n_snips, sync, card)
+    prof = profile_run(lambda: run_timed()[1], sync)
+    print(f"{what} device busy share of one run: " + prof["text"])
+    rec = shape_record(what, calls, prof["kernel_ms"], launches, card)
+    if shapes is not None:
+        shapes["by_window_bedpe"] = rec
+    return launches
+
+
+PHASES = (3, 4, 5, 6, 7, 8)
+
+
+def parse_phases(argv):
+    """The phases to run from ``--phases 4,8`` (default: all). The probe
+    and the build, phases 1 and 2, always run."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--phases", default=",".join(map(str, PHASES)),
+        help="comma-separated phases to run of %(default)s; 1 (probe) and 2 "
+             "(build) always run")
+    args = parser.parse_args(argv)
+    try:
+        chosen = {int(x) for x in args.phases.split(",") if x.strip()}
+    except ValueError:
+        parser.error(f"--phases takes numbers, got {args.phases!r}")
+    unknown = chosen - {1, 2, *PHASES}
+    if unknown:
+        parser.error(f"no phase {sorted(unknown)}; choose from {PHASES}")
+    if not chosen & set(PHASES):
+        parser.error(f"--phases {args.phases!r} names no phase of {PHASES}: "
+                     "the run would check nothing")
+    return chosen
+
+
+def main(argv=None):
     import torch
 
+    phases = parse_phases(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
               file=sys.stderr)
@@ -1982,7 +2479,8 @@ def main():
     print(f"probe: nvidia-smi {card}")
     print(f"probe: nvcc {nvcc_line()}")
     print("probe: importable " + " ".join(
-        f"{m}={importable(m)}" for m in ("triton", "pandas", "h5py"))
+        f"{m}={importable(m)}" for m in ("triton", "pandas", "h5py",
+                                         "matplotlib", "scipy", "yaml"))
         + f"; jax installed={importable('jax')} (looked up, not imported)")
 
     # -- 2. build ---------------------------------------------------------
@@ -1999,31 +2497,56 @@ def main():
     print(f"staged kernel: largest staged W {last_staged}, first direct W "
           f"{first_direct} ({qg.SMEM_MAX} bytes of shared memory a block)")
 
+    # the kernel's record: phase 4 fills it; a run without phase 4 lists
+    # the kernel with the shapes of the phases it did run, and null for
+    # every number it did not measure
+    record = dict(KERNEL, launches=None, max_abs_err=None, ms=None,
+                  plain_ms=None, bound_ms=None, bound_by=None,
+                  library_ms=None, shapes={})
+
     # -- 3. kernel vs plain at small shapes -------------------------------
-    check_kernels(dev, sync)
+    if 3 in phases:
+        check_kernels(dev, sync)
 
     # -- 4. the slice at the headline size --------------------------------
-    t, workload = timed(make_workload, lambda: None)
-    coo, r1 = workload[1], workload[2]
-    print(f"workload: {coo.shape[0]} bins, {coo.nnz} nnz, {len(r1)} snips "
-          f"in {t:.1f} s")
-    record = check_slice(dev, sync, workload, card)
-    check_sweep(dev, sync, workload, card)
-    del workload, coo, r1
+    if 4 in phases:
+        t, workload = timed(make_workload, lambda: None)
+        coo, r1 = workload[1], workload[2]
+        print(f"workload: {coo.shape[0]} bins, {coo.nnz} nnz, {len(r1)} "
+              f"snips in {t:.1f} s")
+        record = check_slice(dev, sync, workload, card)
+        check_sweep(dev, sync, workload, card)
+        del workload, coo, r1
 
     # -- 5. the engine: pileup() modes, then bench_engine's size ----------
-    check_engine_modes(dev)
-    record["engine_launches"] = check_engine(dev, sync, card,
-                                             record["shapes"])
+    if 5 in phases:
+        check_engine_modes(dev)
+        record["engine_launches"] = check_engine(dev, sync, card,
+                                                 record["shapes"])
 
     # -- 6. the 2D modes: toy map, then bench.py --modes' cells ---------
-    check_modes_2d(dev)
-    record["modes_launches"] = check_modes(dev, sync, card, record["shapes"])
+    if 6 in phases:
+        check_modes_2d(dev)
+        record["modes_launches"] = check_modes(dev, sync, card,
+                                               record["shapes"])
 
     # -- 7. rescale and W > 120: toy map, then the two cells -------------
-    check_rescale_wide_toy(dev)
-    check_rescale_cell(dev, sync, card)
-    check_wide_cell(dev, sync, card)
+    if 7 in phases:
+        check_rescale_wide_toy(dev)
+        check_rescale_cell(dev, sync, card)
+        check_wide_cell(dev, sync, card)
+
+    # -- 8. the extension hooks: toy map, bench_extension, BEDPE windows --
+    if 8 in phases:
+        check_hook_modes(dev)
+        frame_launches, clr = check_extension(dev, sync, card,
+                                              record["shapes"])
+        record["extension_launches"] = {
+            "frame_column": frame_launches,
+            "by_window_bedpe": check_bedpe_by_window(dev, sync, card, clr,
+                                                     record["shapes"]),
+        }
+        del clr
 
     # -- result -----------------------------------------------------------
     print(card)

@@ -3,16 +3,19 @@
 The pile-up of ``coolpuppy_tpu`` (the JAX package, which stays the
 reference) re-built on PyTorch tensors: ``pileup()`` and ``PileUpper`` over
 an in-memory ``Cooler`` for BED and BEDPE features, cis and trans, by
-strand, distance or window, with stripes, with the quad gather-accumulate
-written by hand in CUDA C++ for Hopper (``csrc/``). Rescaled pileups and
-the extension hooks are not ported yet.
+strand, distance or window, with stripes, rescaling and the reference's
+extension hooks, with the quad gather-accumulate written by hand in CUDA
+C++ for Hopper (``csrc/``). What a hook author needs is in ``lib``:
+``lib.puputils.accumulate_values`` and ``group_by_region_frame``,
+``lib.numutils.get_domain_score``. File formats, plotting and the command
+line tools are not ported yet.
 
 Importing the package has no side effects: no allocator or thread tuning,
 no kernel build. The kernel is compiled at its first launch on a CUDA
 tensor (``kernels/build.py``).
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 from .coords import CoordCreator  # noqa: E402,F401
 from .engine import PileUpper, pileup  # noqa: E402,F401

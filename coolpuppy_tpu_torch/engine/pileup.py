@@ -21,13 +21,19 @@ stack. Three routes accumulate the windows:
 The host finishes with the reference's normalization algebra: division by
 shifted controls or expected, coverage normalization, local symmetrization.
 
+The extension hooks choose among four routes per region (``pileup_region``):
+``postprocess_frame_func`` alone and ``accumulate_values`` extras over frame
+columns stay on the accumulate routes above; ``postprocess_batch_func``
+(``batch_hook``) and ``postprocess_snip_func`` or opaque extras
+(``host_stream``) read windows that ``ops/tiles.fetch_windows`` cuts from
+the normalized stack on ``device`` and fetches in capped blocks, and fold
+them on the host in numpy, as the reference does.
+
 The port covers cis and trans pileups of BED features and of BEDPE rows:
 observed-over-expected, expected emission, shifted controls, by strand / by
 distance / by window / custom groupby, ignore_group_order,
 flip_negative_strand, local, coverage_norm, stripes and rescale, at any
-window size. The extension hooks and by-window pileups of BEDPE rows or
-under rescale (they group through a hook) raise ``NotImplementedError``
-naming their ROADMAP item.
+window size, with the reference's four extension hooks.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import logging
 import os
 import pickle
 import re
+import time
 import warnings
 from functools import partial, reduce
 
@@ -62,7 +69,16 @@ from ..genomics.intervals import (
     sort_bedframe,
 )
 from ..lib.numutils import _copy_array_halves
-from ..lib.puputils import empty_pup, norm_coverage, sum_pups
+from ..lib.puputils import (
+    _add_snip,
+    _add_snip_batch,
+    accumulate_values,
+    collapse_snips,
+    empty_pup,
+    group_by_region_frame,
+    norm_coverage,
+    sum_pups,
+)
 from ..observability import PhaseTimers, device_trace
 from ..ops import quad_gather
 from ..ops.gather import (
@@ -72,10 +88,11 @@ from ..ops.gather import (
     generic_accumulate,
     merge_flip_banks,
 )
-from ..ops.rescale import RescaleConfig, rescale_accumulate
+from ..ops.rescale import RescaleConfig, area_resize_host, rescale_accumulate
 from ..ops.tiles import (
     build_tile_stack_slab,
     build_tile_stack_slab_sym,
+    fetch_windows,
     normalized_stack,
 )
 
@@ -110,6 +127,9 @@ _COORD_COLS = ("chrom1", "start1", "end1", "chrom2", "start2", "end2")
 _RESCALE_MIN_BUCKET = 128
 
 _STRIPE_KEYS = ("horizontal_stripe", "vertical_stripe")
+
+# hooked snips the host stream buffers per flush of its batched fold
+_FOLD_FLUSH = 8192
 
 
 def _next_pow2(x):
@@ -176,11 +196,35 @@ def _fast_all(pups):
     }
 
 
-def _not_ported(what, item):
-    return NotImplementedError(
-        f"{what} is not ported to coolpuppy_tpu_torch yet "
-        f"(ROADMAP.md Queue 1 item {item})"
-    )
+def _accumulate_values_frame_keys(extra_sum_funcs):
+    """``{output_key: snip_key}`` when every ``extra_sum_funcs`` entry is
+    ``functools.partial(accumulate_values, key=...)``: the engine then stays
+    on the accumulate route and collects the values from FRAME columns, with
+    no per-snip work. None when any entry is opaque (those need the host
+    stream). The test is identity with this package's
+    ``lib.puputils.accumulate_values``: a partial of another package's
+    function of the same name is opaque here, and takes the host stream,
+    which is right and slow."""
+    keys = {}
+    for outkey, func in (extra_sum_funcs or {}).items():
+        if not isinstance(func, partial):
+            return None
+        if func.func is not accumulate_values or func.args:
+            return None
+        kw = dict(func.keywords or {})
+        snip_key = kw.pop("key", None)
+        if kw or snip_key is None:
+            return None
+        keys[outkey] = snip_key
+    return keys
+
+
+def _group_key(group):
+    """A pup map's key of one frame group: scalars as they are, anything
+    else as a tuple."""
+    if isinstance(group, (str, int, np.integer)):
+        return group
+    return tuple(group)
 
 
 def _orientation_labels(pups):
@@ -482,14 +526,16 @@ class PileUpper:
             cis=(not self.trans) and region1 == region2,
         )
 
+    def _phase(self, name):
+        timers = self.timers
+        return timers.phase(name) if timers else contextlib.nullcontext()
+
     def _stage_region(self, region1, region2):
         """Fetch + stage one region pair's inputs. Under rescale the per-bin
         vectors are padded past the largest extent bucket, whose coverage
         slices read ``Hmax`` bins from every window start (reference
         :1002-1016)."""
-        timers = self.timers
-        ctx = timers.phase("ingest") if timers else contextlib.nullcontext()
-        with ctx:
+        with self._phase("ingest"):
             if self.rescale:
                 hmax = max(_RESCALE_MIN_BUCKET,
                            _next_pow2(self.max_extent_bins))
@@ -505,6 +551,10 @@ class PileUpper:
         region2=None,
         groupby=None,
         modify_2Dintervals_func=None,
+        postprocess_frame_func=None,
+        postprocess_snip_func=None,
+        postprocess_batch_func=None,
+        extra_sum_funcs=None,
         dev=None,
         column_hint=None,
         dual_anchor=False,
@@ -512,6 +562,13 @@ class PileUpper:
         """Accumulate all snips of one region (pair) on the device; returns
         {"ROI": {group: pup}, "control": {...}} (reference
         coolpup.py:1285-1358).
+
+        The hooks choose the route: ``postprocess_batch_func`` takes
+        ``_pileup_region_batchhook``; ``postprocess_snip_func``, an opaque
+        ``extra_sum_funcs`` entry, or extras under expected emission take the
+        host stream (``_pileup_region_hostpath``); ``postprocess_frame_func``
+        (applied to every coordinate frame before groups are assigned) and
+        ``accumulate_values`` extras over frame columns stay here.
 
         Two phases (the reference's collected path): (1) the host streams
         vectorized snip frames into flat index arrays (bounds-checked, group
@@ -524,16 +581,78 @@ class PileUpper:
         groupby = groupby or []
         if region2 is None:
             region2 = region1
+
+        if postprocess_batch_func is not None:
+            if postprocess_snip_func is not None:
+                raise ValueError(
+                    "postprocess_batch_func and postprocess_snip_func "
+                    "are mutually exclusive"
+                )
+            if (
+                self.rescale
+                or self.store_stripes
+                or (self.expected and not self.ooe)
+                or dual_anchor
+            ):
+                raise ValueError(
+                    "postprocess_batch_func does not support rescale / "
+                    "stripes / expected-emission / mesh / by-window "
+                    "runs; use postprocess_snip_func there"
+                )
+            return self._pileup_region_batchhook(
+                region1,
+                region2,
+                groupby,
+                modify_2Dintervals_func,
+                postprocess_frame_func,
+                postprocess_batch_func,
+                extra_sum_funcs,
+                dev=dev,
+            )
+
         if dev is None:
             dev = self._stage_region(region1, region2)
+
+        # extras in the accumulate_values form are frame columns, regrouped
+        # per cid on the host with no per-snip work. Opaque extras, per-snip
+        # data hooks and expected-emission runs (whose synthetic expected
+        # snips pass through the hooks too) use the host stream.
+        hostpath_args = (
+            region1,
+            region2,
+            groupby,
+            modify_2Dintervals_func,
+            postprocess_frame_func,
+            postprocess_snip_func,
+            extra_sum_funcs,
+        )
+        extra_frame_keys = None
+        if (
+            extra_sum_funcs
+            and postprocess_snip_func is None
+            and not (self.expected and not self.ooe)
+        ):
+            extra_frame_keys = _accumulate_values_frame_keys(extra_sum_funcs)
+        if postprocess_snip_func is not None or (
+            extra_sum_funcs and extra_frame_keys is None
+        ):
+            if not getattr(self, "_warned_hostpath", False):
+                self._warned_hostpath = True
+                logger.warning(
+                    "per-snip extension hooks (postprocess_snip_func / "
+                    "opaque extra_sum_funcs) run on the HOST snip stream: "
+                    "windows are cut on the device, then every snip is one "
+                    "python dict folded in numpy; accumulate_values-style "
+                    "extra_sum_funcs over frame columns, "
+                    "postprocess_frame_func and postprocess_batch_func "
+                    "avoid the per-snip python"
+                )
+            return self._pileup_region_hostpath(*hostpath_args, dev=dev)
 
         W = self._window_bins()
         shape = self.make_outmap().shape
         emit_expected = bool(self.expected and not self.ooe)
         timers = self.timers
-
-        def phase(name):
-            return timers.phase(name) if timers else contextlib.nullcontext()
 
         cid_of = {}
 
@@ -548,6 +667,8 @@ class PileUpper:
 
         if column_hint is not None:
             column_hint = set(column_hint)
+            if extra_frame_keys:
+                column_hint |= set(extra_frame_keys.values())
             if self.store_stripes:
                 column_hint |= set(_COORD_COLS)
             if dual_anchor:
@@ -558,7 +679,11 @@ class PileUpper:
                                 "roi")}
         coord_blocks = []
         dual_lut = None
-        with phase("coords"):
+        extra_cols = (
+            {k: [] for k in extra_frame_keys} if extra_frame_keys else None
+        )
+        fell_back = False
+        with self._phase("coords"):
             for chunk in self.CC.batches(
                 region1_coords,
                 region2_coords if region2 != region1 else None,
@@ -571,8 +696,25 @@ class PileUpper:
                     else None
                 ),
             ):
+                if postprocess_frame_func is not None:
+                    chunk = postprocess_frame_func(chunk)
                 if len(chunk) == 0:
                     continue
+                if extra_frame_keys is not None:
+                    missing = [c for c in extra_frame_keys.values()
+                               if c not in chunk.columns]
+                    if missing:
+                        # the value exists per snip only. This fires on the
+                        # FIRST non-empty chunk, before anything was
+                        # collected
+                        assert not any(len(a) for a in cols["r1"]), missing
+                        logger.warning(
+                            "extra_sum_funcs keys %s are not feature-frame "
+                            "columns; falling back to the host snip stream",
+                            missing,
+                        )
+                        fell_back = True
+                        break
                 st1 = chunk["stBin1"].values - dev["min1"]
                 st2 = chunk["stBin2"].values - dev["min2"]
                 inb = (
@@ -610,6 +752,11 @@ class PileUpper:
                     dual_lut = cid_parts.pop()
                 else:
                     cid_parts = [self._group_cids(chunk, ensure_cid, cid_of)]
+                    # (the dual-anchor path collects no extras, as in the
+                    # reference)
+                    if extra_cols is not None:
+                        for outkey, col in extra_frame_keys.items():
+                            extra_cols[outkey].append(chunk[col].values)
                 if self.store_stripes:
                     # planes and coordinates exist for ROI snips only;
                     # the coordinate strings are cast once per region
@@ -627,10 +774,14 @@ class PileUpper:
                         cols["roi"].append(roic)
                         coord_blocks.append(blk)
 
+        if fell_back:
+            return self._pileup_region_hostpath(*hostpath_args, dev=dev)
+
         ntot = sum(len(a) for a in cols["r1"])
         acc = {}
         n_counts = {}
         stripes = {}
+        extras = {}
         if ntot > 0:
             arr = {k: np.concatenate(v) for k, v in cols.items() if v}
             if timers:
@@ -641,15 +792,15 @@ class PileUpper:
                 n_counts[i] = int(c)
             # -- phase 2: one tile stack, one accumulation ------------------
             if self.rescale:
-                with phase("tiles"):
+                with self._phase("tiles"):
                     tile_stack = self._build_tile_stack(dev, arr, arr["h1"],
                                                         arr["w2"])
-                with phase("device"):
+                with self._phase("device"):
                     acc = self._rescale_accumulate(tile_stack, dev, arr, G)
             else:
-                with phase("tiles"):
+                with self._phase("tiles"):
                     tile_stack = self._build_tile_stack(dev, arr, W)
-                with phase("device"):
+                with self._phase("device"):
                     if W > quad_gather.W_MAX:
                         acc = self._generic_accumulate(tile_stack, dev, arr,
                                                        W, G)
@@ -657,8 +808,22 @@ class PileUpper:
                         acc = self._quad_accumulate(tile_stack, dev, arr, W,
                                                     G)
             if self.store_stripes:
-                with phase("stripes"):
+                with self._phase("stripes"):
                     stripes = self._package_stripes(acc, arr, coord_blocks, G)
+            if extra_cols is not None:
+                # accumulate_values semantics: per group, the flat list of
+                # the frame column's values in stream order (a STABLE sort
+                # by cid), stored under the SNIP key like the host stream's
+                # _add_snip
+                order = np.argsort(arr["cidl"], kind="stable")
+                bounds = np.searchsorted(arr["cidl"][order], np.arange(G + 1))
+                for outkey, col in extra_frame_keys.items():
+                    vals = np.concatenate(extra_cols[outkey])
+                    extras[col] = {
+                        c: vals[order[bounds[c] : bounds[c + 1]]].tolist()
+                        for c in range(G)
+                        if bounds[c + 1] > bounds[c]
+                    }
 
         # -- package into pup dicts ------------------------------------
         outdict = {"ROI": {}, "control": {}}
@@ -680,10 +845,9 @@ class PileUpper:
                 "vertical_stripe": stripes.get(i, {}).get("v", []),
                 "coordinates": stripes.get(i, {}).get("coords", []),
             }
-            if isinstance(group, (str, int, np.integer)):
-                key = group
-            else:
-                key = tuple(group)
+            for outkey in extras:
+                pup[outkey] = extras[outkey].get(i, [])
+            key = _group_key(group)
             outdict[kind][key] = pup
             if emit_expected and kind == "ROI":
                 epup = {
@@ -704,17 +868,22 @@ class PileUpper:
                 else:
                     outdict["control"][key] = epup
 
+        sum_func = (
+            partial(sum_pups, extra_funcs=extra_sum_funcs)
+            if extra_frame_keys
+            else sum_pups
+        )
         kinds = ["ROI"]
         if self.control or emit_expected:
             kinds.append("control")
         for kind in kinds:
             if "all" in outdict[kind]:
                 continue
-            if len(outdict[kind]) > 64:
+            if len(outdict[kind]) > 64 and not extra_frame_keys:
                 outdict[kind]["all"] = _fast_all(outdict[kind].values())
             else:
                 outdict[kind]["all"] = dict(
-                    reduce(sum_pups, outdict[kind].values(), empty_pup(shape))
+                    reduce(sum_func, outdict[kind].values(), empty_pup(shape))
                 )
         if outdict["ROI"]["all"]["n"] > 0:
             logger.info(f"{region1, region2}: {outdict['ROI']['all']['n']}")
@@ -1001,6 +1170,466 @@ class PileUpper:
                 }
         return stripes
 
+    # -- the per-snip extension surface (reference coolpup.py:1059-1283) ------
+
+    def _hook_chunks(self, region1, region2, dev, groupby, control,
+                     modify_2Dintervals_func, postprocess_frame_func):
+        """The coordinate chunks of one region for the routes that read
+        windows: each frame through ``postprocess_frame_func``, cut to the
+        snips inside the region and re-indexed, with its flat window arrays
+        and the chunk's normalized stack on ``self.device``. Yields
+        ``(chunk, arr, stiles, tmap)``; ``arr`` holds int64 ``r1``, ``r2``,
+        ``h1``, ``w2``."""
+        region1_coords = tuple(self.view_df.loc[region1])
+        region2_coords = tuple(self.view_df.loc[region2])
+        W = self._window_bins()
+        batches = iter(self.CC.batches(
+            region1_coords,
+            region2_coords if region2 != region1 else None,
+            control=control,
+            groupby=groupby,
+            modify_2Dintervals_func=modify_2Dintervals_func,
+        ))
+        while True:
+            with self._phase("coords"):
+                chunk = next(batches, None)
+                if chunk is None:
+                    return
+                if postprocess_frame_func is not None:
+                    chunk = postprocess_frame_func(chunk)
+                if len(chunk) == 0:
+                    continue
+                r1 = (chunk["stBin1"].values - dev["min1"]).astype(np.int64)
+                r2 = (chunk["stBin2"].values - dev["min2"]).astype(np.int64)
+                e1 = (chunk["endBin1"].values - dev["min1"]).astype(np.int64)
+                e2 = (chunk["endBin2"].values - dev["min2"]).astype(np.int64)
+                inb = ((r1 >= 0) & (e1 <= dev["n1"]) & (r2 >= 0)
+                       & (e2 <= dev["n2"]))
+                if not inb.any():
+                    continue
+                chunk = chunk.loc[inb].reset_index(drop=True)
+                arr = dict(r1=r1[inb], r2=r2[inb], h1=(e1 - r1)[inb],
+                           w2=(e2 - r2)[inb])
+                if not self.rescale and not ((arr["h1"] == W).all()
+                                             and (arr["w2"] == W).all()):
+                    raise ValueError(
+                        "inconsistent window size; flank must be a multiple "
+                        "of the resolution"
+                    )
+            with self._phase("tiles"):
+                if self.rescale:
+                    tile_stack = self._build_tile_stack(dev, arr, arr["h1"],
+                                                        arr["w2"])
+                else:
+                    tile_stack = self._build_tile_stack(dev, arr, W)
+            with self._phase("device"):
+                stiles, tmap = self._device_stack(tile_stack, dev)
+            if self.timers:
+                self.timers.count("snips", len(chunk))
+            yield chunk, arr, stiles, tmap
+
+    def _rescale_snip_host(self, snip):
+        """Host per-snip rescale for the host stream (reference
+        _rescale_snip, coolpup.py:1193-1234): local symmetrization,
+        NaN-aware area resize (an output pixel any NaN touches is NaN),
+        coverage vector resize."""
+        R = self.rescale_size
+        data = np.asarray(snip["data"], dtype=float)
+        if data.size == 0 or np.all(np.isnan(data)):
+            snip["data"] = np.zeros((R, R))
+        else:
+            if self.local:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore", category=RuntimeWarning)
+                    data = np.nanmean(np.dstack((data, data.T)), 2)
+            nanplane = np.isnan(data).astype(float)
+            resized = area_resize_host(np.nan_to_num(data), (R, R))
+            nan_touch = area_resize_host(nanplane, (R, R))
+            resized[np.ceil(nan_touch).astype(bool)] = np.nan
+            snip["data"] = resized
+        if self.coverage_norm:
+            snip["cov_start"] = area_resize_host(snip["cov_start"], (R,))
+            snip["cov_end"] = area_resize_host(snip["cov_end"], (R,))
+        else:
+            snip["cov_start"] = np.zeros(R)
+            snip["cov_end"] = np.zeros(R)
+        return snip
+
+    def stream_snips(
+        self,
+        region1,
+        region2=None,
+        *,
+        groupby=None,
+        control=None,
+        modify_2Dintervals_func=None,
+        postprocess_frame_func=None,
+        dev=None,
+    ):
+        """Yield per-snip dicts with gathered ``data``: the extension surface
+        (reference _stream_snips, coolpup.py:1059-1191). Each dict carries
+        every feature column plus data / cov vectors / stripes /
+        coordinates. The windows are cut from the region's normalized stack
+        on ``self.device`` (``ops/tiles.fetch_windows``: masked pixels NaN,
+        OOE-divided values, +inf where the expected is 0) and fetched in
+        capped blocks; a snip's ``data`` is float32 [W, W], or under rescale
+        its own h x w window resized on the host. Snips are yielded UNFLIPPED
+        with their 'flip' mark, like the reference stream; expected snips
+        (kind='control') follow their ROI snip when expected is used without
+        ooe. On ``device="cuda"`` without a card the ``PileUpper`` could not
+        be built: nothing here runs on the CPU unless it was asked to."""
+        groupby = groupby or []
+        if control is None:
+            control = self.control
+        if region2 is None:
+            region2 = region1
+        if dev is None:
+            dev = self._stage_region(region1, region2)
+
+        emit_expected = bool(self.expected and not self.ooe)
+        evec = np.asarray(dev["evec"], dtype=float)
+        W = self._window_bins()
+
+        for chunk, arr, stiles, tmap in self._hook_chunks(
+            region1, region2, dev, groupby, control,
+            modify_2Dintervals_func, postprocess_frame_func,
+        ):
+            r1, r2, h1, w2 = (arr[k] for k in ("r1", "r2", "h1", "w2"))
+            if self.rescale:
+                cut = dict(H=int(max(h1.max(), w2.max())), h1=h1, w2=w2)
+            else:
+                cut = dict(H=W)
+
+            # record dicts from per-column numpy arrays: to_dict("records")
+            # would box every cell through pandas
+            colnames = list(chunk.columns)
+            colarrs = [
+                chunk[c].to_numpy()
+                if isinstance(chunk[c].dtype, np.dtype)
+                else np.asarray(chunk[c].array)
+                for c in colnames
+            ]
+            blocks = fetch_windows(stiles, tmap, r1, r2, **cut)
+            while True:
+                with self._phase("device"):
+                    got = next(blocks, None)
+                if got is None:
+                    break
+                lo, hi, block = got
+                for i in range(lo, hi):
+                    snip = {c: a[i] for c, a in zip(colnames, colarrs)}
+                    a, b, h, w = int(r1[i]), int(r2[i]), int(h1[i]), int(w2[i])
+                    if self.rescale:
+                        snip["data"] = block[i - lo, :h, :w].astype(float)
+                    else:
+                        snip["data"] = block[i - lo]
+
+                    if self.coverage_norm:
+                        snip["cov_start"] = dev["cov1"][a : a + h].astype(float)
+                        snip["cov_end"] = dev["cov2"][b : b + w].astype(float)
+                    else:
+                        snip["cov_start"] = np.zeros(h)
+                        snip["cov_end"] = np.zeros(w)
+
+                    exp_snip = None
+                    if emit_expected:
+                        exp_snip = dict(snip)
+                        exp_snip["kind"] = "control"
+                        if len(evec) == 1:
+                            exp_data = np.full((h, w), evec[0])
+                        else:
+                            dd = ((a - b) + np.arange(h)[:, None]
+                                  - np.arange(w)[None, :])
+                            exp_data = evec[
+                                np.minimum(np.abs(dd), len(evec) - 1)
+                            ]
+                        exp_snip["data"] = exp_data
+                        exp_snip["coordinates"] = []
+
+                    if self.rescale:
+                        snip = self._rescale_snip_host(snip)
+                        if exp_snip is not None:
+                            exp_snip = self._rescale_snip_host(exp_snip)
+
+                    if self.store_stripes:
+                        mid = snip["data"].shape[0] // 2
+                        snip["horizontal_stripe"] = np.asarray(
+                            snip["data"][mid, :], dtype=float
+                        )
+                        snip["vertical_stripe"] = np.asarray(
+                            snip["data"][:, mid][::-1], dtype=float
+                        )
+                        snip["coordinates"] = ".".join(
+                            str(snip[col]) for col in _COORD_COLS
+                        )
+                    else:
+                        snip["horizontal_stripe"] = []
+                        snip["vertical_stripe"] = []
+                        snip["coordinates"] = []
+                    if exp_snip is not None:
+                        exp_snip["horizontal_stripe"] = []
+                        exp_snip["vertical_stripe"] = []
+
+                    yield snip
+                    if exp_snip is not None:
+                        yield exp_snip
+
+    def _all_rows(self, outdict, extra_sum_funcs, control):
+        """Add the 'all' pup of a hook route's group maps where no snip
+        carried that group: ``reduce(sum_pups)`` with the extras."""
+        shape = self.make_outmap().shape
+        sum_func = partial(sum_pups, extra_funcs=extra_sum_funcs)
+        for kind in ("ROI", "control") if control else ("ROI",):
+            if "all" not in outdict[kind]:
+                outdict[kind]["all"] = dict(
+                    reduce(sum_func, outdict[kind].values(), empty_pup(shape))
+                )
+
+    def _pileup_region_batchhook(
+        self,
+        region1,
+        region2,
+        groupby,
+        modify_2Dintervals_func,
+        postprocess_frame_func,
+        postprocess_batch_func,
+        extra_sum_funcs,
+        dev=None,
+    ):
+        """The vectorized extension route: per-snip DATA semantics without
+        per-snip python. Each coordinate chunk's windows are cut on the
+        device and fetched in capped blocks into one [N, W, W] float32
+        array, flip applied; the user hook runs ONCE per chunk as
+        ``postprocess_batch_func(frame, data) -> frame`` (add columns
+        computed from ``data``), and whole group slices are folded in numpy
+        on the host. ``data`` is a fresh array per chunk that the engine
+        does not reuse: a hook may keep it across chunks, and its in-place
+        edits of ``data`` are honoured by the fold.
+
+        extra_sum_funcs must be accumulate_values-style over frame columns
+        (typically columns the batch hook just added); stripes /
+        expected-emission / rescale are not supported here: use the per-snip
+        stream (postprocess_snip_func) for those."""
+        if dev is None:
+            dev = self._stage_region(region1, region2)
+        W = self._window_bins()
+        extra_frame_keys = (
+            _accumulate_values_frame_keys(extra_sum_funcs)
+            if extra_sum_funcs
+            else None
+        )
+        if extra_sum_funcs and extra_frame_keys is None:
+            raise ValueError(
+                "postprocess_batch_func supports accumulate_values-style "
+                "extra_sum_funcs over frame columns; use "
+                "postprocess_snip_func for opaque per-snip accumulators"
+            )
+        outdict = {"ROI": {}, "control": {}}
+
+        def _fold(key, kind, dsel, cssum, cesum, extras_rows):
+            m = dsel.shape[0]
+            if m == 1:
+                dsum = dsel[0].astype(np.float64)  # keep NaNs (n=1 group)
+                dnum = np.isfinite(dsel[0]).astype(np.int64)
+            else:
+                dsum = np.add.reduce(dsel, axis=0, dtype=np.float64,
+                                     where=~np.isnan(dsel))
+                dnum = np.isfinite(dsel).sum(axis=0)
+            pup = outdict[kind].get(key)
+            if pup is None:
+                outdict[kind][key] = pup = {
+                    "data": dsum,
+                    "num": dnum,
+                    "cov_start": cssum,
+                    "cov_end": cesum,
+                    "n": m,
+                    "horizontal_stripe": [],
+                    "vertical_stripe": [],
+                    "coordinates": [],
+                }
+            else:
+                pup["data"] = np.nansum([pup["data"], dsum], axis=0)
+                pup["num"] = pup["num"] + dnum
+                pup["cov_start"] = pup["cov_start"] + cssum
+                pup["cov_end"] = pup["cov_end"] + cesum
+                pup["n"] += m
+            if extras_rows:
+                for col, vals in extras_rows.items():
+                    cur = pup.get(col)
+                    if isinstance(cur, list):
+                        cur.extend(vals)
+                    else:
+                        pup[col] = list(vals)
+
+        def _cat_codes(col):
+            if isinstance(col.dtype, pd.CategoricalDtype):
+                return col.cat.codes.to_numpy().astype(np.int64)
+            return pd.factorize(col, use_na_sentinel=False)[0].astype(
+                np.int64
+            )
+
+        if self.coverage_norm:
+            covw1 = np.lib.stride_tricks.sliding_window_view(dev["cov1"], W)
+            covw2 = np.lib.stride_tricks.sliding_window_view(dev["cov2"], W)
+
+        for chunk, arr, stiles, tmap in self._hook_chunks(
+            region1, region2, dev, groupby, self.control,
+            modify_2Dintervals_func, postprocess_frame_func,
+        ):
+            r1, r2 = arr["r1"], arr["r2"]
+            flip = (chunk["flip"].values.astype(bool)
+                    if "flip" in chunk.columns else None)
+            with self._phase("device"):
+                data = None
+                for lo, hi, block in fetch_windows(stiles, tmap, r1, r2, W,
+                                                   flip=flip):
+                    if hi - lo == len(r1):
+                        data = block
+                        break
+                    if data is None:
+                        data = np.empty((len(r1), W, W), np.float32)
+                    data[lo:hi] = block
+            with self._phase("hook"):
+                out = postprocess_batch_func(chunk, data)
+            if out is not None:
+                chunk = out
+                if len(chunk) != data.shape[0]:
+                    raise ValueError(
+                        "postprocess_batch_func must keep the frame "
+                        "aligned with the data stack (row-for-row)"
+                    )
+            with self._phase("fold"):
+                kc = _cat_codes(chunk["kind"])
+                gc_ = _cat_codes(chunk["group"])
+                pair = kc * (int(gc_.max(initial=0)) + 1) + gc_
+                order = np.argsort(pair, kind="stable")
+                bounds = np.concatenate(
+                    [[0], np.flatnonzero(np.diff(pair[order])) + 1,
+                     [len(pair)]]
+                )
+                kinds = chunk["kind"]
+                groups = chunk["group"]
+                for bi in range(len(bounds) - 1):
+                    sel = order[bounds[bi] : bounds[bi + 1]]
+                    first = int(sel[0])
+                    if self.coverage_norm:
+                        cssum = np.nansum(covw1[r1[sel]], axis=0)
+                        cesum = np.nansum(covw2[r2[sel]], axis=0)
+                    else:
+                        cssum = np.zeros(W)
+                        cesum = np.zeros(W)
+                    extras_rows = None
+                    if extra_frame_keys:
+                        extras_rows = {
+                            col: chunk[col].values[sel].tolist()
+                            for col in extra_frame_keys.values()
+                        }
+                    # one group: fold the stack as it is (the order of a
+                    # sum does not matter), without the fancy gather
+                    dsel = data if len(bounds) == 2 else data[sel]
+                    _fold(_group_key(groups.iloc[first]),
+                          str(kinds.iloc[first]), dsel, cssum, cesum,
+                          extras_rows)
+
+        self._routes.add("batch_hook")
+        self._all_rows(outdict, extra_sum_funcs, self.control)
+        if outdict["ROI"]["all"]["n"] > 0:
+            logger.info(f"{region1, region2}: {outdict['ROI']['all']['n']}")
+        return outdict
+
+    def _pileup_region_hostpath(
+        self,
+        region1,
+        region2,
+        groupby,
+        modify_2Dintervals_func,
+        postprocess_frame_func,
+        postprocess_snip_func,
+        extra_sum_funcs,
+        dev=None,
+    ):
+        """Per-snip host accumulation over ``stream_snips``: taken when user
+        hooks must see snip data or run per-snip extra accumulators
+        (reference accumulate_stream, coolpup.py:1236-1283).
+
+        Hooked snips are buffered per (kind, group) and folded in batches
+        (``_add_snip_batch``), in stream order within each group; extra
+        funcs run per snip, in order, at the flush. What is buffered is a
+        shallow copy of each yielded dict, so a hook that yields one dict
+        several times, rebinding ``group``, ``data`` or an extras key in
+        between, folds each state it yielded (the reference's buffer keeps
+        the dict itself and folds its last state only). Opaque extra funcs
+        may read the accumulator's per-snip intermediate state, so they keep
+        the strictly interleaved per-snip fold."""
+        outdict = {"ROI": {}, "control": {}}
+        stream = self.stream_snips(
+            region1,
+            region2,
+            groupby=groupby,
+            modify_2Dintervals_func=modify_2Dintervals_func,
+            postprocess_frame_func=postprocess_frame_func,
+            dev=dev,
+        )
+        batchable = extra_sum_funcs is None or (
+            _accumulate_values_frame_keys(extra_sum_funcs) is not None
+        )
+        buf = {}
+        buffered = 0
+
+        def _flush():
+            nonlocal buffered
+            for (kind, key), snips in buf.items():
+                _add_snip_batch(
+                    outdict[kind], key, snips, extra_funcs=extra_sum_funcs
+                )
+            buf.clear()
+            buffered = 0
+
+        # the stream's own phases (coords, tiles, device) are timed inside
+        # it; the rest of this loop is the per-snip host work
+        timers = self.timers
+        inner = ("coords", "tiles", "device")
+        t0 = time.perf_counter()
+        before = sum(timers.seconds[k] for k in inner) if timers else 0.0
+        for snip in stream:
+            if snip.get("flip"):
+                # rot90(flipud(x)) == anti-transpose (reference coolpup.py:131)
+                snip["data"] = np.flip(snip["data"], axis=(0, 1)).T
+            out = (
+                postprocess_snip_func(snip)
+                if postprocess_snip_func is not None
+                else snip
+            )
+            for s in collapse_snips(out):
+                key = (
+                    s["group"]
+                    if isinstance(s["group"], str)
+                    else tuple(s["group"])
+                )
+                if not batchable:
+                    _add_snip(
+                        outdict[s["kind"]], key, s,
+                        extra_funcs=extra_sum_funcs,
+                    )
+                    continue
+                buf.setdefault((s["kind"], key), []).append(dict(s))
+                buffered += 1
+            if buffered >= _FOLD_FLUSH:
+                _flush()
+        _flush()
+        if timers:
+            timers.seconds["snips_host"] += (
+                time.perf_counter() - t0
+                - (sum(timers.seconds[k] for k in inner) - before)
+            )
+
+        self._routes.add("host_stream")
+        self._all_rows(outdict, extra_sum_funcs,
+                       self.control or (self.expected and not self.ooe))
+        if outdict["ROI"]["all"]["n"] > 0:
+            logger.info(f"{region1, region2}: {outdict['ROI']['all']['n']}")
+        return outdict
+
     # -- the region loop and the output table --------------------------------
 
     def _region_pairs(self):
@@ -1082,14 +1711,15 @@ class PileUpper:
         return modify
 
     @staticmethod
-    def _combine_region_maps(maps):
+    def _combine_region_maps(maps, sum_func=sum_pups):
         """Fold per-region {group: pup} maps into one with the sum_pups
-        monoid, in first-appearance group order."""
+        monoid (``sum_func``: with the run's extra funcs), in
+        first-appearance group order."""
         combined = {}
         for m in maps:
             for group, pup in m.items():
                 if group in combined:
-                    combined[group] = dict(sum_pups(combined[group], pup))
+                    combined[group] = dict(sum_func(combined[group], pup))
                 else:
                     combined[group] = dict(pup)
         return combined
@@ -1108,11 +1738,12 @@ class PileUpper:
                 pup["data"] = data
         return pup
 
-    def _finalize_table(self, roi, ctrl, groupby):
+    def _finalize_table(self, roi, ctrl, groupby, extra_keys=()):
         """Normalize combined accumulators into the output DataFrame:
         per-pixel mean, control/expected division, inf cleanup, local
-        symmetrization, stripes, groupby columns (reference
-        coolpup.py:1533–1625)."""
+        symmetrization, stripes, the ``extra_keys`` columns of the extra sum
+        funcs (and ``control_<key>`` with controls), groupby columns
+        (reference coolpup.py:1533–1625)."""
         have_control = ctrl is not None
         if self.coverage_norm:
             for pup in roi.values():
@@ -1157,7 +1788,18 @@ class PileUpper:
             row["n"] = pup["n"]
             row["num"] = pup["num"]
             if self.store_stripes:
-                row["coordinates"] = np.vstack(pup["coordinates"])
+                # [n, 6] component blocks from the accumulate routes,
+                # joined "chrom1.start1..." strings from the host stream
+                parts = []
+                for c in pup["coordinates"]:
+                    a = np.asarray(c, dtype=object)
+                    if a.ndim == 2:
+                        parts.append(a)
+                    else:
+                        parts.append(
+                            np.array(str(c).split("."), dtype=object)[None]
+                        )
+                row["coordinates"] = np.vstack(parts)
                 with np.errstate(divide="ignore", invalid="ignore"):
                     for name, cstripe in (
                         ("horizontal_stripe", ctrl_h),
@@ -1169,6 +1811,10 @@ class PileUpper:
                         if self.local:
                             stripes = _copy_array_halves(stripes)
                         row[name] = stripes
+            for key in extra_keys:
+                row[key] = pup.get(key)
+                if self.control:
+                    row[f"control_{key}"] = (ctrl.get(group) or {}).get(key)
             row["group"] = group
             rows.append(row)
 
@@ -1187,8 +1833,9 @@ class PileUpper:
         """Run-parameter provenance columns (reference coolpup.py:1628–1654),
         plus the port's own: the backend, the device, the accumulate routes
         the regions took (``cuda_kernel`` or ``plain`` for the quad kernel,
-        ``generic_torch``, ``rescale_torch``) and the reference keywords the
-        port accepts and ignores."""
+        ``generic_torch``, ``rescale_torch``, and ``batch_hook`` or
+        ``host_stream`` for the hook routes that fold on the host) and the
+        reference keywords the port accepts and ignores."""
         fname = self.clr.filename
         device_name = str(self.device)
         if self.device.type == "cuda":
@@ -1247,21 +1894,33 @@ class PileUpper:
         """Run the full pileup over every region (pair) and normalize
         (reference coolpup.py:1360–1654 counterpart). Regions run one after
         another on the device, each checkpointed to ``checkpoint_dir`` when
-        set. ``modify_2Dintervals_func`` transforms every snip frame before
-        its groups are assigned; ``dual_anchor`` groups every snip under
-        both of its anchors (``pileupsByWindowWithControl``). The
-        ``postprocess_*`` hooks and ``extra_sum_funcs`` raise
-        NotImplementedError."""
-        if (
-            postprocess_frame_func is not None
-            or postprocess_snip_func is not None
-            or postprocess_batch_func is not None
-            or extra_sum_funcs is not None
-        ):
-            raise _not_ported(
-                "the extension hooks (postprocess_*_func, extra_sum_funcs)",
-                4,
-            )
+        set. ``dual_anchor`` groups every snip under both of its anchors
+        (``pileupsByWindowWithControl``).
+
+        Extension hooks (reference coolpup.py:1261–1283,
+        lib/puputils.py:39–41), all of which receive pandas frames, numpy
+        arrays and dicts, never tensors: ``modify_2Dintervals_func`` and
+        ``postprocess_frame_func`` transform vectorized snip frames before
+        their groups are assigned and stay on the accumulate routes;
+        ``postprocess_snip_func`` sees each snip dict WITH its gathered data
+        (may return one snip, a list, or a generator) and
+        ``extra_sum_funcs`` accumulates extra per-snip values into output
+        columns: either routes the regions through the per-snip host stream
+        (``stream_snips``), unless every extra is
+        ``partial(accumulate_values, key=<frame column>)``, which stays on
+        the accumulate route.
+
+        ``postprocess_batch_func(frame, data) -> frame`` is the VECTORIZED
+        per-snip-data hook: it runs once per coordinate chunk with the full
+        [N, W, W] float32 window stack (flip applied) aligned row-for-row
+        with the frame (see ``_pileup_region_batchhook``). Not combinable
+        with postprocess_snip_func; for stripes / rescale /
+        expected-emission use postprocess_snip_func instead.
+
+        NOTE: combining ``groupby`` with ``extra_sum_funcs`` inherits the
+        reference's sum_pups quirk (reference lib/puputils.py:110–112:
+        extra funcs REPLACE the merged pup), so the 'all' row carries only
+        the extras; read the per-group rows. Replicated for parity."""
         groupby = groupby or []
         self.ignore_group_order = ignore_group_order
         flipby = self._resolve_flipby(groupby)
@@ -1270,9 +1929,15 @@ class PileUpper:
         # coordinate frames materialize only the columns the device path
         # reads when every frame transform is known to the engine
         column_hint = None
-        if modify_2Dintervals_func is None or (
+        user_modify_known = modify_2Dintervals_func is None or (
             isinstance(modify_2Dintervals_func, partial)
             and modify_2Dintervals_func.func is bin_distance_intervals
+        )
+        if (
+            user_modify_known
+            and postprocess_frame_func is None
+            and postprocess_snip_func is None
+            and postprocess_batch_func is None
         ):
             column_hint = set(groupby)
             if flipby:
@@ -1301,6 +1966,10 @@ class PileUpper:
                 r2,
                 groupby=groupby,
                 modify_2Dintervals_func=modify_final,
+                postprocess_frame_func=postprocess_frame_func,
+                postprocess_snip_func=postprocess_snip_func,
+                postprocess_batch_func=postprocess_batch_func,
+                extra_sum_funcs=extra_sum_funcs,
                 column_hint=column_hint,
                 dual_anchor=dual_anchor,
             )
@@ -1317,18 +1986,23 @@ class PileUpper:
             pileups = [_run_one(r1, r2) for r1, r2 in self._region_pairs()]
 
         with timers.phase("finalize"):
-            roi = self._combine_region_maps(p["ROI"] for p in pileups)
+            sum_func = partial(sum_pups, extra_funcs=extra_sum_funcs)
+            roi = self._combine_region_maps(
+                (p["ROI"] for p in pileups), sum_func
+            )
             ctrl = None
             if self.control or (self.expected and not self.ooe):
                 ctrl = self._combine_region_maps(
-                    p["control"] for p in pileups
+                    (p["control"] for p in pileups), sum_func
                 )
             for pup in roi.values():
                 self._poison_to_inf(pup)
             if ctrl is not None:
                 for pup in ctrl.values():
                     self._poison_to_inf(pup)
-            table = self._finalize_table(roi, ctrl, groupby)
+            table = self._finalize_table(
+                roi, ctrl, groupby, extra_keys=tuple(extra_sum_funcs or ())
+            )
             for name, value in self._annotation().items():
                 table[name] = [value] * len(table)
         timers.log_summary()
@@ -1354,36 +2028,37 @@ class PileUpper:
 
     def pileupsByWindowWithControl(self, nproc=None):
         """One pup per anchor window: every snip contributes to the groups
-        of both its anchors (reference coolpup.py:1696–1756). Groups ride
-        the integer anchor id of ``CoordCreator`` and map back to window
-        labels once per group. BEDPE rows have no shared anchor id, and
-        rescaled windows do not fit the dual-anchor path; the reference
-        groups both through its ``postprocess_frame_func`` hook, which is
-        not ported yet."""
+        of both its anchors (reference coolpup.py:1696–1756). For BED
+        features outside rescale, groups ride the integer anchor id of
+        ``CoordCreator`` and map back to window labels once per group.
+        BEDPE rows have no shared anchor id, and rescaled windows do not fit
+        the dual-anchor path: both group through the frame-doubling
+        ``group_by_region_frame`` hook, with (chrom, start, end) tuples as
+        groups."""
         if self.local:
             raise ValueError("Cannot do by-window pileups for local")
-        if self.CC.kind != "bed":
-            raise _not_ported(
-                "by-window pileups of BEDPE features (grouped through the "
-                "postprocess_frame_func hook)", 4,
+        if self.CC.kind == "bed" and not self.rescale:
+            pups = self.pileupsWithControl(nproc=nproc, dual_anchor=True)
+            iv = self.CC.intervals
+            codes = iv["anchor_idx"].to_numpy()
+            _, first = np.unique(codes, return_index=True)
+            ch = iv["chrom"].to_numpy()
+            st = iv["start"].to_numpy()
+            en = iv["end"].to_numpy()
+            lab = {int(codes[i]): (ch[i], int(st[i]), int(en[i]))
+                   for i in first}
+            anchors = [
+                ("all", -1, -1) if g == "all" else lab[int(g)]
+                for g in pups["group"]
+            ]
+        else:
+            pups = self.pileupsWithControl(
+                nproc=nproc, postprocess_frame_func=group_by_region_frame
             )
-        if self.rescale:
-            raise _not_ported(
-                "by-window pileups under rescale (grouped through the "
-                "postprocess_frame_func hook)", 4,
-            )
-        pups = self.pileupsWithControl(nproc=nproc, dual_anchor=True)
-        iv = self.CC.intervals
-        codes = iv["anchor_idx"].to_numpy()
-        _, first = np.unique(codes, return_index=True)
-        ch = iv["chrom"].to_numpy()
-        st = iv["start"].to_numpy()
-        en = iv["end"].to_numpy()
-        lab = {int(codes[i]): (ch[i], int(st[i]), int(en[i])) for i in first}
-        anchors = [
-            ("all", -1, -1) if g == "all" else lab[int(g)]
-            for g in pups["group"]
-        ]
+            anchors = [
+                ("all", -1, -1) if g == "all" else tuple(g)
+                for g in pups["group"]
+            ]
         pups = pups.drop(columns="group")
         pups.insert(0, "end", np.array([a[2] for a in anchors], dtype=int))
         pups.insert(0, "start", np.array([a[1] for a in anchors], dtype=int))

@@ -6,7 +6,11 @@ engine times ``ingest`` (region fetch and per-bin vectors), ``coords``
 (coordinate frames to flat index arrays), ``tiles`` (host tile scatter),
 ``device`` (stack upload, expand, normalize, quad sort, kernel, fetch, side
 sums, stripe gather), ``stripes`` (stripe planes and coordinate strings
-split per group) and ``finalize`` (region merge and the output table).
+split per group) and ``finalize`` (region merge and the output table). The
+hook routes add ``hook`` (the user's batch hook), ``fold`` (the batch
+route's per-group numpy fold) and ``snips_host`` (the host stream's per-snip
+dicts, hooks and fold); their ``device`` is upload, normalize, window cut
+and fetch.
 ``device_trace(trace_dir)`` records the block with ``torch.profiler`` and
 writes a chrome trace into ``trace_dir``."""
 

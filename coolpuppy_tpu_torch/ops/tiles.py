@@ -571,3 +571,40 @@ def cut_windows(stiles, tile_map, r1, r2, H, h1=None, w2=None):
     tid = tile_map[(rows // B)[:, :, None], (cols // B)[:, None, :]]
     idx = (tid * B + (rows % B)[:, :, None]) * B + (cols % B)[:, None, :]
     return stiles.reshape(-1)[idx]
+
+
+# host bytes of one fetched block of windows (float32)
+FETCH_BYTES = 256 << 20
+
+
+def fetch_windows(stiles, tile_map, r1, r2, H, h1=None, w2=None, flip=None):
+    """The windows of a snip stream, cut from the device stack
+    (``cut_windows``) and fetched to the host in blocks of at most
+    ``FETCH_BYTES``: yields ``(lo, hi, block)`` with ``block`` the float32
+    numpy [hi - lo, H, H] windows of snips ``lo:hi``, a fresh array per
+    block that nothing else holds. ``r1``, ``r2`` and the optional logical
+    sizes ``h1``/``w2`` and ``flip`` marks are host arrays; a flagged
+    snip's window is anti-transposed (rows and columns reversed, then
+    transposed) on the device before the fetch. With ``h1``/``w2`` the
+    pixels past a snip's logical extent hold clamped copies: the caller
+    slices ``block[i, :h1[i], :w2[i]]``."""
+    device = stiles.device
+    n = len(r1)
+    step = max(1, FETCH_BYTES // (4 * H * H))
+
+    def upload(a, lo, hi, dtype=torch.int64):
+        return torch.from_numpy(np.ascontiguousarray(a[lo:hi])).to(device,
+                                                                   dtype)
+
+    for lo in range(0, n, step):
+        hi = min(lo + step, n)
+        blk = cut_windows(
+            stiles, tile_map, upload(r1, lo, hi), upload(r2, lo, hi), H,
+            None if h1 is None else upload(h1, lo, hi),
+            None if w2 is None else upload(w2, lo, hi),
+        )
+        if flip is not None and flip[lo:hi].any():
+            fl = upload(flip, lo, hi, torch.bool)
+            blk = torch.where(fl[:, None, None],
+                              blk.flip(1, 2).transpose(1, 2), blk)
+        yield lo, hi, blk.to(torch.float32).cpu().numpy()

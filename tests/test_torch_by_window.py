@@ -217,3 +217,129 @@ def test_by_window_argument_checks(toy):
         pups = port.pileup(clr, toy_features(), groupby=["strand1"],
                            device="cpu", **dict(KW, view_df=toy_regions()))
     assert pups["by_window"].all() and not pups["by_strand"].any()
+
+
+def _all_pairs_bedpe(feats):
+    """Every pair of features of one chromosome, first before second, as
+    BEDPE rows."""
+    rows = []
+    for _, sub in feats.groupby("chrom", sort=False):
+        sub = sub.reset_index(drop=True)
+        i, j = np.triu_indices(len(sub), 1)
+        rows.append(pd.DataFrame({
+            "chrom1": sub["chrom"].values[i], "start1": sub["start"].values[i],
+            "end1": sub["end"].values[i], "chrom2": sub["chrom"].values[j],
+            "start2": sub["start"].values[j], "end2": sub["end"].values[j],
+        }))
+    return pd.concat(rows, ignore_index=True)
+
+
+BEDPE_BY_WINDOW = {
+    "plain": (dict(), dict()),
+    "controls": (dict(nshifts=2, seed=8), dict(control=True)),
+    "stripes": (dict(), dict(store_stripes=True)),
+    "coverage_norm": (dict(), dict(clr_weight_name=None,
+                                   coverage_norm=True)),
+    "rescale": (dict(rescale_flank=1), dict(rescale=True, rescale_size=9)),
+}
+
+
+@pytest.mark.parametrize("mode", list(BEDPE_BY_WINDOW))
+def test_by_window_of_bedpe_rows_matches_reference(toy, mode):
+    """``pileupsByWindowWithControl`` on BEDPE rows (no shared anchor index:
+    grouped through the frame-doubling ``group_by_region_frame`` hook, with
+    (chrom, start, end) tuples as groups) against the reference's, window
+    by window."""
+    ref_clr, clr = toy
+    cc_kw, pu_kw = BEDPE_BY_WINDOW[mode]
+    feats = toy_features()
+    if "rescale_flank" in cc_kw:
+        feats = feats.assign(end=feats["start"] + 2_000_000)
+    else:
+        cc_kw = dict(cc_kw, flank=2_000_000)
+    bedpe = _all_pairs_bedpe(feats)
+    tables = []
+    for pkg, c, kw in ((port, clr, {"device": "cpu"}), (ref, ref_clr, {})):
+        cc = pkg.CoordCreator(bedpe, 1_000_000, features_format="bedpe",
+                              mindist=0, **cc_kw)
+        pu = pkg.PileUpper(c, cc, expected=False, view_df=toy_regions(),
+                           **pu_kw, **kw)
+        tables.append(pu.pileupsByWindowWithControl())
+    got, want = tables
+    compare_tables(got, want, what=f"bedpe by window {mode}", **ENGINE_TOL)
+    assert len(got) == 7 and list(got["n"])[:6] == [2] * 6
+    assert got["accumulate"].iloc[0] == (
+        "rescale_torch" if mode == "rescale" else "plain")
+
+
+@pytest.mark.parametrize("mode", ["plain", "controls", "rescale"])
+def test_frame_hook_grouping_equals_dual_anchor(toy, mode):
+    """``postprocess_frame_func=group_by_region_frame`` on BED features
+    gives the dual-anchor by-window run's groups and pups (the reference's
+    own check, tests/test_modes.py), and the reference's; under rescale,
+    where ``pileup(by_window=True)`` takes the hook, it gives the
+    reference's."""
+    ref_clr, clr = toy
+    if mode == "rescale":
+        feats = toy_features().assign(
+            end=toy_features()["start"] + 3_000_000)
+        kw = dict(features_format="bed", mindist=0, by_window=True,
+                  rescale=True, rescale_flank=1, rescale_size=9,
+                  view_df=toy_regions())
+        got = port.pileup(clr, feats, device="cpu", **kw)
+        compare_tables(got, ref.pileup(ref_clr, feats, **kw),
+                       what="by window under rescale", **ENGINE_TOL)
+        assert got["accumulate"].iloc[0] == "rescale_torch"
+        return
+    cc_kw = dict(features_format="bed", flank=2_000_000, mindist=0)
+    if mode == "controls":
+        cc_kw.update(nshifts=1, seed=4)
+    from coolpuppy_tpu.lib.puputils import group_by_region_frame as ref_hook
+    from coolpuppy_tpu_torch.lib.puputils import group_by_region_frame
+
+    def run(pkg, c, hook, **kw):
+        cc = pkg.CoordCreator(toy_features(), 1_000_000, **cc_kw)
+        pu = pkg.PileUpper(c, cc, expected=False, view_df=toy_regions(),
+                           control=mode == "controls", **kw)
+        if hook is None:
+            return pu.pileupsByWindowWithControl()
+        pups = pu.pileupsWithControl(postprocess_frame_func=hook)
+        keys = [("all", -1, -1) if g == "all" else tuple(g)
+                for g in pups["group"]]
+        pups = pups.drop(columns="group")
+        for pos, col in enumerate(("chrom", "start", "end")):
+            pups.insert(pos, col, [k[pos] for k in keys])
+        return pups
+
+    hooked = run(port, clr, group_by_region_frame, device="cpu")
+    dual = run(port, clr, None, device="cpu")
+    assert hooked["accumulate"].iloc[0] == "plain"
+    compare_tables(hooked, dual, what="frame hook vs dual anchor",
+                   rtol=1e-6, atol=1e-9)
+    compare_tables(hooked, run(ref, ref_clr, ref_hook),
+                   what="frame hook vs reference", **ENGINE_TOL)
+
+
+def test_group_cids_take_tuple_groups():
+    """``_group_cids`` on a frame ``group_by_region_frame`` doubled: tuple
+    groups get cids in first-appearance order, per kind."""
+    from coolpuppy_tpu_torch.lib.puputils import group_by_region_frame
+
+    frame = pd.DataFrame({
+        "chrom1": ["chr1"] * 4, "start1": [10, 10, 30, 10],
+        "end1": [15, 15, 35, 15], "chrom2": ["chr1"] * 4,
+        "start2": [50, 30, 50, 50], "end2": [55, 35, 55, 55],
+        "kind": pd.Categorical(["ROI", "ROI", "ROI", "control"]),
+    })
+    doubled = group_by_region_frame(frame)
+    cid_of = {}
+
+    def ensure_cid(kind, group):
+        return cid_of.setdefault((kind, group), len(cid_of))
+
+    cids = port.PileUpper._group_cids(doubled, ensure_cid, cid_of)
+    a, b, c = ("chr1", 10, 15), ("chr1", 30, 35), ("chr1", 50, 55)
+    # side-1 groups of the four rows, then their side-2 groups
+    assert list(cid_of) == [("ROI", a), ("ROI", b), ("control", a),
+                            ("ROI", c), ("control", c)]
+    assert cids.tolist() == [0, 0, 1, 2, 3, 1, 3, 4]

@@ -1,5 +1,5 @@
-"""A CPU rehearsal of ``chip_smoke.py`` phase 6b (``bench.py --modes``'
-cells) at a tiny size: the same control flow, checks and timing lines, with
+"""CPU rehearsals of ``chip_smoke.py``'s phases at a tiny size (5b, 6b, 7b/7c,
+3, 4, 8a-8c): the same control flow, checks and timing lines, with
 ``quad_accumulate`` swapped for a plain version that counts its calls as
 launches (the CUDA kernel cannot run here)."""
 
@@ -182,3 +182,95 @@ def test_slice_phase_rehearsal(monkeypatch, capsys):
         assert f"sweep W={W}: 300 snips" in out
         assert f"routed {routed}" in out
     assert "sweep W=11: 3000 snips" in out
+
+
+def _counted_plain(monkeypatch):
+    """``quad_accumulate`` swapped for the plain version, counting its calls
+    as launches (the engine then records ``cuda_kernel``)."""
+    plain = qg.quad_accumulate_plain
+
+    def counted(*args):
+        qg.LAUNCHES += 1
+        return plain(*args)
+
+    monkeypatch.setattr(qg, "quad_accumulate", counted)
+
+
+def test_hook_modes_phase_rehearsal(capsys):
+    """Phase 8a on the CPU: every extension route and by-window case runs
+    and agrees with itself, with the extras' columns present."""
+    chip_smoke.check_hook_modes(torch.device("cpu"))
+    out = capsys.readouterr().out
+    for name, spec in chip_smoke.HOOK_MODES.items():
+        route = "plain" if spec["routes"][0] == "cuda_kernel" else \
+            spec["routes"][0]
+        assert f"hook mode {name}: " in out
+        line = next(ln for ln in out.splitlines()
+                    if ln.startswith(f"hook mode {name}: "))
+        assert f"route {route}," in line and line.endswith(" ok")
+    # (two regions of 3 pairs: extra funcs replace the merge of their pups,
+    # the reference's sum_pups quirk, so n is one region's and the lists
+    # are both regions')
+    assert ("hook mode frame_column_controls: 1 rows, n [3], route plain, "
+            "max_abs_err 0, score1 [6], control_score1 [10] ok") in out
+
+
+def test_extension_phase_rehearsal(monkeypatch, capsys):
+    """Phases 8b and 8c at a tiny size: ``bench_extension``'s three routes
+    on 300 and 120 sites of a 1,500-bin map, then by-window of the BEDPE
+    rows of 150 sites against the BED dual-anchor run."""
+    _counted_plain(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "EXTENSION_WARMUP",
+                        {"frame": 60, "batch": 40, "snip": 40})
+    monkeypatch.setattr(chip_smoke, "EXTENSION_CPU_SITES", 60)
+    shapes = {}
+    dev = torch.device("cpu")
+    launches, clr = chip_smoke.check_extension(
+        dev, lambda: None, "cpu rehearsal", shapes,
+        workload=lambda: chip_smoke.extension_workload(
+            n_big=300, n_small=120, n_bins=1_500, n_contacts=150_000),
+    )
+    assert launches == 1
+    assert shapes["extension_frame_column"]["launches"] == 1
+    assert shapes["extension_frame_column"]["snips"] > 300
+    assert chip_smoke.check_bedpe_by_window(
+        dev, lambda: None, "cpu rehearsal", clr, shapes, n_sites=150) == 1
+    assert shapes["by_window_bedpe"]["snips"] > 300
+    out = capsys.readouterr().out
+    for route in ("frame", "batch", "snip"):
+        assert f"extension {route} checked run:" in out
+        assert f"extension {route} snips/s:" in out
+    assert "extension frame kernel vs plain (whole run)" in out
+    assert "extension batch subset (60 sites" in out
+    assert "extension routes on the same 120 sites: n " in out
+    assert "bedpe by-window kernel vs plain (whole run, " in out
+    assert "bedpe by-window vs the BED dual-anchor run over the same" in out
+    assert "bedpe by-window snips/s:" in out
+
+
+def test_phases_option():
+    assert chip_smoke.parse_phases([]) == {3, 4, 5, 6, 7, 8}
+    assert chip_smoke.parse_phases(["--phases", "1,2,8"]) == {1, 2, 8}
+    for bad in ("9", "x", "", "1,2", ","):
+        try:
+            chip_smoke.parse_phases(["--phases", bad])
+        except SystemExit as e:
+            assert e.code == 2
+        else:
+            raise AssertionError(f"--phases {bad} was accepted")
+
+
+def test_engine_phase_rehearsal(monkeypatch, capsys):
+    """Phase 5b at a tiny size: 200 sites on a 1,500-bin map."""
+    _counted_plain(monkeypatch)
+    full = chip_smoke.engine_workload
+    monkeypatch.setattr(chip_smoke, "engine_workload", lambda: full(
+        n_sites=200, n_bins=1_500, n_contacts=150_000))
+    monkeypatch.setattr(chip_smoke, "ENGINE_WARMUP_SITES", 50)
+    shapes = {}
+    assert chip_smoke.check_engine(torch.device("cpu"), lambda: None,
+                                   "cpu rehearsal", shapes) == 1
+    assert shapes["engine"]["launches"] == 1
+    out = capsys.readouterr().out
+    assert "engine kernel vs plain (whole run)" in out
+    assert "engine timing: wall_s" in out and "engine snips/s:" in out

@@ -1,9 +1,10 @@
 """The port's pileup() against the frozen goldens (read, never written),
-the modes it does not run yet, and its device, trace and checkpoint
-plumbing, on the CPU."""
+by-window pileups under rescale against the reference's, the hook
+keywords, and its device, trace and checkpoint plumbing, on the CPU."""
 
 import json
 import os
+import sys
 
 import numpy as np
 import pandas as pd
@@ -14,6 +15,13 @@ import coolpuppy_tpu as ref
 import coolpuppy_tpu_torch as port
 from fixtures import make_toy_cooler, toy_expected, toy_features, toy_regions
 from test_golden_modes import many_features
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+try:
+    from chip_smoke import compare_tables
+finally:
+    sys.path.remove(REPO)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 GOLDEN_TOL = dict(rtol=1e-5, atol=1e-8)  # tests/test_property.py:81
@@ -157,27 +165,43 @@ def _bedpe(feats):
         chrom2=feats["chrom"], start2=feats["start"], end2=feats["end"])
 
 
+@pytest.fixture(scope="module")
+def property_toy_ref(tmp_path_factory):
+    """The same map (seed 123) for the JAX package."""
+    path = str(tmp_path_factory.mktemp("cool") / "toy_ref.cool")
+    return make_toy_cooler(path, seed=123)[0]
+
+
 @pytest.mark.parametrize("kind", ["bed", "bedpe"],
                          ids=["rescale", "rescale_bedpe"])
-def test_out_of_slice_modes_raise(property_toy, kind):
-    """By-window pileups under rescale group through the
-    postprocess_frame_func hook in the reference: they raise, for BED
-    features and for BEDPE rows."""
+def test_out_of_slice_modes_raise(property_toy, property_toy_ref, kind):
+    """By-window pileups under rescale, once outside the port and raising:
+    they group through the ``group_by_region_frame`` frame hook, for BED
+    features and for BEDPE rows, and match the reference's window by window
+    (counts exact, ``data`` rtol 1e-4)."""
     feats = toy_features()
     feats = feats.assign(end=feats["start"] + 3_000_000)
-    cc = port.CoordCreator(feats if kind == "bed" else _bedpe(feats),
-                           1_000_000, features_format=kind, rescale_flank=1,
-                           mindist=0)
-    pu = port.PileUpper(property_toy, cc, rescale=True, rescale_size=9,
-                        view_df=toy_regions(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        pu.pileupsByWindowWithControl()
+    tables = []
+    for pkg, clr, kw in ((port, property_toy, {"device": "cpu"}),
+                         (ref, property_toy_ref, {})):
+        cc = pkg.CoordCreator(feats if kind == "bed" else _bedpe(feats),
+                              1_000_000, features_format=kind,
+                              rescale_flank=1, mindist=0)
+        pu = pkg.PileUpper(clr, cc, rescale=True, rescale_size=9,
+                           expected=False, view_df=toy_regions(), **kw)
+        tables.append(pu.pileupsByWindowWithControl())
+    got, want = tables
+    compare_tables(got, want, rtol=1e-4, atol=1e-7,
+                   what=f"by-window rescale {kind}")
+    assert got["accumulate"].iloc[0] == "rescale_torch"
+    assert len(got) == 5 and np.asarray(got["data"].iloc[0]).shape == (9, 9)
+    assert int(got.loc[got["chrom"] == "all", "n"].iloc[0]) > 0
 
 
 def test_bedpe_and_hooks_raise(property_toy):
-    """The extension hooks and by-window pileups of BEDPE rows (the
-    reference groups those through a hook) raise; ``rescale_flank`` gives
-    the reference's expanded intervals."""
+    """``rescale_flank`` gives the reference's expanded intervals; every
+    hook keyword of ``pileupsWithControl`` is accepted, and by-window
+    pileups of BEDPE rows run (none of them raises any more)."""
     feats = toy_features()
     bedpe = _bedpe(feats)
     for f, fmt, cols in ((feats, "bed", ["exp_start", "exp_end"]),
@@ -190,17 +214,32 @@ def test_bedpe_and_hooks_raise(property_toy):
         pd.testing.assert_frame_equal(got[cols], want[cols])
     cc = port.CoordCreator(feats, 1_000_000, features_format="bed",
                            flank=2_000_000, mindist=0)
-    pu = port.PileUpper(property_toy, cc, device="cpu")
-    for hook in ("postprocess_frame_func", "postprocess_snip_func",
-                 "postprocess_batch_func", "extra_sum_funcs"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pu.pileupsWithControl(**{hook: lambda *a: a})
+    # one region: extra funcs replace the merge of two regions' pups (the
+    # reference's sum_pups quirk)
+    pu = port.PileUpper(property_toy, cc, view_df=toy_regions().iloc[[0]],
+                        device="cpu")
+    plain = pu.pileupsWithControl()
+    hooks = {
+        "postprocess_frame_func": (lambda frame: frame, "plain"),
+        "postprocess_snip_func": (lambda snip: snip, "host_stream"),
+        "postprocess_batch_func": (lambda frame, data: frame, "batch_hook"),
+        "extra_sum_funcs": ({"n_seen": lambda acc, snip: acc},
+                            "host_stream"),
+    }
+    for hook, (func, route) in hooks.items():
+        got = pu.pileupsWithControl(**{hook: func})
+        assert got["accumulate"].iloc[0] == route, hook
+        assert int(got["n"].iloc[0]) == int(plain["n"].iloc[0]) > 0
+        np.testing.assert_allclose(got["data"].iloc[0], plain["data"].iloc[0],
+                                   rtol=1e-5, atol=1e-8, equal_nan=True)
     cc = port.CoordCreator(bedpe, 1_000_000, features_format="auto",
                            flank=2_000_000, mindist=0)
     assert cc.kind == "bedpe"
-    pu = port.PileUpper(property_toy, cc, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pu.pileupsByWindowWithControl()
+    pu = port.PileUpper(property_toy, cc, view_df=toy_regions(),
+                        device="cpu")
+    by_window = pu.pileupsByWindowWithControl()
+    assert len(by_window) == len(feats) + 1
+    assert list(by_window["n"]) == [2] * len(feats) + [2 * len(feats)]
 
 
 def test_cuda_without_a_card_raises(property_toy, monkeypatch):

@@ -131,6 +131,14 @@ tp = P.pileup(clr, toy_features(), view_df=toy_regions(), flank=2_000_000,
               trans=True, nshifts=1, seed=0, device="cpu")
 assert tp[["n", "control_n"]].iloc[0].tolist() == [9, 9]
 assert np.isfinite(tp["data"].iloc[0]).any()
+# and the extension hooks: a batch hook and the domain-score snip hook
+from chip_smoke import hook_mode_table, toy_cooler as _toy
+_clr, _dense, _weights = _toy()
+bh = hook_mode_table("batch_hook", _clr, _dense, _weights, "cpu")
+assert bh["accumulate"].iloc[0] == "batch_hook" and len(bh["center"].iloc[0]) == 6
+ds = hook_mode_table("snip_domain_score", _clr, _dense, _weights, "cpu")
+assert ds["accumulate"].iloc[0] == "host_stream"
+assert all(np.isfinite(ds["domain_score"].iloc[0]))
 blocked = ("jax", "coolpuppy_tpu", "h5py")
 loaded = sorted(m for m, v in sys.modules.items()
                 if v is not None and m.split(".")[0] in blocked)
