@@ -1,13 +1,14 @@
-"""Drive the PyTorch/CUDA port's loop-APA path and its ``pileup()`` engine,
-in all its modes, once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's loop-APA path, its ``pileup()`` engine in
+all its modes and its ``coolpup-torch`` command line tool once on one NVIDIA
+GPU.
 
-    python3 chip_smoke.py [--phases 4,8]
+    python3 chip_smoke.py [--phases 4,8,9]
 
 Run from the root of a checkout on a machine with a CUDA device, ``nvcc``
 and PyTorch built for CUDA. It needs no network and no JAX. With no
 argument every phase runs; ``--phases`` runs the probe, the build and the
 phases named (the record of the kernel then holds what those phases
-measured). Phases, each printing its lines:
+measured). Phases, each printing its lines and, as it ends, its seconds:
 
 1. probe: torch/CUDA and pandas versions, the card's name and power limit
    (``nvidia-smi``), the ``nvcc`` release, and which of triton, pandas,
@@ -115,7 +116,31 @@ measured). Phases, each printing its lines:
    kernel must launch), held window by window against the BED dual-anchor
    run over the same pairs (counts exact, ``data`` rtol 1e-4), two timed
    runs, busy share and the kernel's time beside its bound.
+9. the ``coolpup-torch`` CLI, all of it but the two h5py calls (reading the
+   ``.cool`` file, writing the ``.clpy`` file): the parsed arguments go
+   through ``cli.coolpup_cli.pileup_from_args`` with the map in memory.
+   (a) Every flag set of ``CLI_FLAG_SETS`` on the toy map, its features,
+   BEDPE rows, TADs, view and expected table written as files (BED with
+   and without a header line, BED from standard input, BEDPE, an expected
+   column by name, strand, distance with and without edges, groupby over
+   BED columns, flipped strands, by-window, trans, stripes, local rescale,
+   coverage, emitted expected, unbalanced) with ``--device cuda`` and
+   ``--device cpu``: compared as in 5a, the same output name, the route the
+   card took (``cuda_kernel``, ``rescale_torch`` for the rescaled set);
+   ``CLI_REFUSED``'s set (an expected column by index) must be refused on
+   both alike. Then a ``.txt`` round trip of one ``all`` row: the array
+   bit for bit, the header equal. (b) ``bench.py --engine``'s cell through
+   the CLI's flags (``CLI_ENGINE_ARGS``): the engine map's 20,000 sites and
+   its view written as BED files, a 1,000-site warm-up, then without and
+   with an expected file (the map's ``expected_cis``, written as TSV) a
+   checked run that must launch the staged kernel (profiled: the busy
+   share), the plain-swapped run and ``pileup()`` called with the keywords
+   the CLI resolved (counts exact, ``data`` rtol 1e-4), two timed runs (CLI
+   snips/s over the wall from entering ``pileup_from_args`` to its return,
+   the engine's phase breakdown, the seconds of each file read) and the
+   kernel's time beside its bound.
 
+Phases 5-9 share the engine map (``bench_cooler`` builds it once a run).
 Any failure raises and exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel JSON
 record, and the one before that the card's name and power limit.
@@ -123,12 +148,15 @@ record, and the one before that the card's name and power limit.
 
 from __future__ import annotations
 
+import copy
 import importlib
 import importlib.util
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1311,12 +1339,24 @@ def check_engine_modes(dev):
               f"route {got['accumulate'].iloc[0]}, max_abs_err {err:.3g} ok")
 
 
+# bench_cooler's maps of this run: (generator state before, sizes) ->
+# (Cooler, generator state after)
+BENCH_MAPS = {}
+
+
 def bench_cooler(rng, n_bins=20_000, n_contacts=12_000_000, binsize=10_000):
     """The synthetic chromosome of ``bench.py``'s engine-level benches
     (``bench_engine``, ``_bench_cooler``), drawn from ``rng`` with their
     RNG calls, as an in-memory Cooler: zipf(1.35) distances, Poisson(3)+1
-    counts, 3% NaN-weight bins."""
+    counts, 3% NaN-weight bins. The phases share one map: a later call from
+    the same generator state returns the Cooler built first and leaves
+    ``rng`` where drawing it would have."""
     from coolpuppy_tpu_torch import Cooler
+
+    key = (repr(rng.bit_generator.state), n_bins, n_contacts, binsize)
+    if key in BENCH_MAPS:
+        clr, rng.bit_generator.state = BENCH_MAPS[key]
+        return clr
 
     d = rng.zipf(1.35, 2 * n_contacts)
     d = d[d < n_bins][:n_contacts]
@@ -1326,8 +1366,10 @@ def bench_cooler(rng, n_bins=20_000, n_contacts=12_000_000, binsize=10_000):
     keep = i <= j
     weights = rng.uniform(0.5, 1.5, n_bins)
     weights[rng.random(n_bins) < 0.03] = np.nan
-    return Cooler.from_arrays({"chr1": n_bins * binsize}, binsize,
-                              (i[keep], j[keep], vals[keep]), weights=weights)
+    clr = Cooler.from_arrays({"chr1": n_bins * binsize}, binsize,
+                             (i[keep], j[keep], vals[keep]), weights=weights)
+    BENCH_MAPS[key] = (clr, rng.bit_generator.state)
+    return clr
 
 
 def engine_workload(n_sites=20_000, n_bins=20_000, n_contacts=12_000_000,
@@ -2421,7 +2463,323 @@ def check_bedpe_by_window(dev, sync, card, clr, shapes=None, n_sites=None):
     return launches
 
 
-PHASES = (3, 4, 5, 6, 7, 8)
+# phase 9: the coolpup-torch CLI (``cli/coolpup_cli.pileup_from_args``).
+# 9a: its flag sets on the toy map, card against CPU. Each set is the
+# features argument and its flags; CLI_TOY_ARGS follow them. "{name}" is a
+# file of write_cli_inputs, and "-" reads the BED file from standard input.
+# The toy's windows are 5 bins wide, so every set but the rescaled one
+# takes the quad kernel on the card (CLI_ROUTES)
+CLI_TOY_ARGS = ("--view", "{regions}", "--flank", "2000000", "--mindist",
+                "0", "--seed", "0")
+CLI_FLAG_SETS = {
+    "bed": ("{bed}",),
+    "bed_header": ("{bed_header}",),
+    "bedpe": ("{bedpe}", "--features_format", "bedpe"),
+    "stdin": ("-", "--features_format", "bed"),
+    "by_strand": ("{bed}", "--by_strand", "--nshifts", "1"),
+    "expected_column": ("{bed}", "--expected", "{expected}::balanced.avg"),
+    "expected_index": ("{bed}", "--expected", "{expected}::6"),
+    "by_distance": ("{bed}", "--by_distance"),
+    "by_distance_edges": ("{bed}", "--by_distance", "0", "4000000",
+                          "50000000"),
+    "groupby": ("{bed}", "--groupby", "name1", "name2"),
+    "flip_negative_strand": ("{bed}", "--flip_negative_strand",
+                             "--by_strand"),
+    "by_window": ("{bed}", "--by_window"),
+    "trans": ("{bed}", "--trans"),
+    "store_stripes": ("{bed}", "--store_stripes"),
+    "local_rescale": ("{tads}", "--local", "--rescale", "--rescale_size",
+                      "9"),
+    "coverage_norm": ("{bed}", "--coverage_norm", "--clr_weight_name"),
+    "not_ooe": ("{bed}", "--expected", "{expected}", "--not_ooe"),
+    "unbalanced": ("{bed}", "--clr_weight_name", "--nshifts", "2"),
+}
+CLI_ROUTES = {"local_rescale": "rescale_torch"}
+# sets that both packages refuse, with the error: ``validate_csv`` turns a
+# column index into an int that ``read_expected_from_file`` then looks up
+# as a column name (the JAX package does the same)
+CLI_REFUSED = {"expected_index": "expected lacks value column 6"}
+# 9b: bench.py --engine's cell (ENGINE_KW) through the CLI's flags, without
+# and with an expected file
+CLI_ENGINE_ARGS = ("--flank", "100000", "--maxdist", "2000000", "--nshifts",
+                   "1", "--seed", "0", "--by_strand")
+CLI_REPEATS = 2
+# the functions of cli/coolpup_cli.py that read the features, view and
+# expected files
+CLI_READERS = ("_read_features", "read_viewframe_from_file",
+               "read_expected_from_file")
+
+
+def write_cli_inputs(d, clr, dense, weights):
+    """Write the inputs of CLI_FLAG_SETS for the toy map into directory
+    ``d``: the toy features (names alternating "a" and "b", distinct scores)
+    as BED without and with a header line, the toy BEDPE rows, the toy TADs,
+    the toy view and its expected table (TSV). Returns the paths by name;
+    ``cool`` names the map (held in memory, not written)."""
+    paths = {name: os.path.join(d, f) for name, f in (
+        ("cool", "toy.cool"), ("bed", "features.bed"),
+        ("bed_header", "features_header.bed"), ("bedpe", "loops.bedpe"),
+        ("tads", "tads.bed"), ("regions", "regions.bed"),
+        ("expected", "expected.tsv"))}
+    feats = toy_features().assign(name=["a", "b"] * 3, score=np.arange(6))
+    bed = dict(sep="\t", header=False, index=False)
+    feats.to_csv(paths["bed"], **bed)
+    feats.to_csv(paths["bed_header"], sep="\t", index=False)
+    toy_bedpe().to_csv(paths["bedpe"], **bed)
+    toy_tads().to_csv(paths["tads"], **bed)
+    toy_regions().to_csv(paths["regions"], **bed)
+    toy_expected(clr, dense, weights, toy_regions()).to_csv(
+        paths["expected"], sep="\t", index=False)
+    return paths
+
+
+def cli_argv(name, paths):
+    """The coolpup-torch arguments of one CLI_FLAG_SETS entry."""
+    features, *flags = CLI_FLAG_SETS[name]
+    return [a.format(**paths)
+            for a in ("{cool}", features, *flags, *CLI_TOY_ARGS)]
+
+
+def cli_pileup(argv, clr, stdin_path=None):
+    """``pileup_from_args`` on the parsed ``argv`` and ``clr``: ``(pups,
+    outname)``. Features given as "-" are read from ``stdin_path``."""
+    from coolpuppy_tpu_torch.cli.coolpup_cli import (
+        parse_args_coolpuppy,
+        pileup_from_args,
+    )
+
+    args = parse_args_coolpuppy().parse_args(argv)
+    if args.features != "-":
+        return pileup_from_args(args, clr)
+    stdin = sys.stdin
+    with open(stdin_path) as f:
+        sys.stdin = f
+        try:
+            return pileup_from_args(args, clr)
+        finally:
+            sys.stdin = stdin
+
+
+def check_cli_toy(dev):
+    """Phase 9a: every CLI_FLAG_SETS entry through ``pileup_from_args`` on
+    the toy map with ``--device`` the card and with ``--device cpu``:
+    ``compare_tables`` as in 5a, the same output name, and the route the
+    card took; then a ``.txt`` round trip of one ``all`` row."""
+    from coolpuppy_tpu_torch.io import (
+        load_array_with_header,
+        save_array_with_header,
+    )
+
+    clr, dense, weights = toy_cooler()
+    with tempfile.TemporaryDirectory() as d:
+        paths = write_cli_inputs(d, clr, dense, weights)
+        clr.filename = paths["cool"]
+        tables = {}
+        for name in CLI_FLAG_SETS:
+            argv = cli_argv(name, paths)
+            if name in CLI_REFUSED:
+                for device in (str(dev), "cpu"):
+                    try:
+                        cli_pileup(argv + ["--device", device], clr)
+                    except ValueError as e:
+                        if str(e) != CLI_REFUSED[name]:
+                            raise
+                    else:
+                        raise AssertionError(f"cli {name}: accepted on "
+                                             f"{device}")
+                print(f"cli {name}: refused on both devices "
+                      f"({CLI_REFUSED[name]!r}) ok")
+                continue
+            got, got_name = cli_pileup(argv + ["--device", str(dev)], clr,
+                                       paths["bed"])
+            want, want_name = cli_pileup(argv + ["--device", "cpu"], clr,
+                                         paths["bed"])
+            err = compare_tables(got, want, what=f"cli {name}",
+                                 **ENGINE_MODES_TOL)
+            if got_name != want_name:
+                raise AssertionError(f"cli {name}: output names {got_name} "
+                                     f"!= {want_name}")
+            route = got["accumulate"].iloc[0]
+            want_route = CLI_ROUTES.get(name, "cuda_kernel")
+            if dev.type == "cuda" and route != want_route:
+                raise AssertionError(f"cli {name}: route {route}, not "
+                                     f"{want_route}")
+            print(f"cli {name}: {len(got)} rows, n {list(got['n'])}, route "
+                  f"{route}, max_abs_err {err:.3g}, output {got_name} ok")
+            tables[name] = got
+        row = all_row(tables["groupby"])
+        header = {k: row[k] for k in ("n", "flank", "resolution", "nshifts",
+                                      "local", "maxdist", "clr_weight_name",
+                                      "cooler", "features", "groupby")}
+        path = os.path.join(d, "all.txt")
+        save_array_with_header(row["data"], header, path)
+        back = load_array_with_header(path)
+        data = back.pop("data")
+        if not (data.dtype == row["data"].dtype
+                and np.array_equal(data, row["data"], equal_nan=True)):
+            raise AssertionError("cli .txt round trip: the array differs")
+        if back != header:
+            raise AssertionError(f"cli .txt round trip: header {back} != "
+                                 f"{header}")
+        print(f"cli .txt round trip of the groupby all row: array bit for "
+              f"bit, header of {len(header)} keys equal ok")
+
+
+class cli_probe:
+    """During a block, record what ``pileup_from_args`` does: the keywords
+    it passes to ``pileup()`` (``pileup_kw``), the ``PileUpper`` that
+    ``pileup()`` builds (``pileupper``, for its phase timers) and the
+    seconds spent in each of the CLI's file readers (``read_s``)."""
+
+    def __enter__(self):
+        cli = importlib.import_module("coolpuppy_tpu_torch.cli.coolpup_cli")
+        engine = importlib.import_module(engine_patch.MODULE)
+        self.saved = [(cli, name, getattr(cli, name))
+                      for name in (*CLI_READERS, "pileup")]
+        self.saved.append((engine, "PileUpper", engine.PileUpper))
+        self.read_s = dict.fromkeys(CLI_READERS, 0.0)
+        probe = self
+
+        def reader(name, fn):
+            def timed_read(*args, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    probe.read_s[name] += time.perf_counter() - t0
+            return timed_read
+
+        inner_pileup = cli.pileup
+
+        def recording_pileup(**kw):
+            probe.pileup_kw = kw
+            return inner_pileup(**kw)
+
+        class RecordedPileUpper(engine.PileUpper):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, **kw)
+                probe.pileupper = self
+
+        for name in CLI_READERS:
+            setattr(cli, name, reader(name, getattr(cli, name)))
+        cli.pileup = recording_pileup
+        engine.PileUpper = RecordedPileUpper
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, value in self.saved:
+            setattr(module, name, value)
+
+
+def cli_snips(pups):
+    """ROI n + control_n of the 'all' orientation (``engine_snips``; no
+    control_n without controls)."""
+    row = pups.loc[pups["orientation"] == "all"].iloc[0]
+    return int(row["n"]) + (int(row["control_n"])
+                            if "control_n" in pups.columns else 0)
+
+
+def check_cli_cell(what, argv, clr, dev, sync, card, shapes=None):
+    """One 9b variant: a checked run of ``argv`` through ``pileup_from_args``
+    that must launch the staged kernel (profiled: the busy share), held
+    against the plain-swapped run and against ``pileup()`` called with the
+    keywords the CLI resolved (counts exact, ``data`` rtol 1e-4); timed
+    runs (the wall from entering ``pileup_from_args`` to its return, with
+    the file reads in it), the seconds of the file reads and the kernel's
+    time beside its bound. Returns the checked run's launches."""
+    from coolpuppy_tpu_torch import pileup
+
+    def run():
+        return cli_pileup(argv, clr)[0]
+
+    # the checked run is also the profiled one (the busy share)
+    checked = {}
+    with cli_probe() as probe:
+        prof = profile_run(
+            lambda: checked.update(run=kernel_run(what, run, dev)), sync)
+    checked, launches, calls, t = checked["run"]
+    n_snips = cli_snips(checked)
+    data = np.stack(checked["data"].to_list())
+    if data.shape[1:] != (21, 21) or not np.isfinite(data).any():
+        raise AssertionError(f"{what} output: shape {data.shape}")
+    print(f"{what} checked run: {n_snips} snips, {len(checked)} rows "
+          f"({list(checked['orientation'])}), launches {launches}, route "
+          f"{checked['accumulate'].iloc[0]}, {t:.2f} s (profiled)")
+    print(f"{what} device busy share of that run: " + prof["text"])
+    plain = plain_swapped(what, run)
+    err = compare_tables(checked, plain, rtol=ENGINE_RTOL, atol=1e-7,
+                         what=f"{what} kernel vs plain")
+    print(f"{what} kernel vs plain (whole run): n/control_n/num exact, data "
+          f"max_abs_err {err:.3g} (rtol {ENGINE_RTOL}) ok")
+    del plain
+    t, direct = timed(lambda: pileup(**probe.pileup_kw), sync)
+    err = compare_tables(checked, direct, rtol=ENGINE_RTOL, atol=1e-7,
+                         what=f"{what} vs pileup()")
+    print(f"{what} vs pileup() with the keywords the CLI resolved ("
+          f"{t:.2f} s): n/control_n/num exact, data max_abs_err {err:.3g} "
+          f"(rtol {ENGINE_RTOL}) ok")
+    del direct, probe
+    reads = []
+
+    def run_timed():
+        with cli_probe() as probe:
+            pups = run()
+        reads.append(probe.read_s)
+        return probe.pileupper, pups
+
+    timed_runs(what, run_timed, CLI_REPEATS, n_snips, sync, card, cli_snips)
+    print(f"{what} file reads (s, per timed run): " + json.dumps(
+        [{k.strip("_"): round(v, 5) for k, v in r.items()} for r in reads]))
+    rec = shape_record(what, calls, prof["kernel_ms"], launches, card)
+    if shapes is not None:
+        shapes[what.replace(" ", "_")] = rec
+    return launches
+
+
+def check_cli(dev, sync, card, shapes=None, workload=None):
+    """Phase 9b: bench.py --engine's cell through ``pileup_from_args`` at
+    full size: the sites and the map's view written as BED files, a
+    1,000-site warm-up, then ``check_cli_cell`` without and with an
+    expected file (``expected_cis`` of the map, written as TSV). Returns
+    the checked runs' launches by variant."""
+    from coolpuppy_tpu_torch.expected import expected_cis
+    from coolpuppy_tpu_torch.genomics.intervals import make_cooler_view
+
+    t, (clr, feats) = timed(workload or engine_workload, lambda: None)
+    print(f"cli workload: {clr.n_bins} bins, {clr.n_pixels} pixels, "
+          f"{len(feats)} sites in {t:.1f} s")
+    clr = copy.copy(clr)  # the map another phase may hold, named here
+    launches = {}
+    with tempfile.TemporaryDirectory() as d:
+        clr.filename = os.path.join(d, "engine.cool")
+        sites, warm, views, exp = (os.path.join(d, f) for f in (
+            "sites.bed", "warmup.bed", "views.bed", "expected.tsv"))
+        bed = dict(sep="\t", header=False, index=False)
+        feats.to_csv(sites, **bed)
+        feats.iloc[:ENGINE_WARMUP_SITES].to_csv(warm, **bed)
+        # with its header line: the CLI's header sniffing (both packages')
+        # takes the one line of a one-region view without it for a header
+        view = make_cooler_view(clr)
+        view.to_csv(views, sep="\t", index=False)
+        t, expected = timed(lambda: expected_cis(clr, view), lambda: None)
+        expected.to_csv(exp, sep="\t", index=False)
+        print(f"cli inputs: {len(feats)} sites, {len(view)} view regions, "
+              f"expected_cis {len(expected)} rows in {t:.2f} s")
+        tail = ["--view", views, *CLI_ENGINE_ARGS, "--device", str(dev)]
+        t, pups = timed(lambda: cli_pileup([clr.filename, warm, *tail],
+                                           clr)[0], sync)
+        print(f"cli warm-up ({ENGINE_WARMUP_SITES} sites): "
+              f"{cli_snips(pups)} snips in {t:.2f} s")
+        for variant, extra in (("controls", []),
+                               ("expected", ["--expected",
+                                             f"{exp}::balanced.avg"])):
+            launches[variant] = check_cli_cell(
+                f"cli {variant}", [clr.filename, sites, *tail, *extra], clr,
+                dev, sync, card, shapes)
+    return launches
+
+
+PHASES = (3, 4, 5, 6, 7, 8, 9)
 
 
 def parse_phases(argv):
@@ -2503,10 +2861,19 @@ def main(argv=None):
     record = dict(KERNEL, launches=None, max_abs_err=None, ms=None,
                   plain_ms=None, bound_ms=None, bound_by=None,
                   library_ms=None, shapes={})
+    # each phase's seconds, printed as it ends: the script must stay well
+    # inside the time limit as phases are added
+    mark = [time.perf_counter()]
+
+    def phase_done(n):
+        now = time.perf_counter()
+        print(f"phase {n}: {now - mark[0]:.1f} s")
+        mark[0] = now
 
     # -- 3. kernel vs plain at small shapes -------------------------------
     if 3 in phases:
         check_kernels(dev, sync)
+        phase_done(3)
 
     # -- 4. the slice at the headline size --------------------------------
     if 4 in phases:
@@ -2517,24 +2884,28 @@ def main(argv=None):
         record = check_slice(dev, sync, workload, card)
         check_sweep(dev, sync, workload, card)
         del workload, coo, r1
+        phase_done(4)
 
     # -- 5. the engine: pileup() modes, then bench_engine's size ----------
     if 5 in phases:
         check_engine_modes(dev)
         record["engine_launches"] = check_engine(dev, sync, card,
                                                  record["shapes"])
+        phase_done(5)
 
     # -- 6. the 2D modes: toy map, then bench.py --modes' cells ---------
     if 6 in phases:
         check_modes_2d(dev)
         record["modes_launches"] = check_modes(dev, sync, card,
                                                record["shapes"])
+        phase_done(6)
 
     # -- 7. rescale and W > 120: toy map, then the two cells -------------
     if 7 in phases:
         check_rescale_wide_toy(dev)
         check_rescale_cell(dev, sync, card)
         check_wide_cell(dev, sync, card)
+        phase_done(7)
 
     # -- 8. the extension hooks: toy map, bench_extension, BEDPE windows --
     if 8 in phases:
@@ -2547,6 +2918,13 @@ def main(argv=None):
                                                      record["shapes"]),
         }
         del clr
+        phase_done(8)
+
+    # -- 9. the coolpup-torch CLI: toy flag sets, then the engine cell ------
+    if 9 in phases:
+        check_cli_toy(dev)
+        record["cli_launches"] = check_cli(dev, sync, card, record["shapes"])
+        phase_done(9)
 
     # -- result -----------------------------------------------------------
     print(card)

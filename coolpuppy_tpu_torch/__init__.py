@@ -7,27 +7,32 @@ strand, distance or window, with stripes, rescaling and the reference's
 extension hooks, with the quad gather-accumulate written by hand in CUDA
 C++ for Hopper (``csrc/``). What a hook author needs is in ``lib``:
 ``lib.puputils.accumulate_values`` and ``group_by_region_frame``,
-``lib.numutils.get_domain_score``. File formats, plotting and the command
-line tools are not ported yet.
+``lib.numutils.get_domain_score``. Around it, as in the JAX package: the
+file formats in ``io`` (BED/BEDPE/expected tables, ``.clpy`` pileups,
+``.txt`` arrays, ``write_cool``), ``plotting`` and the three command line
+tools in ``cli`` (``coolpup-torch``, ``plotpup-torch``, ``dividepups-torch``).
+``.cool`` and ``.clpy`` files are read and written through h5py, imported
+inside those functions; matplotlib is imported by ``plotting`` and
+``cli.plotpup_cli`` alone. The pileup itself needs neither.
 
 Importing the package has no side effects: no allocator or thread tuning,
 no kernel build. The kernel is compiled at its first launch on a CUDA
 tensor (``kernels/build.py``).
 """
 
-__version__ = "0.3.0"
+from ._version import __version__  # noqa: F401
 
-from .coords import CoordCreator  # noqa: E402,F401
-from .engine import PileUpper, pileup  # noqa: E402,F401
-from .io import Cooler  # noqa: E402,F401
-from .ops.gather import merge_flip_banks  # noqa: E402,F401
-from .ops.quad_gather import (  # noqa: E402,F401
+from .coords import CoordCreator  # noqa: F401
+from .engine import PileUpper, pileup  # noqa: F401
+from .io import Cooler  # noqa: F401
+from .ops.gather import merge_flip_banks  # noqa: F401
+from .ops.quad_gather import (  # noqa: F401
     QuadPileupSession,
     quad_accumulate,
     quad_accumulate_plain,
     run_quad_pileup,
 )
-from .ops.tiles import (  # noqa: E402,F401
+from .ops.tiles import (  # noqa: F401
     SymTileStack,
     TileStack,
     build_tile_stack,

@@ -42,6 +42,11 @@ setup(
             "coolpup.py = coolpuppy_tpu.cli.coolpup_cli:main",
             "plotpup.py = coolpuppy_tpu.cli.plotpup_cli:main",
             "dividepups.py = coolpuppy_tpu.cli.dividepups_cli:main",
+            # the PyTorch/CUDA port's tools (run on the card unless given
+            # --device cpu)
+            "coolpup-torch = coolpuppy_tpu_torch.cli.coolpup_cli:main",
+            "plotpup-torch = coolpuppy_tpu_torch.cli.plotpup_cli:main",
+            "dividepups-torch = coolpuppy_tpu_torch.cli.dividepups_cli:main",
         ]
     },
 )

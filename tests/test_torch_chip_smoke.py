@@ -1,5 +1,5 @@
 """CPU rehearsals of ``chip_smoke.py``'s phases at a tiny size (5b, 6b, 7b/7c,
-3, 4, 8a-8c): the same control flow, checks and timing lines, with
+3, 4, 8a-8c, 9a/9b): the same control flow, checks and timing lines, with
 ``quad_accumulate`` swapped for a plain version that counts its calls as
 launches (the CUDA kernel cannot run here)."""
 
@@ -249,9 +249,10 @@ def test_extension_phase_rehearsal(monkeypatch, capsys):
 
 
 def test_phases_option():
-    assert chip_smoke.parse_phases([]) == {3, 4, 5, 6, 7, 8}
+    assert chip_smoke.parse_phases([]) == {3, 4, 5, 6, 7, 8, 9}
     assert chip_smoke.parse_phases(["--phases", "1,2,8"]) == {1, 2, 8}
-    for bad in ("9", "x", "", "1,2", ","):
+    assert chip_smoke.parse_phases(["--phases", "9"]) == {9}
+    for bad in ("10", "x", "", "1,2", ","):
         try:
             chip_smoke.parse_phases(["--phases", bad])
         except SystemExit as e:
@@ -274,3 +275,48 @@ def test_engine_phase_rehearsal(monkeypatch, capsys):
     out = capsys.readouterr().out
     assert "engine kernel vs plain (whole run)" in out
     assert "engine timing: wall_s" in out and "engine snips/s:" in out
+
+
+def test_cli_phase_rehearsal(monkeypatch, capsys):
+    """Phase 9 on the CPU: every CLI flag set of 9a (card and CPU sides
+    both the plain version here) with the ``.txt`` round trip, then 9b at a
+    tiny size: 200 sites on a 1,500-bin map, without and with an expected
+    file, each side of it held against the plain-swapped run and the direct
+    ``pileup()`` call, with timings, file reads and the kernel's bound."""
+    chip_smoke.check_cli_toy(torch.device("cpu"))
+    out = capsys.readouterr().out
+    for name in chip_smoke.CLI_FLAG_SETS:
+        line = next(ln for ln in out.splitlines()
+                    if ln.startswith(f"cli {name}: "))
+        assert line.endswith(" ok"), line
+    assert "cli expected_index: refused on both devices" in out
+    assert ("cli local_rescale: 1 rows, n [4], route rescale_torch" in out)
+    assert "cli .txt round trip of the groupby all row" in out
+
+    _counted_plain(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "ENGINE_WARMUP_SITES", 50)
+    shapes = {}
+    launches = chip_smoke.check_cli(
+        torch.device("cpu"), lambda: None, "cpu rehearsal", shapes,
+        workload=lambda: chip_smoke.engine_workload(
+            n_sites=200, n_bins=1_500, n_contacts=150_000))
+    assert launches == {"controls": 1, "expected": 1}
+    # controls double the groups and add their snips; the expected file
+    # run has none (nshifts 0)
+    ctrl, exp = shapes["cli_controls"], shapes["cli_expected"]
+    assert (ctrl["C"], exp["C"]) == (16, 8)
+    assert ctrl["snips"] > exp["snips"] > 0
+    out = capsys.readouterr().out
+    for variant in ("controls", "expected"):
+        what = f"cli {variant}"
+        assert f"{what} checked run: " in out
+        assert f"{what} device busy share of that run: " in out
+        assert f"{what} kernel vs plain (whole run): " in out
+        assert f"{what} vs pileup() with the keywords the CLI resolved" in out
+        assert f"{what} timing: wall_s" in out
+        assert f"{what} snips/s: " in out
+        assert f"{what} file reads (s, per timed run): " in out
+        assert f"{what} kernel bound: " in out
+    reads = [ln for ln in out.splitlines() if "file reads" in ln]
+    assert '"read_expected_from_file": 0.0}' in reads[0]
+    assert '"read_expected_from_file": 0.0}' not in reads[1]

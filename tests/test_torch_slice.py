@@ -1,8 +1,9 @@
 """The port's whole loop-APA slice against the JAX package's, on the CPU:
 a SymTileStack with flips (cid = gid + half*flip) through the session,
-finalize and merge_flip_banks; the same slice and the engine's pileup()
-(cis by strand, and trans) on an in-memory cooler in a process where jax,
-coolpuppy_tpu and h5py cannot be imported; and a source scan for such
+finalize and merge_flip_banks; the same slice, the engine's pileup()
+(cis by strand, and trans) and the coolpup CLI's pileup_from_args on an
+in-memory cooler in a process where jax, coolpuppy_tpu, h5py and matplotlib
+cannot be imported (as on the card's machine); and a source scan for such
 imports."""
 
 import ast
@@ -99,6 +100,7 @@ import sys
 sys.modules["jax"] = None
 sys.modules["coolpuppy_tpu"] = None
 sys.modules["h5py"] = None
+sys.modules["matplotlib"] = None
 import numpy as np
 from scipy import sparse as sp
 import coolpuppy_tpu_torch as P
@@ -139,7 +141,26 @@ assert bh["accumulate"].iloc[0] == "batch_hook" and len(bh["center"].iloc[0]) ==
 ds = hook_mode_table("snip_domain_score", _clr, _dense, _weights, "cpu")
 assert ds["accumulate"].iloc[0] == "host_stream"
 assert all(np.isfinite(ds["domain_score"].iloc[0]))
-blocked = ("jax", "coolpuppy_tpu", "h5py")
+# the file formats and the two CLIs that need no plotting import, and
+# coolpup's pileup from BED, view and expected files runs on the toy map
+import os, tempfile
+import coolpuppy_tpu_torch.io
+import coolpuppy_tpu_torch.cli.dividepups_cli
+from coolpuppy_tpu_torch.cli.coolpup_cli import (parse_args_coolpuppy,
+                                                 pileup_from_args)
+from chip_smoke import cli_argv, write_cli_inputs
+with tempfile.TemporaryDirectory() as d:
+    paths = write_cli_inputs(d, _clr, _dense, _weights)
+    _clr.filename = paths["cool"]
+    for name, n in (("by_strand", [3, 1, 1, 6, 1]), ("expected_column", [6])):
+        args = parse_args_coolpuppy().parse_args(cli_argv(name, paths)
+                                                 + ["--device", "cpu"])
+        cp, outname = pileup_from_args(args, _clr)
+        assert list(cp["n"]) == n, (name, list(cp["n"]))
+        assert outname.startswith("toy.cool-1000.0K_over_features_")
+        assert cp["features"].iloc[0] == paths["bed"]
+        assert np.isfinite(cp["data"].iloc[-1]).any()
+blocked = ("jax", "coolpuppy_tpu", "h5py", "matplotlib")
 loaded = sorted(m for m, v in sys.modules.items()
                 if v is not None and m.split(".")[0] in blocked)
 assert not loaded, loaded
@@ -175,14 +196,19 @@ def _top_level_imports(path):
 
 def test_port_sources_import_no_jax_and_no_reference():
     """No jax and no coolpuppy_tpu anywhere in the port; h5py (absent on
-    the card's machine) only inside functions."""
+    the card's machine) only inside functions; matplotlib (absent there
+    too) only in plotting.py and cli/plotpup_cli.py."""
     files = sorted((REPO / "coolpuppy_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
-    assert len(files) >= 19
+    assert len(files) >= 30
+    plotters = {REPO / "coolpuppy_tpu_torch" / "plotting.py",
+                REPO / "coolpuppy_tpu_torch" / "cli" / "plotpup_cli.py"}
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
             assert top != "jax", f"{f} imports {mod}"
             assert top != "coolpuppy_tpu", f"{f} imports {mod}"
+            if f not in plotters:
+                assert top != "matplotlib", f"{f} imports {mod}"
         for mod in _top_level_imports(f):
             assert mod.split(".")[0] != "h5py", f"{f} imports {mod} at top"
