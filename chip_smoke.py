@@ -1,8 +1,8 @@
 """Drive the PyTorch/CUDA port's loop-APA path, its ``pileup()`` engine in
-all its modes and its ``coolpup-torch`` command line tool once on one NVIDIA
-GPU.
+all its modes, its ``coolpup-torch`` command line tool and its genome-wide
+many-region path once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 4,8,9]
+    python3 chip_smoke.py [--phases 4,8,10]
 
 Run from the root of a checkout on a machine with a CUDA device, ``nvcc``
 and PyTorch built for CUDA. It needs no network and no JAX. With no
@@ -140,7 +140,27 @@ measured). Phases, each printing its lines and, as it ends, its seconds:
    the engine's phase breakdown, the seconds of each file read) and the
    kernel's time beside its bound.
 
-Phases 5-9 share the engine map (``bench_cooler`` builds it once a run).
+10. the genome cell (``bench.py:866`` ``bench_genome``): 20 chromosomes of
+   13,500 bins at 10 kb, 7.5M zipf contacts each, 3% NaN-weight bins,
+   37,000 stranded sites, ``pileup(flank=100_000, maxdist=2_000_000,
+   nshifts=10, seed=0, by_strand=True)``, built in memory with bench's RNG
+   calls (``genome_workload``): the many-region path, whose regions are
+   staged by the prefetch threads and accumulated by streams. First the
+   native host ingest against its numpy branches at full size, with the
+   seconds of both (``check_native``: ``tile_scatter_wtri`` on a genome
+   chromosome's band tiles and on the engine map's slab, the two-pass
+   quad sort on the engine cell's words from a collected run,
+   ``enumerate_pairs`` on a chromosome's sites), and the torch and native
+   thread counts with the OpenMP runtimes loaded. Then a warm-up on one
+   chromosome's sites, a checked and profiled run that must stream every
+   region (``stream_regions`` 20, ``stream_aborts`` 0) and launch the staged
+   kernel once a chunk (``stream_chunks``), the plain-swapped run and the
+   collected-path run (counts exact, ``data`` rtol 1e-4), two timed runs
+   with their phases, the phases' sum and the counts, the busy share, and
+   the kernel's bound for the whole run and for the stream's largest
+   chunk.
+
+Phases 5-10 share the engine map (``bench_cooler`` builds it once a run).
 Any failure raises and exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel JSON
 record, and the one before that the card's name and power limit.
@@ -373,6 +393,17 @@ EXTENSION_CPU_SITES = 1_000
 BEDPE_WINDOW_SITES = 5_000
 BEDPE_WINDOW_KW = dict(flank=100_000, maxdist=2_000_000)
 
+# phase 10: bench.py:866 bench_genome (its pileup() arguments); the native
+# entries' runs each and their tolerance against the numpy branches
+GENOME_KW = dict(features_format="bed", flank=100_000, maxdist=2_000_000,
+                 nshifts=10, seed=0, by_strand=True)
+NATIVE_RUNS = 2
+# the native scatter adds float32 in input order where the numpy branch
+# sums in float64: near the diagonal of bench's zipf maps a cell holds
+# hundreds of duplicate contacts, whose float32 sum drifts by a few 1e-6
+# (4.3e-6 on the genome map, NVIDIA H100 host)
+NATIVE_RTOL = 1e-5
+
 
 def smi_line():
     """The card's name and power limit, as nvidia-smi prints them."""
@@ -596,29 +627,72 @@ def check_kernels(dev, sync):
 
 
 def kernel_bound(calls):
-    """The least time the card could take for ``calls`` (one dict of
-    ``tiles``, ``items``, ``snips``, ``W``, ``C`` per launch): the bytes the
-    function must move (the stack, the snip words and the item arrays read
-    once, float32 ``sum`` and int32 ``num`` written once) over the card's
-    memory rate, against one float add per window pixel over its float32
-    rate. Returns ``(ms, "bytes" or "operations", bytes, operations)``."""
-    nbytes = sum(4 * c["tiles"] * B * B + 4 * c["snips"] + 24 * c["items"]
-                 + 8 * c["C"] * c["W"] ** 2 for c in calls)
+    """The least time the card could take for ``calls`` (one ``call_shape``
+    record per launch): the bytes the function must move on these inputs
+    (the stack pixels its windows cover, the snip words and the item arrays
+    read once, float32 ``sum`` and int32 ``num`` of the groups it adds to
+    written once) over the card's memory rate, against one float add per
+    window pixel over its float32 rate. Returns ``(ms, "bytes" or
+    "operations", bytes, operations)``."""
+    nbytes = sum(4 * c["pixels"] + 4 * c["snips"] + 24 * c["items"]
+                 + 8 * c["groups"] * c["W"] ** 2 for c in calls)
     ops = sum(c["snips"] * c["W"] ** 2 for c in calls)
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_FLOPS
     by = "bytes" if t_bytes >= t_ops else "operations"
     return 1e3 * max(t_bytes, t_ops), by, nbytes, ops
 
 
+def covered_pixels(k, qstart, qcount, snips, W, block=2048):
+    """The stack pixels the windows of a ``quad_accumulate`` call cover,
+    each counted once: per work item its window starts marked in a B x B
+    grid and spread by a W x W max-pool over the (B + W - 1)^2 corner they
+    reach, then added into a bitmap of the stack through the item's four
+    tile slots."""
+    import torch
+    import torch.nn.functional as F
+
+    dev = k.device
+    if k.shape[0] == 0:
+        return 0
+    flag = torch.zeros((int(k.max()) + 1, B, B), device=dev)
+    qstart, qcount = qstart.long(), qcount.long()
+    S = B + W - 1
+    for lo in range(0, k.shape[0], block):
+        hi = min(lo + block, k.shape[0])
+        cnt = qcount[lo:hi]
+        item = torch.repeat_interleave(torch.arange(hi - lo, device=dev), cnt)
+        first = torch.cumsum(cnt, 0) - cnt
+        pos = qstart[lo:hi][item] + torch.arange(len(item), device=dev) \
+            - first[item]
+        w = snips[pos].long()
+        marks = torch.zeros((hi - lo, B, B), device=dev)
+        marks[item, w >> 24, (w >> 17) & 0x7F] = 1.0
+        cov = F.max_pool2d(F.pad(marks[:, None], (W - 1,) * 4), W, stride=1)
+        quad = torch.zeros((hi - lo, 2 * B, 2 * B), device=dev)
+        quad[:, :S, :S] = cov[:, 0]
+        for j, (r, c) in enumerate(((0, 0), (0, B), (B, 0), (B, B))):
+            flag.index_add_(0, k[lo:hi, j].long(),
+                            quad[:, r:r + B, c:c + B].contiguous())
+    return int((flag > 0).sum())
+
+
 def call_shape(stiles, k, qstart, qcount, snips, W, C):
-    """The ``kernel_bound`` record of one ``quad_accumulate`` call."""
-    return dict(tiles=int(stiles.shape[0]), items=int(k.shape[0]),
+    """The ``kernel_bound`` record of one ``quad_accumulate`` call: the
+    stack pixels its windows cover and the groups it adds to, with its
+    stack tiles, items, snips, W and C."""
+    import torch
+
+    return dict(pixels=covered_pixels(k, qstart, qcount, snips, int(W)),
+                groups=int(torch.unique(snips & 0x1FFFF).numel()),
+                tiles=int(stiles.shape[0]), items=int(k.shape[0]),
                 snips=int(snips.shape[0]), W=int(W), C=int(C))
 
 
 class launch_shapes:
-    """Record the shape of every ``quad_accumulate`` call made during a
-    block (``calls``), for the kernel's bound on that run's own inputs."""
+    """Record the arguments of every ``quad_accumulate`` call made during a
+    block (``calls``), for the kernel's bound on that run's own inputs
+    (``shape_record`` reads them after the block, so the block runs only
+    what it runs without the record)."""
 
     def __enter__(self):
         import coolpuppy_tpu_torch.ops.quad_gather as qg
@@ -627,7 +701,7 @@ class launch_shapes:
         self.calls = calls = []
 
         def recording(*args):
-            calls.append(call_shape(*args))
+            calls.append(args)
             return inner(*args)
 
         qg.quad_accumulate = recording
@@ -641,19 +715,21 @@ class launch_shapes:
 
 def shape_record(what, calls, kernel_ms, launches, card):
     """Print and return one shape's row of the kernel table: launches,
-    the kernel's time, its bound on these inputs and the share of it."""
+    the kernel's time, its bound on these inputs and the share of it.
+    ``calls`` holds ``call_shape`` records or ``quad_accumulate``
+    arguments."""
+    calls = [c if isinstance(c, dict) else call_shape(*c) for c in calls]
     ms, by, nbytes, ops = kernel_bound(calls)
     rec = dict(launches=launches, bound_ms=ms, bound_by=by, ms=kernel_ms,
-               tiles=sum(c["tiles"] for c in calls),
-               items=sum(c["items"] for c in calls),
-               snips=sum(c["snips"] for c in calls),
+               **{key: sum(c[key] for c in calls)
+                  for key in ("pixels", "groups", "items", "snips")},
                C=max((c["C"] for c in calls), default=0))
     share = ("not measured" if not kernel_ms
              else f"{kernel_ms:.3f} ms, bound/kernel {ms / kernel_ms:.4f}")
     print(f"{what} kernel bound: {ms:.5f} ms by {by} ({nbytes} bytes, {ops} "
-          f"adds; tiles {rec['tiles']}, items {rec['items']}, snips "
-          f"{rec['snips']}, C {rec['C']}, launches {launches}); kernel "
-          f"{share} on {card}")
+          f"adds; pixels {rec['pixels']}, groups {rec['groups']}, items "
+          f"{rec['items']}, snips {rec['snips']}, C {rec['C']}, launches "
+          f"{launches}); kernel {share} on {card}")
     return rec
 
 
@@ -1535,16 +1611,17 @@ def check_modes(dev, sync, card, shapes=None):
         print(f"modes {cell} warm-up ({len(small)} rows): "
               f"{int(all_row(warm)['n'])} snips in {t:.2f} s")
 
-        # the checked run; the stripes cell also records its stripe gather
+        # the checked run; the stripes cell also records its stripe gathers
+        # (one a chunk where the region streams)
         gathers = []
-        gather = qg.QuadPileupSession.run_stripes
+        gather = qg.QuadPileupSession.stripes_device
 
-        def recording(self, r1, r2, *a, **k):
-            out = gather(self, r1, r2, *a, **k)
+        def recording(self, r1, r2):
+            out = gather(self, r1, r2)
             gathers.append((self, r1, r2, out))
             return out
 
-        qg.QuadPileupSession.run_stripes = recording
+        qg.QuadPileupSession.stripes_device = recording
         try:
             qg.LAUNCHES = 0
             qg.VARIANT_LAUNCHES.update(staged=0, direct=0)
@@ -1552,7 +1629,7 @@ def check_modes(dev, sync, card, shapes=None):
                 t, checked = timed(lambda: run(f), sync)
             launches[cell] = qg.LAUNCHES
         finally:
-            qg.QuadPileupSession.run_stripes = gather
+            qg.QuadPileupSession.stripes_device = gather
         route = checked["accumulate"].iloc[0]
         if launches[cell] < 1 or route != "cuda_kernel":
             raise AssertionError(f"modes {cell}: {launches[cell]} launches, "
@@ -1600,14 +1677,18 @@ def check_modes(dev, sync, card, shapes=None):
 
 
 def check_stripe_sample(gathers, row, n_snips):
-    """The stripes cell: the stripe rows the card gathered, held against
-    ``stripes_host`` on the fetched stack for a sample of snips, and the
-    table's planes against the gathered rows' count."""
+    """The stripes cell: the stripe rows the card gathered (the chunks of
+    one region's session), held against ``stripes_host`` on the fetched
+    stack for a sample of snips, and the table's planes against the
+    gathered rows' count."""
     from coolpuppy_tpu_torch.ops.quad_gather import stripes_host
 
-    if len(gathers) != 1:
-        raise AssertionError(f"stripes: {len(gathers)} stripe gathers")
-    sess, r1, r2, hv = gathers[0]
+    if not gathers or len({id(g[0]) for g in gathers}) != 1:
+        raise AssertionError(f"stripes: {len(gathers)} stripe gathers from "
+                             f"{len({id(g[0]) for g in gathers})} sessions")
+    sess = gathers[0][0]
+    r1, r2 = (np.concatenate([g[i] for g in gathers]) for i in (1, 2))
+    hv = np.concatenate([g[3].cpu().numpy() for g in gathers])
     if hv.shape != (n_snips, 2 * sess.W) or row["horizontal_stripe"].shape \
             != (n_snips, sess.W):
         raise AssertionError(f"stripes: planes {hv.shape}, table "
@@ -2779,7 +2860,330 @@ def check_cli(dev, sync, card, shapes=None, workload=None):
     return launches
 
 
-PHASES = (3, 4, 5, 6, 7, 8, 9)
+def genome_workload(n_chroms=20, bins_per=13_500, contacts_per=7_500_000,
+                    n_sites=37_000, binsize=10_000, seed=0):
+    """``bench.py:866`` ``bench_genome``'s map and sites with its RNG calls,
+    as an in-memory Cooler: ``n_chroms`` chromosomes of ``bins_per`` bins
+    at 10 kb, ``contacts_per`` zipf(1.35) contacts each (bench's 18M draws
+    scale with it), Poisson(3)+1 counts, 3% NaN-weight bins; ``n_sites``
+    stranded 1 kb sites, an equal share per chromosome at sampled bins. Each
+    chromosome's pixels are sorted on their own, so ``from_arrays`` finds
+    them in order (and skips its own sort). Returns ``(Cooler,
+    features)``."""
+    import pandas as pd
+
+    from coolpuppy_tpu_torch import Cooler
+
+    chroms = [f"chr{i + 1}" for i in range(n_chroms)]
+    rng = np.random.default_rng(seed)
+    pix1, pix2, cnt = [], [], []
+    off = 0
+    for _ in chroms:
+        d = rng.zipf(1.35, contacts_per * 12 // 5)
+        d = d[d < bins_per][:contacts_per]
+        i = rng.integers(0, bins_per, len(d)) + off
+        j = np.minimum(i + d, off + bins_per - 1)
+        v = rng.poisson(3.0, len(d)) + 1
+        if v.max(initial=0) >= 256:
+            raise AssertionError("genome_workload: a count past 8 bits")
+        # one sort of (bin1, bin2, count) packed in an int64 (4x faster than
+        # an argsort); duplicate pixels end up ordered by count
+        key = np.sort(((i - off) * bins_per + (j - off)) << 8 | v)
+        ij = key >> 8
+        pix1.append(ij // bins_per + off)
+        pix2.append(ij % bins_per + off)
+        cnt.append((key & 0xFF).astype(np.int32))
+        off += bins_per
+    weights = rng.uniform(0.5, 1.5, off)
+    weights[rng.random(off) < 0.03] = np.nan
+    clr = Cooler.from_arrays(
+        {c: bins_per * binsize for c in chroms}, binsize,
+        (np.concatenate(pix1), np.concatenate(pix2), np.concatenate(cnt)),
+        weights=weights,
+    )
+    del pix1, pix2, cnt
+    per = n_sites // n_chroms
+    rng_f = np.random.default_rng(seed + 1)
+    frames = []
+    bins_ok = np.arange(1, bins_per - 2)
+    for c in chroms:
+        starts = np.sort(rng_f.choice(bins_ok, per, replace=False)) * binsize
+        frames.append(pd.DataFrame({
+            "chrom": c, "start": starts, "end": starts + 1_000,
+            "name": ".", "score": 0,
+            "strand": rng_f.choice(["+", "-"], per),
+        }))
+    return clr, pd.concat(frames, ignore_index=True)
+
+
+def genome_run(clr, feats, dev, **kw):
+    """One genome-cell run: the PileUpper that ``pileup(**GENOME_KW)``
+    builds, by strand. Returns ``(PileUpper, table)``."""
+    from coolpuppy_tpu_torch import CoordCreator, PileUpper
+
+    args = dict(GENOME_KW, **kw)
+    del args["by_strand"]
+    nshifts = args.pop("nshifts")
+    cc = CoordCreator(feats, clr.binsize, nshifts=nshifts, **args)
+    pu = PileUpper(clr, cc, control=nshifts > 0, device=dev)
+    return pu, pu.pileupsByStrandWithControl()
+
+
+class collected_path:
+    """Every region on the collected two-phase path: no stream opens."""
+
+    def __enter__(self):
+        self.eng = importlib.import_module("coolpuppy_tpu_torch.engine.pileup")
+        self.saved = self.eng.PileUpper._maybe_open_stream
+        self.eng.PileUpper._maybe_open_stream = lambda *a, **k: None
+        return self
+
+    def __exit__(self, *exc):
+        self.eng.PileUpper._maybe_open_stream = self.saved
+
+
+def scatter_f32_in_order(slab, tmap, B, K):
+    """What the native scatter computes for an unmirrored slab where it adds
+    in input order (its two-pass branch, past 2^19 pixels; any branch at
+    one thread), in numpy: weights folded in float32 as ``v * (w[row] *
+    w[col])``, each cell's pixels added in float32 in input order
+    (``np.add.at``)."""
+    n1, n2 = slab.shape
+    rows, cols = slab.rows - slab.lo1, slab.cols - slab.lo2
+    vals = slab.vals.astype(np.float32)
+    if slab.weights is not None:
+        w = slab.weights.astype(np.float32)
+        vals = vals * (w[slab.rows] * w[slab.cols])
+    inb = (rows >= 0) & (rows < n1) & (cols >= 0) & (cols < n2)
+    rows, cols, vals = rows[inb], cols[inb], vals[inb]
+    k = tmap[rows // B, cols // B].astype(np.int64)
+    keep = k > 0
+    flat = np.zeros((K + 1) * B * B, np.float32)
+    np.add.at(flat, (k * B + rows % B)[keep] * B + (cols % B)[keep],
+              vals[keep])
+    return flat.reshape(K + 1, B, B)
+
+
+def best_of(fn, runs=NATIVE_RUNS):
+    """The least of ``runs`` walls of ``fn`` (seconds) and its last
+    result."""
+    walls = []
+    for _ in range(runs):
+        t, out = timed(fn, lambda: None)
+        walls.append(t)
+    return min(walls), out
+
+
+def check_native(genome, engine, dev):
+    """Phase 10, the host ingest at full size: each native entry against its
+    numpy branch on real inputs, with the seconds of both (the least of
+    NATIVE_RUNS): ``tile_scatter_wtri`` on the upper band tiles of one
+    genome chromosome's slab (as its stream stages it) and on the engine
+    map's whole slab at the engine cell's touched tiles, the two-pass
+    ``sort_quads`` on the engine cell's words (recorded from a collected
+    engine run), and ``enumerate_pairs`` on one chromosome's sites. The
+    scatters are held bit for bit against ``scatter_f32_in_order`` and
+    within NATIVE_RTOL against the numpy branch. Returns ``{entry: (native
+    s, numpy s)}``."""
+    from coolpuppy_tpu_torch import CoordCreator, native, pileup
+    from coolpuppy_tpu_torch.ops import quad_gather as qg
+    from coolpuppy_tpu_torch.ops import tiles
+
+    gclr, gfeats = genome
+    eclr, efeats = engine
+    out = {}
+    W = 2 * GENOME_KW["flank"] // gclr.binsize + 1
+
+    def scatter(what, slab, want):
+        n1 = slab.shape[0]
+        _, utmap, _, _, _, Ku = tiles._sym_maps(want, -(-n1 // B),
+                                                -(-n1 // B))
+        tn, got = best_of(lambda: tiles.scatter_slab(slab, utmap, B, Ku,
+                                                     False))
+        tp, ref = best_of(lambda: tiles.scatter_slab_plain(slab, utmap, B,
+                                                           Ku, False))
+        np.testing.assert_array_equal(
+            got, scatter_f32_in_order(slab, utmap, B, Ku),
+            err_msg=f"{what}: native vs float32 in input order")
+        np.testing.assert_allclose(got, ref, rtol=NATIVE_RTOL, atol=1e-6,
+                                   err_msg=f"{what}: native vs numpy")
+        fin = ref != 0
+        rel = float((np.abs(got - ref)[fin] / np.abs(ref[fin])).max(
+            initial=0.0))
+        out[what] = (tn, tp)
+        print(f"native {what}: {slab.nnz} pixels, {Ku} upper tiles, native "
+              f"{tn:.4f} s vs numpy {tp:.4f} s ({tp / tn:.1f}x); bit for bit "
+              f"the float32 sums in input order, numpy's float64 sums within "
+              f"rtol {NATIVE_RTOL} (largest {rel:.3g}) ok")
+
+    slab = gclr.fetch_slab(gclr.chromnames[0], balance="weight")
+    band = min(GENOME_KW["maxdist"] // gclr.binsize + W + 8, slab.shape[0])
+    scatter("tile_scatter_wtri genome chromosome",
+            slab, tiles.band_tiles(band, B, slab.shape)[0])
+
+    # the engine cell's collected run: its touched tiles and quad words
+    calls = []
+    sort = qg.sort_quads
+
+    def recording(r1, r2, cid, tile_map, b):
+        calls.append((r1, r2, cid, tile_map))
+        return sort(r1, r2, cid, tile_map, b)
+
+    qg.sort_quads = recording
+    try:
+        with collected_path():
+            t, _ = timed(lambda: pileup(eclr, efeats, device=dev,
+                                        **ENGINE_KW), lambda: None)
+    finally:
+        qg.sort_quads = sort
+    if len(calls) != 1:
+        raise AssertionError(f"engine collected run: {len(calls)} sorts")
+    r1, r2, cid, tmap = calls[0]
+    eslab = eclr.fetch_slab(eclr.chromnames[0], balance="weight")
+    scatter("tile_scatter_wtri engine map", eslab,
+            tiles.touched_tiles(r1, r2, W, W, B, eslab.shape)[0])
+    tn, got = best_of(lambda: qg.sort_quads(r1, r2, cid, tmap, B))
+    tp, ref = best_of(lambda: qg.sort_quads_plain(r1, r2, cid, tmap, B))
+    for g, w, name in zip(got, ref, ("snips", "k", "qstart", "qcount")):
+        np.testing.assert_array_equal(g, w, err_msg=f"sort_quads {name}")
+    out["quad_sort"] = (tn, tp)
+    print(f"native quad_sort (two passes, sort_quads) on the engine cell's "
+          f"{len(r1)} words ({t:.2f} s collected run): native {tn:.4f} s vs "
+          f"argsort {tp:.4f} s ({tp / tn:.1f}x), equal bit for bit ok")
+
+    cc = CoordCreator(gfeats[gfeats["chrom"] == gclr.chromnames[0]],
+                      gclr.binsize, features_format="bed",
+                      flank=GENOME_KW["flank"], maxdist=GENOME_KW["maxdist"])
+    centers = cc.intervals["center"].to_numpy()
+    tn, (li, ri) = best_of(lambda: native.enumerate_pairs(
+        centers, cc.mindist, cc.maxdist))
+    lazy = type(cc).LAZY_PAIR_THRESHOLD
+    type(cc).LAZY_PAIR_THRESHOLD = 0
+    try:
+        tp, chunks = best_of(lambda: list(cc._iter_cis_pair_chunks(centers)))
+    finally:
+        type(cc).LAZY_PAIR_THRESHOLD = lazy
+    np.testing.assert_array_equal(li, np.concatenate([c[0] for c in chunks]))
+    np.testing.assert_array_equal(ri, np.concatenate([c[1] for c in chunks]))
+    out["enumerate_pairs"] = (tn, tp)
+    print(f"native enumerate_pairs on one chromosome's {len(centers)} sites: "
+          f"{len(li)} pairs, native {tn:.5f} s vs numpy {tp:.5f} s, equal in "
+          f"order ok")
+    return out
+
+
+def check_genome(dev, sync, card, shapes=None, workload=None,
+                 engine=None):
+    """Phase 10: ``bench.py``'s genome cell through the streamed multi-region
+    path. Returns the checked run's launches."""
+    import torch
+
+    from coolpuppy_tpu_torch import native
+
+    chunk_snips = importlib.import_module(
+        "coolpuppy_tpu_torch.engine.pileup")._STREAM_CHUNK
+    t, (clr, feats) = timed(workload or genome_workload, lambda: None)
+    print(f"genome workload: {len(clr.chromnames)} chromosomes, {clr.n_bins} "
+          f"bins, {clr.n_pixels} pixels, {len(feats)} sites in {t:.1f} s")
+    t, eng = timed(engine or engine_workload, lambda: None)
+    print(f"engine workload for the native checks: {eng[0].n_pixels} pixels "
+          f"in {t:.1f} s")
+    check_native((clr, feats), eng, dev)
+    del eng
+    print(f"threads: torch {torch.get_num_threads()}, native "
+          f"{native.threads()}; OpenMP runtimes loaded: "
+          f"{sorted(openmp_runtimes())}")
+
+    per = len(feats) // len(clr.chromnames)
+    t, (_, warm) = timed(lambda: genome_run(clr, feats.iloc[:per], dev), sync)
+    print(f"genome warm-up (one chromosome's {per} sites): "
+          f"{engine_snips(warm)} snips in {t:.2f} s")
+
+    pus = []
+
+    def run():
+        pu, table = genome_run(clr, feats, dev)
+        pus.append(pu)
+        return table
+
+    # the checked run is also the profiled one (the busy share)
+    checked = {}
+    prof = profile_run(
+        lambda: checked.update(run=kernel_run("genome", run, dev)), sync)
+    checked, launches, calls, t = checked["run"]
+    counts = dict(pus[-1].timers.counts)
+    n_snips = engine_snips(checked)
+    if (counts.get("stream_regions") != len(clr.chromnames)
+            or counts.get("stream_aborts", 0) != 0
+            or counts.get("stream_chunks") != launches):
+        raise AssertionError(f"genome run: {launches} launches, counts "
+                             f"{counts}; expected a stream in every region "
+                             "and one launch a chunk")
+    data = np.stack(checked["data"].to_list())
+    if data.shape[1:] != (21, 21) or not np.isfinite(data).any():
+        raise AssertionError(f"genome output: shape {data.shape}")
+    print(f"genome checked run: {n_snips} snips, {len(checked)} rows "
+          f"({list(checked['orientation'])}), launches {launches} (one a "
+          f"chunk of at most {chunk_snips} snips), stream_regions "
+          f"{counts['stream_regions']}, stream_aborts "
+          f"{counts.get('stream_aborts', 0)}, route "
+          f"{checked['accumulate'].iloc[0]}, {t:.2f} s (profiled)")
+    print("genome device busy share of that run: " + prof["text"])
+
+    plain = plain_swapped("genome", run)
+    err = compare_tables(checked, plain, rtol=ENGINE_RTOL, atol=1e-7,
+                         what="genome kernel vs plain")
+    print(f"genome kernel vs plain (whole run): n/control_n/num exact, data "
+          f"max_abs_err {err:.3g} (rtol {ENGINE_RTOL}) ok")
+    del plain
+    with collected_path():
+        t, collected = timed(run, sync)
+    if pus[-1].timers.counts.get("stream_regions", 0):
+        raise AssertionError("genome collected run streamed")
+    err = compare_tables(checked, collected, rtol=ENGINE_RTOL, atol=1e-7,
+                         what="genome stream vs collected")
+    print(f"genome stream vs the collected path ({t:.2f} s): n/control_n/num "
+          f"exact, data max_abs_err {err:.3g} (rtol {ENGINE_RTOL}) ok")
+    del collected
+
+    def run_timed():
+        pu, table = genome_run(clr, feats, dev)
+        pus.append(pu)
+        return pu, table
+
+    timed_runs("genome", run_timed, CELL_REPEATS, n_snips, sync, card,
+               engine_snips)
+    for pu in pus[-CELL_REPEATS:]:
+        sec = dict(pu.timers.seconds)
+        print("genome phases of a timed run (s): " + json.dumps(
+            {k: round(v, 4) for k, v in sorted(sec.items())})
+            + f", their sum {sum(sec.values()):.4f} (ingest runs on the "
+            "prefetch threads, tiles and stage on the staging worker, beside "
+            "the main thread's coords, device and wait); counts "
+            + json.dumps(dict(pu.timers.counts)))
+    calls = [call_shape(*c) for c in calls]
+    rec = shape_record("genome", calls, prof["kernel_ms"], launches, card)
+    chunk = max(calls, key=lambda c: c["snips"])
+    shape_record("genome stream chunk", [chunk],
+                 prof["kernel_ms"] and prof["kernel_ms"] / launches, 1, card)
+    if shapes is not None:
+        shapes["genome"] = rec
+        shapes["genome_chunk"] = dict(
+            kernel_bound_ms=kernel_bound([chunk])[0], **chunk)
+    return launches
+
+
+def openmp_runtimes():
+    """The OpenMP runtime libraries mapped into this process."""
+    import re
+
+    with open("/proc/self/maps") as f:
+        paths = {ln.split()[-1] for ln in f if len(ln.split()) > 5}
+    return {p for p in paths
+            if re.match(r"lib[gi]?omp", os.path.basename(p))}
+
+
+PHASES = (3, 4, 5, 6, 7, 8, 9, 10)
 
 
 def parse_phases(argv):
@@ -2925,6 +3329,12 @@ def main(argv=None):
         check_cli_toy(dev)
         record["cli_launches"] = check_cli(dev, sync, card, record["shapes"])
         phase_done(9)
+
+    # -- 10. the genome cell: native ingest, prefetch, streams -------------
+    if 10 in phases:
+        record["genome_launches"] = check_genome(dev, sync, card,
+                                                 record["shapes"])
+        phase_done(10)
 
     # -- result -----------------------------------------------------------
     print(card)

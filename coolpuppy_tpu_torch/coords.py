@@ -4,10 +4,12 @@ copied as pandas/numpy).
 ``CoordCreator`` yields *batches* of snip coordinates — DataFrames built by
 vectorized numpy/pandas ops — which the engine lowers to integer index
 arrays. BED pairs are enumerated by the k-th-superdiagonal sweep of the
-reference, vectorized per diagonal with early termination once a diagonal's
-smallest pair distance exceeds ``maxdist``. Only the numpy sweep is ported
-(not the reference's optional C++ one); both yield the identical pair
-sequence, so the keyed control RNG draws the same shifts.
+reference with early termination once a diagonal's smallest pair distance
+exceeds ``maxdist``: up to ``LAZY_PAIR_THRESHOLD`` pairs of sorted centers
+by the native C++ sweep (``native.enumerate_pairs``) in one go, larger or
+unsorted streams by the numpy sweep, vectorized per diagonal. Both yield the
+identical pair sequence and chunk boundaries, so the keyed control RNG draws
+the same shifts.
 
 It covers BED features (cis, local and trans feature products) and BEDPE
 rows (cis and trans). Two departures of the JAX package from upstream
@@ -25,6 +27,7 @@ import zlib
 import numpy as np
 import pandas as pd
 
+from . import native
 from .genomics.intervals import (
     expand_intervals,
     expand_intervals_2d,
@@ -659,21 +662,52 @@ class CoordCreator:
                 rng,
             )
 
+    # pairs of sorted centers up to this many come from the native sweep in
+    # one go; past it the numpy sweep streams them per diagonal in bounded
+    # memory (eager index arrays would hold GBs)
+    LAZY_PAIR_THRESHOLD = 32_000_000
+
+    def _count_cis_pairs(self, centers):
+        """Exact in-band pair count for SORTED centers, O(n log n)."""
+        n = len(centers)
+        maxd = float(self.maxdist) if np.isfinite(self.maxdist) else np.inf
+        idx = np.arange(n)
+        if np.isfinite(maxd):
+            hi = np.searchsorted(centers, centers + maxd, side="right")
+        else:
+            hi = np.full(n, n)
+        lo = np.searchsorted(centers, centers + float(self.mindist),
+                             side="left")
+        return int(np.maximum(hi - np.maximum(lo, idx + 1), 0).sum())
+
     def _iter_cis_pair_chunks(self, centers):
         """Yield (li, ri) pair-index chunks of exactly ``chunk_size`` (last
         partial): all pairs with |center[ri]-center[li]| in the distance
-        band, in the canonical k-superdiagonal order, swept with bounded
-        memory and stopped early on sorted centers (the reference's numpy
-        sweep). The order and chunk boundaries fix the keyed control RNG's
-        draws, which are made per chunk."""
+        band, in the canonical k-superdiagonal order. Small streams come
+        from the eager enumeration (``_enumerate_cis_pairs``); large ones
+        are swept lazily per diagonal with bounded memory, stopped early on
+        sorted centers. Both give the identical sequence and chunk
+        boundaries, which fix the keyed control RNG's draws (made per
+        chunk)."""
         n = len(centers)
         centers_sorted = bool(np.all(np.diff(centers) >= 0))
+        if (
+            not centers_sorted
+            or self._count_cis_pairs(centers) <= self.LAZY_PAIR_THRESHOLD
+        ):
+            li, ri = self._enumerate_cis_pairs(centers)
+            for lo in range(0, len(li), self.chunk_size):
+                yield (
+                    li[lo : lo + self.chunk_size],
+                    ri[lo : lo + self.chunk_size],
+                )
+            return
         maxd = float(self.maxdist) if np.isfinite(self.maxdist) else 1e300
         buf_l, buf_r, buffered = [], [], 0
         for k in range(1, n):
             li = np.arange(0, n - k)
             d = centers[li + k] - centers[li]
-            if centers_sorted and d.min() > maxd:
+            if d.min() > maxd:
                 break
             keep = (self.mindist <= np.abs(d)) & (np.abs(d) <= maxd)
             if keep.any():
@@ -689,6 +723,32 @@ class CoordCreator:
                 buffered = len(buf_l[0])
         if buffered:
             yield np.concatenate(buf_l), np.concatenate(buf_r)
+
+    def _enumerate_cis_pairs(self, centers):
+        """All (li, ri) index pairs with |center[ri]-center[li]| in the
+        distance band, in k-superdiagonal order: the native C++ sweep for
+        sorted centers (it stops once a diagonal's least distance passes
+        ``maxdist``), the numpy sweep over every diagonal for unsorted
+        ones. Both produce the identical pair sequence."""
+        n = len(centers)
+        centers_sorted = bool(np.all(np.diff(centers) >= 0))
+        maxd = float(self.maxdist) if np.isfinite(self.maxdist) else 1e300
+        if centers_sorted:
+            return native.enumerate_pairs(
+                np.asarray(centers, np.float64), float(self.mindist), maxd
+            )
+        parts_l, parts_r = [], []
+        for k in range(1, n):
+            li = np.arange(0, n - k)
+            d = centers[li + k] - centers[li]
+            keep = (self.mindist <= np.abs(d)) & (np.abs(d) <= maxd)
+            if keep.any():
+                parts_l.append(li[keep])
+                parts_r.append(li[keep] + k)
+        if not parts_l:
+            empty = np.array([], dtype=np.int64)
+            return empty, empty
+        return np.concatenate(parts_l), np.concatenate(parts_r)
 
     def _batches_cis_bed(self, region1, control, groupby, modify_func,
                          use=None):

@@ -18,6 +18,16 @@ stack. Three routes accumulate the windows:
   buckets (at least 128), each resized to R×R by float32 area-overlap
   matmuls (``ops/rescale.rescale_accumulate``).
 
+Regions run as in the reference (:3542-3593, :782-980): prefetch threads
+stage the next regions while the main thread accumulates one, and on the
+quad route a region whose windows fit a tile predicate known before any
+coordinate (the |row - col| band of ``maxdist`` for cis BED, the rectangles
+of BEDPE rows and trans products) streams (``_QuadStream``): its stack is
+scattered and normalized on a staging thread while the coordinates are
+made, and every ``_STREAM_CHUNK`` snips are quad-sorted and launched as soon
+as they exist. A window off the predicate or more groups than the stream's
+bank send the region to the collected path above, with the same results.
+
 The host finishes with the reference's normalization algebra: division by
 shifted controls or expected, coverage normalization, local symmetrization.
 
@@ -44,8 +54,10 @@ import logging
 import os
 import pickle
 import re
+import threading
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from functools import partial, reduce
 
 import numpy as np
@@ -90,10 +102,12 @@ from ..ops.gather import (
 )
 from ..ops.rescale import RescaleConfig, area_resize_host, rescale_accumulate
 from ..ops.tiles import (
+    build_tile_stack_coo,
     build_tile_stack_slab,
     build_tile_stack_slab_sym,
     fetch_windows,
     normalized_stack,
+    rect_tiles,
 )
 
 logger = logging.getLogger("coolpuppy_tpu_torch")
@@ -130,6 +144,185 @@ _STRIPE_KEYS = ("horizontal_stripe", "vertical_stripe")
 
 # hooked snips the host stream buffers per flush of its batched fold
 _FOLD_FLUSH = 8192
+
+# the stream (``_QuadStream``): groups of its accumulator bank (the
+# reference's 512, capped by ``_block_half(W)``), snips a launch, the most
+# tiles its predicate may stage in the region loop and from the region
+# prefetch (several prefetched stacks can sit on the device at once), and
+# the window count past which a cis collected build takes a band predicate
+_STREAM_HALF = 512
+_STREAM_CHUNK = 131_072
+_STREAM_TILES = 12_288
+_PREFETCH_TILES = 3_072
+_BAND_WINDOWS = 2_000_000
+
+# regions staged ahead of the one being accumulated, at most
+_PREFETCH_MAX = 4
+
+_STAGE_POOL = None
+_STAGE_POOL_LOCK = threading.Lock()
+
+
+def _stage_pool():
+    """The process-wide single worker that builds streams' sessions (tile
+    scatter, upload, normalize): the native scatter releases the GIL, and
+    one card serializes the builds anyway (reference :80-93)."""
+    global _STAGE_POOL
+    with _STAGE_POOL_LOCK:
+        if _STAGE_POOL is None:
+            _STAGE_POOL = ThreadPoolExecutor(max_workers=1,
+                                             thread_name_prefix="quad-stage")
+    return _STAGE_POOL
+
+
+class _QuadStream:
+    """Single-pass accumulation of one region (the counterpart of the
+    reference's ``_PallasStream``, :200-343): the session's tile stack is
+    built from a predicate that needs no window coordinates (the |row - col|
+    band of cis BED, explicit tiles of BEDPE rows and trans products), so
+    snip chunks are quad-sorted and launched WHILE the host still makes
+    coordinate frames.
+
+    The session arrives as a future of ``(session, ready)``:
+    the tile scatter and the upload, expansion and normalization run on
+    ``_stage_pool``'s worker while the first frames are made, and ``feed``
+    buffers until it resolves. ``ready`` is a CUDA event recorded after the
+    build on the worker's stream, which the main thread's stream waits on
+    before its first launch (None on the CPU). An error of the build
+    re-raises from the future. Each ``chunk`` snips are one
+    ``run_many`` (one launch of the quad kernel) into groups ``cid + half *
+    flip``; the chunks' accumulators are summed on the device and fetched
+    once by ``finish``. ROI snips' stripe planes are gathered per chunk and
+    copied to pinned host buffers without blocking, an event each, which
+    ``stripe_planes`` waits on."""
+
+    def __init__(self, future, half, chunk, device, stripes=False,
+                 timers=None):
+        self._fut = future
+        self.session = None
+        self.half = half
+        self.chunk = chunk
+        self.device = device
+        self.stripes = stripes
+        self.timers = timers
+        self.chunks = 0
+        self._bufs = {"r1": [], "r2": [], "cid": []}
+        self._sbufs = {"r1": [], "r2": []}
+        self._total = None
+        self._stripe_parts = []  # (host tensor, copy event or None)
+
+    def resolve(self, block=True):
+        """Adopt the built session; True when ready. ``block=False`` keeps
+        buffering rather than stalling the coordinate producer."""
+        if self.session is not None:
+            return True
+        if not self._fut.done():
+            if not block:
+                return False
+            ctx = (self.timers.phase("wait") if self.timers
+                   else contextlib.nullcontext())
+            with ctx:
+                self._fut.result()
+        self.session, ready = self._fut.result()
+        if ready is not None:
+            torch.cuda.current_stream(self.device).wait_event(ready)
+        return True
+
+    def feed(self, r1, r2, cid, sr1=None, sr2=None):
+        """Buffer one frame's windows (and the ROI snips' stripe windows)
+        and launch every full chunk once the session is ready."""
+        for key, a in (("r1", r1), ("r2", r2), ("cid", cid)):
+            self._bufs[key].append(a)
+        if self.stripes:
+            self._sbufs["r1"].append(sr1)
+            self._sbufs["r2"].append(sr2)
+        if not self.resolve(block=False):
+            return
+        while _buffered(self._bufs) >= self.chunk:
+            self._dispatch(self.chunk)
+        while self.stripes and _buffered(self._sbufs) >= self.chunk:
+            self._dispatch_stripes(self.chunk)
+
+    def _dispatch(self, n):
+        take = _take(self._bufs, n)
+        out = self.session.run_many(take["r1"], take["r2"], take["cid"],
+                                    fetch=False)
+        self.chunks += 1
+        if self._total is None:
+            self._total = out
+        else:
+            for k, v in out.items():
+                self._total[k] += v
+
+    def _dispatch_stripes(self, n):
+        take = _take(self._sbufs, n)
+        hv = self.session.stripes_device(take["r1"], take["r2"])
+        if self.device.type != "cuda":
+            self._stripe_parts.append((hv, None))
+            return
+        host = torch.empty(hv.shape, dtype=hv.dtype, pin_memory=True)
+        host.copy_(hv, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        self._stripe_parts.append((host, done))
+
+    def finish(self, groups):
+        """Launch the tail and fetch once: the float64 totals of the used
+        groups in the compact layout (unflipped rows [0, groups), flip bank
+        [groups, 2 * groups)) plus ``poison``; None when nothing was
+        fed."""
+        self.resolve(block=True)
+        while _buffered(self._bufs):
+            self._dispatch(min(self.chunk, _buffered(self._bufs)))
+        while self.stripes and _buffered(self._sbufs):
+            self._dispatch_stripes(min(self.chunk, _buffered(self._sbufs)))
+        if self._total is None:
+            return None
+        return self.session.finalize([self._total],
+                                     compact=(groups, self.half))
+
+    def stripe_planes(self):
+        """The streamed ROI stripe planes in stream order, float32 numpy
+        ``(horizontal [n, W], vertical [n, W] unreversed)``."""
+        W = self.session.W
+        parts = []
+        for host, done in self._stripe_parts:
+            if done is not None:
+                done.synchronize()
+            parts.append(host.numpy())
+        hv = np.concatenate(parts) if parts else np.zeros((0, 2 * W),
+                                                          np.float32)
+        return hv[:, :W], hv[:, W:]
+
+    def discard(self):
+        """Give the stream up: wait for its build (whose error re-raises)
+        and drop the session and everything fed."""
+        self._fut.result()
+        self.session = self._total = None
+        self._stripe_parts = []
+
+
+def _buffered(bufs):
+    return sum(len(a) for a in bufs["r1"])
+
+
+def _take(bufs, n):
+    """The first ``n`` buffered entries of every key of ``bufs``, removed
+    from the buffers."""
+    out = {}
+    for key, parts_list in bufs.items():
+        parts, got = [], 0
+        while got < n:
+            head = parts_list[0]
+            if len(head) <= n - got:
+                parts.append(parts_list.pop(0))
+                got += len(head)
+            else:
+                parts.append(head[: n - got])
+                parts_list[0] = head[n - got :]
+                got = n
+        out[key] = np.concatenate(parts) if len(parts) > 1 else parts[0]
+    return out
 
 
 def _next_pow2(x):
@@ -530,6 +723,10 @@ class PileUpper:
         timers = self.timers
         return timers.phase(name) if timers else contextlib.nullcontext()
 
+    def _count(self, name, n=1):
+        if self.timers:
+            self.timers.count(name, n)
+
     def _stage_region(self, region1, region2):
         """Fetch + stage one region pair's inputs. Under rescale the per-bin
         vectors are padded past the largest extent bucket, whose coverage
@@ -674,6 +871,19 @@ class PileUpper:
             if dual_anchor:
                 column_hint |= {"anchor_idx1", "anchor_idx2"}
 
+        # the single-pass stream (quad route, not by-window: its groups
+        # outnumber any stream's bank): pre-opened by the region prefetch,
+        # or opened here
+        stream = dev.get("_stream")
+        quad_route = not self.rescale and W <= quad_gather.W_MAX
+        if stream is None and quad_route and not dual_anchor:
+            with self._phase("tiles"):
+                stream = self._maybe_open_stream(region1, region2, dev)
+        elif stream is not None and (not quad_route or dual_anchor):
+            stream.discard()
+            stream = None
+        launches = quad_gather.LAUNCHES
+
         # -- phase 1: host coordinate collection -----------------------
         cols = {k: [] for k in ("r1", "r2", "h1", "w2", "dd0", "cidl", "flip",
                                 "roi")}
@@ -762,6 +972,24 @@ class PileUpper:
                     # the coordinate strings are cast once per region
                     roic = chunk["kind"].to_numpy() == "ROI"
                     blk = tuple(chunk[c].to_numpy()[roic] for c in _COORD_COLS)
+                if stream is not None and (
+                    not stream.covers(r1c, r2c) or len(cid_of) > stream.half
+                ):
+                    # a window off the staged tiles (a modify func moved
+                    # it) or more groups than the stream's bank: the
+                    # collected path takes the region
+                    stream.discard()
+                    stream = None
+                    self._count("stream_aborts")
+                if stream is not None:
+                    with self._phase("device"):
+                        stream.feed(
+                            r1c, r2c,
+                            (cid_parts[0] + stream.half * flipc).astype(
+                                np.int32),
+                            *((r1c[roic], r2c[roic]) if self.store_stripes
+                              else ()),
+                        )
                 for cidc in cid_parts:
                     cols["r1"].append(r1c)
                     cols["r2"].append(r2c)
@@ -774,6 +1002,9 @@ class PileUpper:
                         cols["roi"].append(roic)
                         coord_blocks.append(blk)
 
+        if stream is not None and (fell_back or not cols["r1"]):
+            stream.discard()
+            stream = None
         if fell_back:
             return self._pileup_region_hostpath(*hostpath_args, dev=dev)
 
@@ -797,6 +1028,11 @@ class PileUpper:
                                                         arr["w2"])
                 with self._phase("device"):
                     acc = self._rescale_accumulate(tile_stack, dev, arr, G)
+            elif stream is not None:
+                self._count("stream_regions")
+                with self._phase("device"):
+                    acc = self._stream_accumulate(stream, dev, arr, W, G,
+                                                  launches)
             else:
                 with self._phase("tiles"):
                     tile_stack = self._build_tile_stack(dev, arr, W)
@@ -925,18 +1161,174 @@ class PileUpper:
                     lut[k, u] = ensure_cid(kname, int(u))
         return [lut[isctl, a1], lut[isctl, a2], lut]
 
-    @staticmethod
-    def _build_tile_stack(dev, arr, window1, window2=None):
-        """The B=128 tiles the windows touch (heights ``window1``, widths
-        ``window2``, scalars or per-snip arrays): the upper-triangle stack
-        of a mirrored cis slab, the dense stack of any other rectangle
-        (trans region pairs)."""
-        window2 = window1 if window2 is None else window2
+    def _build_tile_stack(self, dev, arr, window1, window2=None):
+        """The B=128 tiles the windows of ``arr`` touch (heights
+        ``window1``, widths ``window2``, scalars or per-snip arrays), built
+        by ``_build_quad_stack``."""
+        return self._build_quad_stack(
+            dev, r1=arr["r1"], r2=arr["r2"], window1=window1,
+            window2=window1 if window2 is None else window2,
+        )
+
+    def _build_quad_stack(self, dev, **kw):
+        """The region's B=128 tile stack for the predicate in ``kw``
+        (``r1``/``r2``/``window1``/``window2``, ``band`` or ``want``; the
+        reference's ``_build_pallas_stack``, :725-775): the upper-triangle
+        stack of a mirrored cis slab, where more than ``_BAND_WINDOWS``
+        windows (outside rescale) take the |row - col| band of their
+        largest distance plus W instead of their touched tiles (one pass in
+        place of ``touched_tiles`` over millions of windows; the band holds
+        every tile a W×W window can reach); the COO wire for an explicit
+        tile set of a rectangle with no mirror whose pixels (an int32 index
+        and a float32 value each) undercut 0.7 of the dense stack's bytes;
+        the dense stack otherwise."""
+        B = quad_gather.B_TILE
         slab = dev["slab"]
-        build = (build_tile_stack_slab_sym if dev["cis"] and slab.mirror
-                 else build_tile_stack_slab)
-        return build(slab, quad_gather.B_TILE, arr["r1"], arr["r2"],
-                     window1, window2)
+        if dev["cis"] and slab.mirror:
+            r1 = kw.get("r1")
+            if r1 is not None and len(r1) > _BAND_WINDOWS and not self.rescale:
+                dd = np.abs(np.asarray(r1, np.int64)
+                            - np.asarray(kw["r2"], np.int64))
+                kw = {"band": min(int(dd.max(initial=0))
+                                  + self._window_bins() + 8, int(dev["n1"]))}
+            return build_tile_stack_slab_sym(slab, B, **kw)
+        want = kw.get("want")
+        if want is not None and not slab.mirror:
+            if slab.nnz * 8 < 0.7 * (len(want) + 1) * B * B * 4:
+                return build_tile_stack_coo(slab, B, want)
+        return build_tile_stack_slab(slab, B, **kw)
+
+    # -- the stream (reference :782-980) ------------------------------------
+
+    def _stream_tile_want(self, region1, region2, dev):
+        """The tile predicate of the streams that are not cis BED (BEDPE
+        rows, trans feature products): the windows follow from the binned
+        intervals, widened by the control shifts' margin, before any
+        coordinate frame exists. Returns raveled tile ids, or None where no
+        predicate applies."""
+        B = quad_gather.B_TILE
+        margin = (int(self.maxshift) // self.resolution + 2
+                  if (self.control or self.nshifts > 0) else 0)
+        n1, n2 = int(dev["n1"]), int(dev["n2"])
+        r1c = tuple(self.view_df.loc[region1])
+        r2c = tuple(self.view_df.loc[region2]) if region2 != region1 else r1c
+        if self.CC.kind == "bedpe":
+            if self.trans and region2 != region1:
+                rows = self.CC.filter_bedpe_trans_pairs(r1c, r2c)
+            elif region2 == region1:
+                rows = self.CC.filter_bedpe_region(r1c)
+            else:
+                return None
+            want, _, _ = rect_tiles(
+                rows["stBin1"].values - dev["min1"] - margin,
+                rows["endBin1"].values - dev["min1"] + margin,
+                rows["stBin2"].values - dev["min2"] - margin,
+                rows["endBin2"].values - dev["min2"] + margin,
+                B, (n1, n2),
+            )
+            return want
+        if self.trans and region2 != region1:
+            f1 = self.CC.filter_bed_region(r1c)
+            f2 = self.CC.filter_bed_region(r2c)
+            if len(f1) == 0 or len(f2) == 0:
+                return np.array([], np.int64)
+
+            def axis_tiles(f, mn, n):
+                lo = np.clip(f["stBin"].values - mn - margin, 0, n - 1)
+                hi = np.clip(f["endBin"].values - mn + margin, 1, n)
+                return np.unique(np.concatenate(
+                    [np.arange(a // B, (b - 1) // B + 1)
+                     for a, b in zip(lo, hi)]))
+
+            rt = axis_tiles(f1, dev["min1"], n1)
+            ct = axis_tiles(f2, dev["min2"], n2)
+            return (rt[:, None] * -(-n2 // B) + ct[None, :]).ravel()
+        return None
+
+    def _maybe_open_stream(self, region1, region2, dev, prefetch=False):
+        """The stream of a region pair where one applies (no rescale, W
+        within the quad kernel's reach): called in the region loop, or from
+        the region prefetch, whose stricter tile cap keeps several
+        prefetched stacks from filling the device. None otherwise."""
+        W = self._window_bins()
+        if self.rescale or W > quad_gather.W_MAX:
+            return None
+        max_tiles = _PREFETCH_TILES if prefetch else _STREAM_TILES
+        if region2 == region1 and self.CC.kind == "bed" and not self.trans:
+            return self._open_quad_stream(dev, W, max_tiles=max_tiles)
+        want = self._stream_tile_want(region1, region2, dev)
+        if want is None:
+            return None
+        return self._open_quad_stream(dev, W, want=want, max_tiles=max_tiles)
+
+    def _open_quad_stream(self, dev, W, want=None, max_tiles=_STREAM_TILES):
+        """A ``_QuadStream`` whose stack holds every tile a window can
+        touch, staged before any coordinate exists: the |row - col| band of
+        ``maxdist`` plus W for cis BED (``want`` None), or the explicit tile
+        set ``want``. None when the predicate passes ``max_tiles`` (an
+        unbounded ``maxdist`` on a large region): the collected path takes
+        those. The stream's ``covers(r1, r2)`` says whether every window
+        starting there lies on staged tiles (a ``modify_2Dintervals_func``
+        may move windows anywhere)."""
+        B = quad_gather.B_TILE
+        n1 = int(dev["n1"])
+        if want is not None:
+            est_tiles = len(want)
+        else:
+            band_bins = n1
+            if np.isfinite(self.maxdist):
+                band_bins = min(int(self.maxdist // self.resolution) + W + 8,
+                                n1)
+            est_tiles = -(-n1 // B) * (2 * (band_bins // B + 1) + 1)
+        if est_tiles > max_tiles:
+            return None
+        half = min(_STREAM_HALF, _block_half(W))
+
+        if want is not None:
+            nc = -(-int(dev["n2"]) // B)
+            flags = np.zeros(-(-n1 // B) * nc, bool)
+            flags[np.asarray(want, np.int64)] = True
+
+            def covers(r1, r2):
+                t1, t2 = r1 // B, r2 // B
+                e1, e2 = (r1 + W - 1) // B, (r2 + W - 1) // B
+                return bool((flags[t1 * nc + t2] & flags[t1 * nc + e2]
+                             & flags[e1 * nc + t2] & flags[e1 * nc + e2]).all())
+        else:
+            # band_tiles holds the tiles with |tile_row - tile_col| <= kband:
+            # a window's corner tiles are (t1|e1, t2|e2), so the two extreme
+            # diagonals decide
+            kband = band_bins // B + 1
+
+            def covers(r1, r2):
+                t1, t2 = r1 // B, r2 // B
+                e1, e2 = (r1 + W - 1) // B, (r2 + W - 1) // B
+                worst = np.maximum(np.abs(e1 - t2), np.abs(t1 - e2))
+                return bool((worst <= kband).all())
+
+        def build():
+            kw = dict(want=want) if want is not None else dict(band=band_bins)
+            with self._phase("tiles"):
+                tile_stack = self._build_quad_stack(dev, **kw)
+            with self._phase("stage"):
+                session = quad_gather.QuadPileupSession(
+                    tile_stack, dev["valid1"], dev["valid2"], dev["evec"],
+                    dict(W=W, capacity=2 * half, cis=dev["cis"],
+                         ignore_diags=int(self.ignore_diags),
+                         ooe=bool(self.expected and self.ooe)),
+                    self.device,
+                )
+                ready = None
+                if self.device.type == "cuda":
+                    ready = torch.cuda.Event()
+                    ready.record(torch.cuda.current_stream(self.device))
+            return session, ready
+
+        stream = _QuadStream(_stage_pool().submit(build), half, _STREAM_CHUNK,
+                             self.device, stripes=bool(self.store_stripes),
+                             timers=self.timers)
+        stream.covers = covers
+        return stream
 
     def _quad_accumulate(self, tile_stack, dev, arr, W, G):
         """The counterpart of the reference's ``_pallas_accumulate``: one
@@ -989,6 +1381,25 @@ class PileUpper:
             hv = session.run_stripes(arr["r1"][roi], arr["r2"][roi])
             out["horizontal_stripe"] = hv[:, :W]
             out["vertical_stripe"] = hv[:, W:][:, ::-1]
+        return out
+
+    def _stream_accumulate(self, stream, dev, arr, W, G, launches):
+        """Phase 2 of a streamed region: the tail launched, the chunks'
+        totals fetched once (``_QuadStream.finish``) and flip-merged, the
+        side outputs from the collected arrays (``_side_outputs``), the
+        streamed stripe planes (the vertical one reversed). The route is
+        ``cuda_kernel`` where the quad kernel launched since ``launches``
+        (``quad_gather.LAUNCHES``), ``plain`` otherwise."""
+        out = merge_flip_banks(stream.finish(G), G)
+        self._count("stream_chunks", stream.chunks)
+        self._routes.add(
+            "cuda_kernel" if quad_gather.LAUNCHES > launches else "plain"
+        )
+        self._side_outputs(dev, arr, W, G, out)
+        if self.store_stripes:
+            h, v = stream.stripe_planes()
+            out["horizontal_stripe"] = h
+            out["vertical_stripe"] = v[:, ::-1]
         return out
 
     def _device_stack(self, tile_stack, dev):
@@ -1892,9 +2303,15 @@ class PileUpper:
         dual_anchor=False,
     ):
         """Run the full pileup over every region (pair) and normalize
-        (reference coolpup.py:1360–1654 counterpart). Regions run one after
-        another on the device, each checkpointed to ``checkpoint_dir`` when
-        set. ``dual_anchor`` groups every snip under both of its anchors
+        (reference coolpup.py:1360–1654 counterpart). Regions are
+        accumulated one after another on the main thread, each
+        checkpointed to ``checkpoint_dir`` when set, while up to
+        ``min(4, nproc)`` threads (4 for ``nproc`` <= 0; ``nproc`` None
+        takes the PileUpper's) stage the next regions: the slab and per-bin
+        vectors, and where the region will stream, its stream, whose
+        session the staging worker builds meanwhile (reference
+        :3542-3593). A region with a checkpoint is not staged.
+        ``dual_anchor`` groups every snip under both of its anchors
         (``pileupsByWindowWithControl``).
 
         Extension hooks (reference coolpup.py:1261–1283,
@@ -1923,6 +2340,8 @@ class PileUpper:
         the extras; read the per-group rows. Replicated for parity."""
         groupby = groupby or []
         self.ignore_group_order = ignore_group_order
+        if nproc is None:
+            nproc = self.nproc
         flipby = self._resolve_flipby(groupby)
         modify_final = self._compose_modify_func(flipby, modify_2Dintervals_func)
 
@@ -1950,7 +2369,7 @@ class PileUpper:
             safe = re.sub(r"[^A-Za-z0-9_.-]", "_", f"{r1}__{r2}")
             return os.path.join(self.checkpoint_dir, safe + ".pkl")
 
-        def _run_one(r1, r2):
+        def _run_one(r1, r2, dev):
             # per-region accumulator checkpoints: the resume unit; each keeps
             # the accumulate routes its region took for the annotation
             if self.checkpoint_dir:
@@ -1970,6 +2389,7 @@ class PileUpper:
                 postprocess_snip_func=postprocess_snip_func,
                 postprocess_batch_func=postprocess_batch_func,
                 extra_sum_funcs=extra_sum_funcs,
+                dev=dev,
                 column_hint=column_hint,
                 dual_anchor=dual_anchor,
             )
@@ -1982,8 +2402,45 @@ class PileUpper:
                 os.replace(tmp, _ckpt_path(r1, r2))
             return out
 
-        with device_trace(self.trace_dir):
-            pileups = [_run_one(r1, r2) for r1, r2 in self._region_pairs()]
+        # a stream is pre-opened exactly where pileup_region would open one
+        # (the per-snip hooks take the host routes instead)
+        can_prestream = (
+            postprocess_snip_func is None
+            and postprocess_batch_func is None
+            and extra_sum_funcs is None
+            and not dual_anchor
+            and not self.rescale
+        )
+
+        def _stage_with_stream(r1, r2):
+            if self.checkpoint_dir and os.path.exists(_ckpt_path(r1, r2)):
+                return None  # resumed from its checkpoint: nothing to stage
+            dev = self._stage_region(r1, r2)
+            if can_prestream:
+                stream = self._maybe_open_stream(r1, r2, dev, prefetch=True)
+                if stream is not None:
+                    dev = dict(dev, _stream=stream)
+            return dev
+
+        pairs = self._region_pairs()
+        n_prefetch = max(1, min(_PREFETCH_MAX, nproc if nproc > 0 else
+                                _PREFETCH_MAX))
+        pileups = []
+        with device_trace(self.trace_dir), ThreadPoolExecutor(
+            max_workers=n_prefetch, thread_name_prefix="region-stage"
+        ) as pool:
+            futures = {i: pool.submit(_stage_with_stream, *pair)
+                       for i, pair in enumerate(pairs[:n_prefetch])}
+            for i, (r1, r2) in enumerate(pairs):
+                fut = futures.pop(i)
+                if not fut.done():
+                    with timers.phase("wait"):
+                        fut.result()
+                dev = fut.result()
+                if i + n_prefetch < len(pairs):
+                    futures[i + n_prefetch] = pool.submit(
+                        _stage_with_stream, *pairs[i + n_prefetch])
+                pileups.append(_run_one(r1, r2, dev))
 
         with timers.phase("finalize"):
             sum_func = partial(sum_pups, extra_funcs=extra_sum_funcs)

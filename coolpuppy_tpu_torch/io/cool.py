@@ -90,6 +90,12 @@ def _bins_table(chromnames, lengths, binsize):
     return chrom_offset, bins
 
 
+def _sorted_pairs(bin1, bin2):
+    """Whether pixels are already in (bin1, bin2) order."""
+    d1 = np.diff(bin1)
+    return bool((d1 >= 0).all() and ((d1 > 0) | (np.diff(bin2) >= 0)).all())
+
+
 class Cooler:
     """An in-memory contact matrix. Build it with ``from_arrays`` or
     ``from_cool``."""
@@ -119,8 +125,9 @@ class Cooler:
         is ``(bin1, bin2, count)`` with ``bin1 <= bin2``; ``chromsizes`` maps
         chrom -> length in bp, in the matrix's chromosome order; ``weights``
         is the per-bin balancing vector (NaN = bad bin), stored as the
-        ``weight`` column. Pixels are sorted by (bin1, bin2); integer counts
-        are kept as int32, others as float64."""
+        ``weight`` column. Pixels are sorted by (bin1, bin2) (a stable sort,
+        skipped when they come in that order); integer counts are kept as
+        int32, others as float64."""
         chromnames = list(chromsizes.keys())
         lengths = np.array([chromsizes[c] for c in chromnames], np.int64)
         chrom_offset, bins = _bins_table(chromnames, lengths, int(binsize))
@@ -133,11 +140,13 @@ class Cooler:
             raise ValueError("from_arrays: pixels must be upper-triangle "
                              "(bin1 <= bin2) global bin ids in "
                              f"[0, {len(bins)})")
-        order = np.lexsort((bin2, bin1))
         if np.issubdtype(count.dtype, np.integer):
             count = count.astype(np.int32)
         else:
             count = count.astype(np.float64)
+        if not _sorted_pairs(bin1, bin2):
+            order = np.lexsort((bin2, bin1))
+            bin1, bin2, count = bin1[order], bin2[order], count[order]
         if weights is not None:
             weights = np.asarray(weights, np.float64)
             if weights.shape != (len(bins),):
@@ -145,7 +154,7 @@ class Cooler:
                                  f"entries, got {weights.shape}")
             bins["weight"] = weights
         return cls(chromnames, lengths, binsize, chrom_offset, bins,
-                   bin1[order], bin2[order], count[order])
+                   bin1, bin2, count)
 
     @classmethod
     def from_cool(cls, uri):
@@ -195,14 +204,14 @@ class Cooler:
         self._bins_df[name] = values
 
     def _clean_weights(self, balance):
-        """Global per-bin balancing weights with NaN -> 0 (cached)."""
+        """Global per-bin balancing weights with NaN -> 0 (cached; threads
+        that fill the cache at once all get the first copy stored)."""
         balance = "weight" if balance is True else balance
         w = self._weights_clean_cache.get(balance)
         if w is None:
-            w = np.nan_to_num(
+            w = self._weights_clean_cache.setdefault(balance, np.nan_to_num(
                 self._bins_df[balance].values.astype(np.float32)
-            )
-            self._weights_clean_cache[balance] = w
+            ))
         return w
 
     def bad_bin_mask(self, region, weight_name="weight"):

@@ -1,16 +1,27 @@
 """Per-phase timers and the device trace (counterpart of
 ``coolpuppy_tpu/observability.py``).
 
-``PhaseTimers`` sums wall seconds per named phase and counts snips; the
+``PhaseTimers`` sums wall seconds per named phase and counts events; the
 engine times ``ingest`` (region fetch and per-bin vectors), ``coords``
 (coordinate frames to flat index arrays), ``tiles`` (host tile scatter),
+``stage`` (a stream's stack upload, expand or COO scatter, normalize),
 ``device`` (stack upload, expand, normalize, quad sort, kernel, fetch, side
-sums, stripe gather), ``stripes`` (stripe planes and coordinate strings
-split per group) and ``finalize`` (region merge and the output table). The
-hook routes add ``hook`` (the user's batch hook), ``fold`` (the batch
-route's per-group numpy fold) and ``snips_host`` (the host stream's per-snip
-dicts, hooks and fold); their ``device`` is upload, normalize, window cut
-and fetch.
+sums, stripe gather; the stream's chunk sorts and launches), ``wait`` (the
+main thread blocked on a prefetched region or a stream's session),
+``stripes`` (stripe planes and coordinate strings split per group) and
+``finalize`` (region merge and the output table). The hook routes add
+``hook`` (the user's batch hook), ``fold`` (the batch route's per-group
+numpy fold) and ``snips_host`` (the host stream's per-snip dicts, hooks and
+fold); their ``device`` is upload, normalize, window cut and fetch.
+
+A phase opened inside another on the same thread pauses it, so each second
+of one thread lands in one phase. Phases of different threads overlap:
+``ingest`` runs on the region prefetch threads and a stream's ``tiles``
+and ``stage`` on the staging worker, beside the main thread's ``coords``,
+``device`` and ``wait``; the sum of the phases can then exceed the wall.
+Counts: ``snips``, ``stream_regions`` (regions accumulated by a stream),
+``stream_aborts`` (streams given up for the collected path),
+``stream_chunks`` (a stream's launches of the quad accumulation).
 ``device_trace(trace_dir)`` records the block with ``torch.profiler`` and
 writes a chrome trace into ``trace_dir``."""
 
@@ -19,6 +30,7 @@ from __future__ import annotations
 import contextlib
 import logging
 import os
+import threading
 import time
 from collections import defaultdict
 
@@ -30,17 +42,31 @@ class PhaseTimers:
         self.seconds = defaultdict(float)
         self.counts = defaultdict(int)
         self._t0 = time.perf_counter()
+        self._lock = threading.Lock()
+        self._open = threading.local()  # this thread's [name, since] stack
+
+    def _add(self, name, dt):
+        with self._lock:
+            self.seconds[name] += dt
 
     @contextlib.contextmanager
     def phase(self, name):
-        t0 = time.perf_counter()
+        stack = self._open.__dict__.setdefault("stack", [])
+        now = time.perf_counter()
+        if stack:  # pause the enclosing phase of this thread
+            self._add(stack[-1][0], now - stack[-1][1])
+        stack.append([name, now])
         try:
             yield
         finally:
-            self.seconds[name] += time.perf_counter() - t0
+            end = time.perf_counter()
+            self._add(name, end - stack.pop()[1])
+            if stack:
+                stack[-1][1] = end
 
     def count(self, name, n=1):
-        self.counts[name] += n
+        with self._lock:
+            self.counts[name] += n
 
     def summary(self):
         total = time.perf_counter() - self._t0

@@ -9,7 +9,8 @@ semantics on PyTorch tensors:
    the device into ONE NaN-encoded stack (``ops/tiles.py``): masked-out
    pixels are NaN, division-by-zero poison stays +inf.
 2. ``sort_quads`` sorts the packed snip words (``pack_snips``) on the host by
-   (quad, group), so each quad's snips form one run per group. Work items
+   (quad, group) with two passes of the native counting sort, so each quad's
+   snips form one run per group. Work items
    are cut from that order: ``split_items`` cuts a quad into items of at
    most ``ITEM_MAX`` snips whatever their groups (the staged kernel),
    ``split_runs`` into one item per (quad, group) run (the direct kernel).
@@ -128,6 +129,25 @@ def pack_snips(o1, o2, cid):
     return (o1 << 24) | (o2 << 17) | cid
 
 
+def _quad_spans(quads, counts, tile_map):
+    """Each quad's four tile slots (order 00, 01, 10, 11) and span of the
+    sorted stream, from the ascending unique quad ids and their counts."""
+    ncol = tile_map.shape[1]
+    t1, t2 = quads // ncol, quads % ncol
+    k = np.stack(
+        [tile_map[t1, t2], tile_map[t1, t2 + 1],
+         tile_map[t1 + 1, t2], tile_map[t1 + 1, t2 + 1]],
+        axis=1,
+    ).astype(np.int32)
+    starts = np.cumsum(counts) - counts
+    return k, starts.astype(np.int32), np.asarray(counts, np.int32)
+
+
+def _empty_sort(snips):
+    return (snips, np.zeros((0, 4), np.int32), np.zeros(0, np.int32),
+            np.zeros(0, np.int32))
+
+
 def sort_quads(r1, r2, cid, tile_map, B):
     """Sort a snip stream by (tile quad, group) and describe every quad.
 
@@ -135,7 +155,37 @@ def sort_quads(r1, r2, cid, tile_map, B):
     [n]), each quad's four tile slots ``k`` (int32 [nq, 4], order 00, 01,
     10, 11), and the span ``[qstart, qstart+qcount)`` of its snips. Within
     a quad the snips of one group are contiguous; within a group they keep
-    input order."""
+    input order.
+
+    Two stable passes of the native counting sort (``native.quad_sort``):
+    by group, then by quad, whose histogram is the per-quad count; the
+    order is ``sort_quads_plain``'s bit for bit. Past 2^23 quad ids (the
+    reference's limit for the counting sort) the plain version runs."""
+    from .. import native
+
+    ncol = tile_map.shape[1]
+    nbuckets = (tile_map.shape[0] - 1) * ncol + 1
+    if nbuckets > 1 << 23:
+        return sort_quads_plain(r1, r2, cid, tile_map, B)
+    r1a = np.asarray(r1, np.int64)
+    r2a = np.asarray(r2, np.int64)
+    packed = pack_snips(r1a % B, r2a % B, cid)
+    n = len(packed)
+    if n == 0:
+        return _empty_sort(packed)
+    quad = ((r1a // B) * ncol + (r2a // B)).astype(np.int32)
+    group = packed & 0x1FFFF
+    by_group, _ = native.quad_sort(group, np.arange(n, dtype=np.int32),
+                                   int(group.max()) + 1)
+    snips, counts = native.quad_sort(quad[by_group], packed[by_group],
+                                     nbuckets)
+    quads = np.flatnonzero(counts)
+    return (snips, *_quad_spans(quads, counts[quads], tile_map))
+
+
+def sort_quads_plain(r1, r2, cid, tile_map, B):
+    """Plain numpy version of ``sort_quads``: one stable argsort of
+    ``(quad << 17) | group``."""
     ncol = tile_map.shape[1]
     r1a = np.asarray(r1, np.int64)
     r2a = np.asarray(r2, np.int64)
@@ -146,18 +196,10 @@ def sort_quads(r1, r2, cid, tile_map, B):
     qs = quad[order]
     n = len(snips)
     if n == 0:
-        return (snips, np.zeros((0, 4), np.int32), np.zeros(0, np.int32),
-                np.zeros(0, np.int32))
+        return _empty_sort(snips)
     starts = np.concatenate([[0], np.flatnonzero(np.diff(qs)) + 1])
     counts = np.diff(np.concatenate([starts, [n]]))
-    uq = qs[starts]
-    t1, t2 = uq // ncol, uq % ncol
-    k = np.stack(
-        [tile_map[t1, t2], tile_map[t1, t2 + 1],
-         tile_map[t1 + 1, t2], tile_map[t1 + 1, t2 + 1]],
-        axis=1,
-    ).astype(np.int32)
-    return snips, k, starts.astype(np.int32), counts.astype(np.int32)
+    return (snips, *_quad_spans(qs[starts], counts, tile_map))
 
 
 def split_runs(snips, k, qstart, qcount, run_max=RUN_MAX):
@@ -417,10 +459,11 @@ def quad_accumulate(stiles, k, qstart, qcount, snips, W, C):
 
 class QuadPileupSession:
     """Device-resident state for repeated accumulations over one region
-    (counterpart of ``PallasPileupSession`` for ``SymTileStack`` and
-    ``TileStack`` inputs): the raw tiles are uploaded once, expanded and
-    normalized on ``device``; each ``run_many`` quad-sorts one snip stream
-    on the host and accumulates it on the device. ``finalize`` reduces the
+    (counterpart of ``PallasPileupSession`` for ``SymTileStack``,
+    ``TileStack`` and ``CooTileStack`` inputs): the raw tiles (or the COO
+    wire's pixels) are uploaded once, expanded or scattered and normalized
+    on ``device``; each ``run_many`` quad-sorts one snip stream on the host
+    and accumulates it on the device. ``finalize`` reduces the
     collected outputs to float64 numpy totals plus the poison plane.
 
     ``cfg_kw`` holds ``W`` and ``capacity`` (C, the accumulator rows) and
@@ -506,37 +549,36 @@ class QuadPileupSession:
         coolpup.py:1164–1188): float32 numpy [n, 2W], the centre row
         ``M[a+mid, b:b+W]`` then the centre column ``M[a:a+W, b+mid]``
         (unreversed; callers reverse it), for the window starting at
-        (a, b). Gathered as torch ops from the normalized NaN-encoded stack
-        through the tile map, so masked pixels are NaN and poison stays
-        +inf, ``chunk`` snips at a time to bound the index tensors."""
+        (a, b), ``chunk`` snips at a time (``stripes_device``) to bound the
+        index tensors."""
+        out = np.empty((len(r1), 2 * self.W), np.float32)
+        for lo in range(0, len(r1), chunk):
+            hi = min(lo + chunk, len(r1))
+            out[lo:hi] = self.stripes_device(r1[lo:hi], r2[lo:hi]).cpu().numpy()
+        return out
+
+    def stripes_device(self, r1, r2):
+        """The stripe planes of ``run_stripes`` for one chunk of snips, as a
+        float32 [n, 2W] tensor on the session's device: gathered as torch
+        ops from the normalized NaN-encoded stack through the tile map, so
+        masked pixels are NaN and poison stays +inf."""
         W, B = self.W, B_TILE
         mid = W // 2
-        n = len(r1)
-        out = np.empty((n, 2 * W), np.float32)
-        if n == 0:
-            return out
         if not hasattr(self, "_tmap_dev"):
             self._tmap_dev = torch.from_numpy(
                 np.asarray(self.tile_stack.tile_map, np.int64)
             ).to(self.device)
         tmap = self._tmap_dev
         ar = torch.arange(W, device=self.device)
-        for lo in range(0, n, chunk):
-            hi = min(lo + chunk, n)
-            a = torch.from_numpy(np.asarray(r1[lo:hi], np.int64)).to(
-                self.device
-            )
-            b = torch.from_numpy(np.asarray(r2[lo:hi], np.int64)).to(
-                self.device
-            )
-            row = (a + mid)[:, None]  # horizontal: one row, W columns
-            col = b[:, None] + ar[None, :]
-            h = self.stiles[tmap[row // B, col // B], row % B, col % B]
-            row = a[:, None] + ar[None, :]  # vertical: W rows, one column
-            col = (b + mid)[:, None]
-            v = self.stiles[tmap[row // B, col // B], row % B, col % B]
-            out[lo:hi] = torch.cat([h, v], dim=1).cpu().numpy()
-        return out
+        a = torch.from_numpy(np.asarray(r1, np.int64)).to(self.device)
+        b = torch.from_numpy(np.asarray(r2, np.int64)).to(self.device)
+        row = (a + mid)[:, None]  # horizontal: one row, W columns
+        col = b[:, None] + ar[None, :]
+        h = self.stiles[tmap[row // B, col // B], row % B, col % B]
+        row = a[:, None] + ar[None, :]  # vertical: W rows, one column
+        col = (b + mid)[:, None]
+        v = self.stiles[tmap[row // B, col // B], row % B, col % B]
+        return torch.cat([h, v], dim=1)
 
     @staticmethod
     def finalize(outs, compact=None):

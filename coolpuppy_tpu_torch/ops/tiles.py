@@ -1,18 +1,26 @@
 """Block-sparse tile stacks (counterpart of ``coolpuppy_tpu/ops/tiles.py``).
 
-The host half is copied from the reference as numpy: the tile dataclasses,
-the COO and pixel-slab scatters into upper-triangle or full tile stacks,
-and the host oracles ``normalize_tile_stack`` and
-``assemble_windows_batch``. It is copied, not imported, because importing
-any ``coolpuppy_tpu`` module imports jax. The native C++ scatter of the
-reference is not ported; the numpy branch is the only path.
+The host half is copied from the reference: the tile dataclasses, the tile
+predicates (the windows' touched tiles, a |row - col| band, rectangles of
+bin ranges), the COO and pixel-slab scatters into upper-triangle or full
+tile stacks, the sparse COO wire (``CooTileStack``), and the host oracles
+``normalize_tile_stack`` and ``assemble_windows_batch``. It is copied, not
+imported, because importing any ``coolpuppy_tpu`` module imports jax. The
+scatters run the port's native C++ (``coolpuppy_tpu_torch/native``) as the
+reference does: ``scatter`` and ``scatter_slab``, looked up in this module
+at call time. Their numpy branches stay as the plain versions
+``scatter_plain`` and ``scatter_slab_plain`` (balancing weights folded in
+float64 where the C++ folds them in float32), which the tests hold the
+native entries against.
 
 The device half ports the reference's jnp functions as torch ops:
-``expand_sym`` (upper tiles -> full raw stack), ``normalize_tiles`` (raw
-stack -> one NaN-encoded observed-over-expected stack), ``normalized_stack``
-(both, from a host tile stack) and ``cut_windows`` (windows of any size cut
-from that stack through its tile map: the generic and rescale paths, in
-place of the reference's bucket restack and 2×2 superwindows).
+``expand_sym`` (upper tiles -> full raw stack), ``coo_tiles`` (the COO wire
+scatter-added into the raw stack), ``normalize_tiles`` (raw stack -> one
+NaN-encoded observed-over-expected stack), ``normalized_stack`` (a host tile
+stack of any of the three kinds uploaded, expanded and normalized) and
+``cut_windows`` (windows of any size cut from that stack through its tile
+map: the generic and rescale paths, in place of the reference's bucket
+restack and 2×2 superwindows).
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import native
 from ..device import resolve_device
 
 
@@ -172,9 +181,13 @@ def _want_tiles(rows, cols, B, shape, r1, r2, window1, window2):
     return want, nr, nc
 
 
-def _scatter(rows, cols, vals, tmap, B, K):
-    """bincount-scatter COO pixels into [K+1, B, B] float32 tiles through a
-    (tile_row, tile_col) -> slot map; pixels on unmapped tiles are dropped."""
+def scatter_plain(rows, cols, vals, tmap, B, K):
+    """Plain numpy version of ``scatter``: bincount-scatter COO pixels
+    into [K+1, B, B] float32 tiles (sums in float64, one cast) through a
+    (tile_row, tile_col) -> slot map; pixels on unmapped tiles are
+    dropped."""
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
     pix_tile = tmap[rows // B, cols // B].astype(np.int64)
     keep = pix_tile > 0
     flat_idx = (
@@ -184,13 +197,58 @@ def _scatter(rows, cols, vals, tmap, B, K):
     return flat.reshape(K + 1, B, B).astype(np.float32)
 
 
+def scatter(rows, cols, vals, tmap, B, K):
+    """COO pixels -> [K+1, B, B] float32 tiles through ``tmap``: the native
+    ``tile_scatter`` (float32 sums)."""
+    return native.tile_scatter(rows, cols, vals, tmap, B, K)
+
+
+def scatter_slab_plain(slab, tmap, B, K, mirror):
+    """Plain numpy version of ``scatter_slab``: the slab's pixels balanced
+    by its weights (folded in float64), each off-diagonal pixel's transpose
+    added when ``mirror``, cut to the rectangle and bincount-scattered."""
+    n1, n2 = slab.shape
+    rows = slab.rows - slab.lo1
+    cols = slab.cols - slab.lo2
+    vals = slab.vals.astype(np.float64)
+    if slab.weights is not None:
+        vals = vals * slab.weights[slab.rows] * slab.weights[slab.cols]
+    if mirror:
+        off = slab.rows != slab.cols
+        rows, cols, vals = (
+            np.concatenate([rows, cols[off]]),
+            np.concatenate([cols, rows[off]]),
+            np.concatenate([vals, vals[off]]),
+        )
+    inb = (rows >= 0) & (rows < n1) & (cols >= 0) & (cols < n2)
+    return scatter_plain(rows[inb], cols[inb], vals[inb], tmap, B, K)
+
+
+def scatter_slab(slab, tmap, B, K, mirror):
+    """A ``PixelSlab`` -> [K+1, B, B] float32 tiles through ``tmap`` in one
+    fused pass: the native ``tile_scatter_wtri`` (weights folded in
+    float32, the mirror when ``mirror``); the mirrored or balanced COO
+    never exists on the host."""
+    n1, n2 = slab.shape
+    return native.tile_scatter_wtri(
+        slab.rows, slab.cols, slab.vals, slab.lo1, slab.lo2, n1, n2,
+        slab.weights, tmap, B, K, mirror,
+    )
+
+
+def _dense_map(want, nr, nc):
+    tile_map = np.zeros((nr + 1, nc + 1), dtype=np.int32)
+    tile_map[want // nc, want % nc] = np.arange(1, len(want) + 1,
+                                                dtype=np.int32)
+    return tile_map
+
+
 def build_tile_stack(coo, B, r1=None, r2=None, window1=None, window2=None):
     """Scatter a scipy COO region matrix into a TileStack.
 
     If (r1, r2, window sizes) are given, only tiles touched by those windows
-    are materialized; otherwise all nonzero tiles are.
-    One O(nnz) pass: tile-id per pixel, filter to touched, bincount-scatter.
-    """
+    are materialized; otherwise all nonzero tiles are. One O(nnz) pass of
+    ``scatter`` in scipy's own dtypes."""
     n1, n2 = coo.shape
     rows = np.asarray(coo.row)
     cols = np.asarray(coo.col)
@@ -198,15 +256,13 @@ def build_tile_stack(coo, B, r1=None, r2=None, window1=None, window2=None):
     want, nr, nc = _want_tiles(
         rows, cols, B, (n1, n2), r1, r2, window1, window2
     )
-
     K = len(want)
     # +1 for the shared zero tile at stack index 0
-    tile_map = np.zeros((nr + 1, nc + 1), dtype=np.int32)
-    tile_map[want // nc, want % nc] = np.arange(1, K + 1, dtype=np.int32)
+    tile_map = _dense_map(want, nr, nc)
     if K == 0 or len(rows) == 0:
         tiles = np.zeros((K + 1, B, B), dtype=np.float32)
     else:
-        tiles = _scatter(rows, cols, vals, tile_map, B, K)
+        tiles = scatter(rows, cols, vals, tile_map, B, K)
     return TileStack(tiles=tiles, tile_map=tile_map, B=B, shape=(n1, n2))
 
 
@@ -230,19 +286,42 @@ def build_tile_stack_sym(coo, B, r1=None, r2=None, window1=None, window2=None):
     if Ku == 0 or len(rows) == 0:
         upper = np.zeros((Ku + 1, B, B), dtype=np.float32)
     else:
-        upper = _scatter(rows, cols, vals, utile_map, B, Ku)
+        upper = scatter(rows, cols, vals, utile_map, B, Ku)
     return SymTileStack(
         upper=upper, tile_map=tile_map, src=src, flip=flip, diag=diag,
         diag_full=True, B=B, shape=(n1, n2),
     )
 
 
-def build_tile_stack_slab_sym(slab, B, r1, r2, window1, window2):
+def _slab_want(slab, B, r1, r2, window1, window2, band, want, both):
+    """The tiles to materialize of a slab's rectangle: an explicit ``want``
+    (raveled tile ids), the ``band`` predicate, the tiles windows starting
+    at (r1, r2) touch, or else every tile holding a stored pixel (and its
+    transpose when ``both``). Returns ``(want, nr, nc)``."""
+    n1, n2 = slab.shape
+    nr, nc = -(-n1 // B), -(-n2 // B)
+    if want is not None:
+        return np.asarray(want, np.int64), nr, nc
+    if band is not None:
+        return band_tiles(band, B, (n1, n2))
+    if r1 is not None:
+        return touched_tiles(r1, r2, window1, window2, B, (n1, n2))
+    lr = slab.rows - slab.lo1
+    lc = slab.cols - slab.lo2
+    t = np.unique((lr // B) * nc + lc // B)
+    if both:
+        t = np.union1d(t, (lc // B) * nc + lr // B)
+    return t, nr, nc
+
+
+def build_tile_stack_slab_sym(slab, B, r1=None, r2=None, window1=None,
+                              window2=None, band=None, want=None):
     """Upper-triangle build from a stored-triangle cis ``PixelSlab``
-    (``io/cool.Cooler.fetch_slab``) for the tiles that windows starting at
-    (r1, r2) touch: the pixels are balanced by the slab's weights (folded
-    in float64) and scattered unmirrored onto the upper tile map, so
-    diagonal tiles hold only the stored upper half (``diag_full=False``;
+    (``io/cool.Cooler.fetch_slab``) for the tiles of the predicate
+    (``_slab_want``: ``want``, ``band`` or the windows starting at (r1,
+    r2)): the pixels are balanced by the slab's weights and scattered
+    unmirrored onto the upper tile map (``scatter_slab``), so diagonal
+    tiles hold only the stored upper half (``diag_full=False``;
     ``expand_sym`` symmetrizes them)."""
     n1, n2 = slab.shape
     if n1 != n2 or not slab.mirror:
@@ -250,53 +329,151 @@ def build_tile_stack_slab_sym(slab, B, r1, r2, window1, window2):
             "sym slab build requires a square cis region with a stored "
             "triangle"
         )
-    want, nr, nc = touched_tiles(r1, r2, window1, window2, B, (n1, n2))
+    want, nr, nc = _slab_want(slab, B, r1, r2, window1, window2, band, want,
+                              True)
     tile_map, utile_map, src, flip, diag, Ku = _sym_maps(want, nr, nc)
     if Ku == 0 or slab.nnz == 0:
         upper = np.zeros((Ku + 1, B, B), dtype=np.float32)
     else:
-        rows = slab.rows - slab.lo1
-        cols = slab.cols - slab.lo2
-        vals = slab.vals.astype(np.float64)
-        if slab.weights is not None:
-            vals = vals * slab.weights[slab.rows] * slab.weights[slab.cols]
-        inb = (rows >= 0) & (rows < n1) & (cols >= 0) & (cols < n2)
-        upper = _scatter(rows[inb], cols[inb], vals[inb], utile_map, B, Ku)
+        upper = scatter_slab(slab, utile_map, B, Ku, False)
     return SymTileStack(
         upper=upper, tile_map=tile_map, src=src, flip=flip, diag=diag,
         diag_full=False, B=B, shape=(n1, n2),
     )
 
 
-def build_tile_stack_slab(slab, B, r1, r2, window1, window2):
-    """Dense TileStack of the tiles that windows starting at (r1, r2) touch,
-    from a ``PixelSlab`` — the stack of rectangles that have no mirror
-    (trans region pairs). The reference's numpy branch: balancing weights
-    folded in float64, the stored triangle mirrored when ``slab.mirror``,
-    one bincount scatter, one float32 cast."""
+def build_tile_stack_slab(slab, B, r1=None, r2=None, window1=None,
+                          window2=None, band=None, want=None):
+    """Dense TileStack of the tiles of the predicate (``_slab_want``) from a
+    ``PixelSlab`` in one fused pass (``scatter_slab``): balancing weights
+    folded, the stored triangle mirrored when ``slab.mirror``; the stack of
+    rectangles that have no mirror (trans region pairs)."""
     n1, n2 = slab.shape
-    want, nr, nc = touched_tiles(r1, r2, window1, window2, B, (n1, n2))
+    want, nr, nc = _slab_want(slab, B, r1, r2, window1, window2, band, want,
+                              slab.mirror)
     K = len(want)
-    tile_map = np.zeros((nr + 1, nc + 1), dtype=np.int32)
-    tile_map[want // nc, want % nc] = np.arange(1, K + 1, dtype=np.int32)
+    tile_map = _dense_map(want, nr, nc)
     if K == 0 or slab.nnz == 0:
         tiles = np.zeros((K + 1, B, B), dtype=np.float32)
-        return TileStack(tiles=tiles, tile_map=tile_map, B=B, shape=(n1, n2))
+    else:
+        tiles = scatter_slab(slab, tile_map, B, K, slab.mirror)
+    return TileStack(tiles=tiles, tile_map=tile_map, B=B, shape=(n1, n2))
+
+
+@dataclass
+class CooTileStack:
+    """Sparse wire of a tile stack: per-pixel (flat index, value) pairs that
+    the device scatter-adds into the dense [K+1, B, B] raw stack
+    (``coo_tiles``). Chosen over the dense host scatter when the pixels
+    undercut the dense tile payload: trans feature products touch nearly
+    every tile of a mostly empty rectangle. Balancing weights are folded on
+    the host; values ride float32 (the reference's f16 wire and its
+    ``inv_scale`` are not ported)."""
+
+    idx: np.ndarray  # [nnz] int32 flat index into the raveled [K+1, B, B]
+    vals: np.ndarray  # [nnz] float32
+    tile_map: np.ndarray  # [nr+1, nc+1] -> stack index (0 = empty)
+    B: int
+    shape: tuple
+    k1: int  # dense stack depth K+1 (slot 0 = the shared zero tile)
+
+    @property
+    def n_tiles(self):
+        return self.k1 - 1
+
+    @property
+    def nnz(self):
+        return len(self.idx)
+
+    def expand_host(self):
+        """The dense [K+1, B, B] float32 stack on the host (sums in
+        float64)."""
+        flat = np.zeros(self.k1 * self.B * self.B, np.float64)
+        np.add.at(flat, self.idx, self.vals.astype(np.float64))
+        return flat.reshape(self.k1, self.B, self.B).astype(np.float32)
+
+    def to_tile_stack(self):
+        return TileStack(
+            tiles=self.expand_host(), tile_map=self.tile_map, B=self.B,
+            shape=self.shape,
+        )
+
+
+def build_tile_stack_coo(slab, B, want):
+    """The COO wire of the tiles in ``want`` (raveled tile ids) from a
+    ``PixelSlab``: O(nnz) host work (tile lookup, weight fold in float64
+    then one float32 cast, flat index), no host scatter and no dense host
+    stack. The mirrored twin of off-diagonal pixels is emitted when
+    ``slab.mirror``."""
+    n1, n2 = slab.shape
+    nr, nc = -(-n1 // B), -(-n2 // B)
+    want = np.asarray(want, np.int64)
+    tile_map = _dense_map(want, nr, nc)
     rows = slab.rows - slab.lo1
     cols = slab.cols - slab.lo2
     vals = slab.vals.astype(np.float64)
     if slab.weights is not None:
         vals = vals * slab.weights[slab.rows] * slab.weights[slab.cols]
+    vals = vals.astype(np.float32)
+    inb = (rows >= 0) & (rows < n1) & (cols >= 0) & (cols < n2)
+    rows, cols, vals = rows[inb], cols[inb], vals[inb]
     if slab.mirror:
-        off = slab.rows != slab.cols
+        off = rows != cols
         rows, cols, vals = (
             np.concatenate([rows, cols[off]]),
             np.concatenate([cols, rows[off]]),
             np.concatenate([vals, vals[off]]),
         )
-    inb = (rows >= 0) & (rows < n1) & (cols >= 0) & (cols < n2)
-    tiles = _scatter(rows[inb], cols[inb], vals[inb], tile_map, B, K)
-    return TileStack(tiles=tiles, tile_map=tile_map, B=B, shape=(n1, n2))
+    pix_tile = tile_map[rows // B, cols // B].astype(np.int64)
+    keep = pix_tile > 0
+    rows, cols, vals, pix_tile = (
+        rows[keep], cols[keep], vals[keep], pix_tile[keep],
+    )
+    idx = (pix_tile * (B * B) + (rows % B) * B + (cols % B)).astype(np.int32)
+    return CooTileStack(idx=idx, vals=vals, tile_map=tile_map, B=B,
+                        shape=(n1, n2), k1=len(want) + 1)
+
+
+def rect_tiles(lo1, hi1, lo2, hi2, B, shape):
+    """All (tile_row, tile_col) ids covered by the bin-range rectangles
+    [lo1, hi1) x [lo2, hi2): the tile predicate of streams whose windows
+    are known as intervals before any coordinate frame exists (BEDPE rows,
+    trans feature products with shift margins). Ranges are clipped to the
+    region; returns sorted unique raveled ids, nr, nc."""
+    n1, n2 = shape
+    nr, nc = -(-n1 // B), -(-n2 // B)
+    lo1 = np.clip(np.asarray(lo1, np.int64), 0, n1 - 1)
+    hi1 = np.clip(np.asarray(hi1, np.int64), 1, n1)
+    lo2 = np.clip(np.asarray(lo2, np.int64), 0, n2 - 1)
+    hi2 = np.clip(np.asarray(hi2, np.int64), 1, n2)
+    t1a, t1b = lo1 // B, (hi1 - 1) // B
+    t2a, t2b = lo2 // B, (hi2 - 1) // B
+    sp1 = int((t1b - t1a).max(initial=0)) + 1
+    sp2 = int((t2b - t2a).max(initial=0)) + 1
+    flags = np.zeros(nr * nc, dtype=bool)
+    for di in range(sp1):
+        rr = t1a + di
+        okr = rr <= t1b
+        for dj in range(sp2):
+            cc = t2a + dj
+            ok = okr & (cc <= t2b)
+            flags[rr[ok] * nc + cc[ok]] = True
+    return np.flatnonzero(flags), nr, nc
+
+
+def band_tiles(max_diag_bins, B, shape):
+    """All (tile_row, tile_col) ids within ``max_diag_bins`` of the
+    diagonal: the tile predicate that needs no window coordinates, so a
+    stream's stack can be staged before the windows exist. A tile is
+    included when any of its pixels can satisfy |row - col| <=
+    max_diag_bins. Returns sorted raveled ids, nr, nc."""
+    n1, n2 = shape
+    nr, nc = -(-n1 // B), -(-n2 // B)
+    k = int(max_diag_bins) // B + 1
+    t1 = np.repeat(np.arange(nr, dtype=np.int64), 2 * k + 1)
+    t2 = t1 + np.tile(np.arange(-k, k + 1, dtype=np.int64), nr)
+    keep = (t2 >= 0) & (t2 < nc)
+    return np.sort(t1[keep] * nc + t2[keep]), nr, nc
 
 
 def assemble_windows_batch(stiles, tile_map, B, r1, r2, W):
@@ -532,12 +709,29 @@ def normalize_tile_stack_device(
     )
 
 
+def coo_tiles(cts: CooTileStack, device):
+    """The COO wire on ``device``: upload ``(idx, vals)`` and scatter-add
+    them into a zeroed float32 [K+1, B, B] raw stack with ``index_add_``
+    (the torch-op port of the reference's jnp ``_make_coo_scatter``,
+    ``ops/pallas_gather.py:229-242``; float32 sums, in an order the device
+    picks)."""
+    B = cts.B
+    idx = torch.from_numpy(np.ascontiguousarray(cts.idx, np.int32))
+    vals = torch.from_numpy(np.ascontiguousarray(cts.vals, np.float32))
+    flat = torch.zeros(cts.k1 * B * B, dtype=torch.float32, device=device)
+    flat.index_add_(0, idx.to(device), vals.to(device))
+    return flat.view(cts.k1, B, B)
+
+
 def normalized_stack(tile_stack, valid1, valid2, evec, device, **norm):
-    """A host ``TileStack`` or ``SymTileStack`` uploaded to ``device``,
-    expanded and normalized into ONE NaN-encoded float32 stack
-    [K+1, B, B] (``normalize_tiles`` with the keywords ``norm``)."""
+    """A host ``TileStack``, ``SymTileStack`` or ``CooTileStack`` uploaded
+    to ``device``, expanded (``expand_sym``) or scattered (``coo_tiles``)
+    and normalized into ONE NaN-encoded float32 stack [K+1, B, B]
+    (``normalize_tiles`` with the keywords ``norm``)."""
     if isinstance(tile_stack, SymTileStack):
         tiles = expand_sym(tile_stack, device)
+    elif isinstance(tile_stack, CooTileStack):
+        tiles = coo_tiles(tile_stack, device)
     elif isinstance(tile_stack, TileStack):
         tiles = torch.from_numpy(
             np.ascontiguousarray(tile_stack.tiles, np.float32)

@@ -20,7 +20,7 @@ setup(
             "coolpuppy_tpu_torch.*",
         ]
     ),
-    package_data={"coolpuppy_tpu_torch": ["csrc/*.cu"]},
+    package_data={"coolpuppy_tpu_torch": ["csrc/*.cu", "native/*.cpp"]},
     python_requires=">=3.10",
     install_requires=[
         "numpy",

@@ -1,8 +1,9 @@
 """CPU rehearsals of ``chip_smoke.py``'s phases at a tiny size (5b, 6b, 7b/7c,
-3, 4, 8a-8c, 9a/9b): the same control flow, checks and timing lines, with
-``quad_accumulate`` swapped for a plain version that counts its calls as
-launches (the CUDA kernel cannot run here)."""
+3, 4, 8a-8c, 9a/9b, 10): the same control flow, checks and timing lines,
+with ``quad_accumulate`` swapped for a plain version that counts its calls
+as launches (the CUDA kernel cannot run here)."""
 
+import importlib
 import sys
 from pathlib import Path
 
@@ -167,9 +168,13 @@ def test_slice_phase_rehearsal(monkeypatch, capsys):
     assert rec["variant"] == "staged" and rec["library_ms"] is None
     assert rec["launches"] == 1 and rec["bound_by"] == "bytes"
     shape = rec["shapes"]["slice"]
-    want_bytes = (4 * shape["tiles"] * 128 * 128 + 4 * 3_000
-                  + 24 * shape["items"] + 8 * 16 * 21 * 21)
+    # the stack pixels the windows cover, and the 8 groups (4 and their
+    # flip bank) written
+    want_bytes = (4 * shape["pixels"] + 4 * 3_000 + 24 * shape["items"]
+                  + 8 * 8 * 21 * 21)
     assert shape["snips"] == 3_000 and shape["C"] == 16
+    assert shape["groups"] == 8
+    assert 3_000 * 21 < shape["pixels"] < 3_000 * 21 * 21
     assert rec["bound_ms"] == 1e3 * want_bytes / chip_smoke.PEAK_BYTES_S
     chip_smoke.check_sweep(dev, lambda: None, workload, "cpu rehearsal")
     out = capsys.readouterr().out
@@ -249,10 +254,11 @@ def test_extension_phase_rehearsal(monkeypatch, capsys):
 
 
 def test_phases_option():
-    assert chip_smoke.parse_phases([]) == {3, 4, 5, 6, 7, 8, 9}
+    assert chip_smoke.parse_phases([]) == {3, 4, 5, 6, 7, 8, 9, 10}
     assert chip_smoke.parse_phases(["--phases", "1,2,8"]) == {1, 2, 8}
     assert chip_smoke.parse_phases(["--phases", "9"]) == {9}
-    for bad in ("10", "x", "", "1,2", ","):
+    assert chip_smoke.parse_phases(["--phases", "10"]) == {10}
+    for bad in ("11", "x", "", "1,2", ","):
         try:
             chip_smoke.parse_phases(["--phases", bad])
         except SystemExit as e:
@@ -301,10 +307,10 @@ def test_cli_phase_rehearsal(monkeypatch, capsys):
         workload=lambda: chip_smoke.engine_workload(
             n_sites=200, n_bins=1_500, n_contacts=150_000))
     assert launches == {"controls": 1, "expected": 1}
-    # controls double the groups and add their snips; the expected file
-    # run has none (nshifts 0)
+    # both stream, into the stream's bank of 512 groups; controls add
+    # their snips, the expected file run has none (nshifts 0)
     ctrl, exp = shapes["cli_controls"], shapes["cli_expected"]
-    assert (ctrl["C"], exp["C"]) == (16, 8)
+    assert (ctrl["C"], exp["C"]) == (1024, 1024)
     assert ctrl["snips"] > exp["snips"] > 0
     out = capsys.readouterr().out
     for variant in ("controls", "expected"):
@@ -320,3 +326,70 @@ def test_cli_phase_rehearsal(monkeypatch, capsys):
     reads = [ln for ln in out.splitlines() if "file reads" in ln]
     assert '"read_expected_from_file": 0.0}' in reads[0]
     assert '"read_expected_from_file": 0.0}' not in reads[1]
+
+
+def test_genome_phase_rehearsal(monkeypatch, capsys):
+    """Phase 10 at a tiny size: 3 chromosomes of 1,200 bins, 360 sites, with
+    stream chunks of 2,000 snips so every region launches several times; the
+    native entries against their numpy branches on a 1,500-bin engine map."""
+    from coolpuppy_tpu_torch import native
+
+    _counted_plain(monkeypatch)
+    engine = importlib.import_module("coolpuppy_tpu_torch.engine.pileup")
+    monkeypatch.setattr(engine, "_STREAM_CHUNK", 2_000)
+    # the tiny slabs take the scatter's threaded branches, which add in
+    # input order at one thread only (at full size: the two-pass branch)
+    before = native.threads()
+    native.set_threads(1)
+    shapes = {}
+    try:
+        launches = chip_smoke.check_genome(
+            torch.device("cpu"), lambda: None, "cpu rehearsal", shapes,
+            workload=lambda: chip_smoke.genome_workload(
+                n_chroms=3, bins_per=1_200, contacts_per=50_000,
+                n_sites=360),
+            engine=lambda: chip_smoke.engine_workload(
+                n_sites=200, n_bins=1_500, n_contacts=150_000))
+    finally:
+        native.set_threads(before)
+    assert launches > 3 and shapes["genome"]["launches"] == launches
+    assert shapes["genome_chunk"]["snips"] == 2_000
+    out = capsys.readouterr().out
+    for line in ("native tile_scatter_wtri genome chromosome: ",
+                 "native tile_scatter_wtri engine map: ",
+                 "native quad_sort (two passes, sort_quads) on the engine",
+                 "native enumerate_pairs on one chromosome's 120 sites",
+                 "threads: torch ", "genome warm-up (one chromosome's 120 ",
+                 "stream_regions 3, stream_aborts 0, route cuda_kernel",
+                 "genome kernel vs plain (whole run)",
+                 "genome stream vs the collected path",
+                 "genome snips/s: ", "genome phases of a timed run (s): ",
+                 "genome kernel bound: ", "genome stream chunk kernel bound: "):
+        assert line in out, line
+
+
+def test_covered_pixels_counts_each_stack_pixel_once():
+    """The kernel bound's bytes read: the union of the pixels every window
+    covers, through each work item's four tile slots, against a brute-force
+    count over the cut windows."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    W, n = 21, 400
+    nt = 5
+    tmap = np.zeros((nt + 1, nt + 1), np.int32)
+    tmap[:nt, :nt] = rng.permutation(nt * nt).reshape(nt, nt) + 1
+    tmap[2, 3] = 0  # a missing tile reads slot 0
+    r1 = rng.integers(0, nt * 128 - W, n)
+    r2 = rng.integers(0, nt * 128 - W, n)
+    snips, k, qs, qc = qg.sort_quads(r1, r2, rng.integers(0, 5, n), tmap,
+                                     128)
+    k, qs, qc = qg.split_items(k, qs, qc, item_max=7)
+    got = chip_smoke.covered_pixels(*(torch.from_numpy(a) for a in
+                                      (k, qs, qc, snips)), W, block=5)
+    cells = set()
+    for a, b in zip(r1, r2):
+        for i in range(a, a + W):
+            for j in range(b, b + W):
+                cells.add((int(tmap[i // 128, j // 128]), i % 128, j % 128))
+    assert got == len(cells)

@@ -17,6 +17,7 @@ from coolpuppy_tpu.ops.pallas_gather import PallasPileupSession
 from coolpuppy_tpu_torch.ops.quad_gather import QuadPileupSession, stripes_host
 from coolpuppy_tpu_torch.ops.tiles import build_tile_stack_slab
 from fixtures import make_toy_cooler, toy_features, toy_regions
+from test_torch_native import one_thread
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
@@ -79,8 +80,15 @@ def test_run_stripes_matches_host_oracle_and_reference(W):
 
 @pytest.mark.parametrize("mirror", [False, True])
 def test_build_tile_stack_slab_matches_reference_numpy(monkeypatch, mirror):
+    """Both packages' numpy branches (the port's plain ``scatter_slab``), bit
+    for bit; then the port's native build against the reference's native
+    build, bit for bit at one OpenMP thread."""
     ref_tiles = importlib.import_module("coolpuppy_tpu.ops.tiles")
+    port_tiles = importlib.import_module("coolpuppy_tpu_torch.ops.tiles")
+    native_want = ref_tiles.build_tile_stack_slab
     monkeypatch.setattr(ref_tiles, "_native_tile_scatter_wtri", None)
+    monkeypatch.setattr(port_tiles, "scatter_slab",
+                        port_tiles.scatter_slab_plain)
     W = 21
     if mirror:
         clr, _ = _rect(300, 420, seed=4)
@@ -98,6 +106,11 @@ def test_build_tile_stack_slab_matches_reference_numpy(monkeypatch, mirror):
     assert got.tiles.dtype == want.tiles.dtype == np.float32
     np.testing.assert_array_equal(got.tiles, want.tiles)
     assert got.shape == want.shape and got.n_tiles > 0
+    monkeypatch.undo()
+    with one_thread():
+        got = build_tile_stack_slab(slab, B, r1, r2, W, W)
+        want = native_want(slab, B, r1=r1, r2=r2, window1=W, window2=W)
+    np.testing.assert_array_equal(got.tiles, want.tiles)
 
 
 @pytest.fixture(scope="module")
