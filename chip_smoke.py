@@ -38,8 +38,8 @@ measured). Phases, each printing its lines and, as it ends, its seconds:
    pixel) in an order that changes from run to run) and a 20,000-snip subset
    against the host oracle (numpy normalize + window cuts + nansum: ``num``
    exact, ``sum`` rtol 1e-5), then times the two kernels in turns (direct,
-   staged, staged, direct; the kernel's device time from the profiler, the
-   launcher call between CUDA events), the staged kernel's alternatives
+   staged, staged, direct; the kernel's device time between CUDA events
+   around its launch, the launcher call between CUDA events), the staged kernel's alternatives
    (pixels a thread, ``ITEM_MAX``; one round each), the plain version and
    the whole path (with its phases), prints the kernel's bound (bytes over
    3.35 TB/s against float adds over 67 TFLOP/s) and its share of it, the
@@ -159,6 +159,28 @@ measured). Phases, each printing its lines and, as it ends, its seconds:
    with their phases, the phases' sum and the counts, the busy share, and
    the kernel's bound for the whole run and for the stream's largest
    chunk.
+
+11. the mesh (``coolpuppy_tpu_torch.parallel``), on ``LociMesh``es that
+   repeat the one card. (a) Every mode of ``MESH_MODES`` (cis by strand
+   with controls banded and replicated, OOE expected, coverage, trans,
+   rescale, W = 123 banded, stripes banded and replicated, by-window with a
+   block of 8 groups, BEDPE) on meshes of 2 and 4, held against the card's
+   single-device run and the ``LociMesh(["cpu"] * n)`` run as in 5a, the
+   ``_rowshard_*`` counters equal to the CPU's, a launch on every device
+   that holds snips, and the current CUDA device unchanged. (b) The genome
+   cell (phase 10's map and table) on meshes of 1, 2 and 4: each held
+   against phase 10's table (counts exact, ``data`` rtol 1e-4), with its
+   wall, phases, launches per device, regions banded and replicated, the
+   largest stack per device and the halo bytes; one more run profiled (the
+   busy share, the kernel's bound). (c) ``QuadMeshSession.run_chunk`` at
+   ``bench.py:673`` bench_scaling's size (262,144 loci, W = 21) on meshes
+   of 1, 2 and 4 against ``QuadPileupSession`` (``num`` exact, ``sum``
+   rtol 1e-5), with snips/s and the retention against the mesh of one.
+   (d) This script started twice as ranks of a gloo group on the card
+   (``--rank``), each on a 4-chromosome genome map of its own from seed 0
+   (hashes equal across ranks), each taking 2 region pairs; rank 0's table
+   against this process's one-process run (keys and counts exact, ``data``
+   rtol 1e-5).
 
 Phases 5-10 share the engine map (``bench_cooler`` builds it once a run).
 Any failure raises and exits non-zero. The last line of standard output is
@@ -807,47 +829,66 @@ def event_ms(fn, sync):
     return t0.elapsed_time(t1)
 
 
-class quad_kernel_trace:
-    """The device time of every quad kernel launched during a block, from
-    one ``torch.profiler`` trace: ``ms``, in launch order."""
+# cycles of the sleep kernel queued ahead of each timed launch (~50 us at
+# the H100's clock): it keeps the stream busy while the host enqueues the
+# launch, so the events around the launch time the kernel alone
+SLEEP_CYCLES = 100_000
+
+
+class quad_kernel_events:
+    """The device time of every quad kernel launched during a block, in
+    launch order (``ms``): for the block the library's two launch entries
+    are wrapped so that each launch sits between two CUDA events on its
+    stream, behind a short sleep kernel (``SLEEP_CYCLES``)."""
+
+    ENTRIES = ("quad_accumulate_launch", "quad_accumulate_staged_launch")
 
     def __enter__(self):
-        from torch.profiler import ProfilerActivity, profile
+        import torch
+        from coolpuppy_tpu_torch.kernels.build import load_kernels
 
-        self.prof = profile(activities=[ProfilerActivity.CUDA])
-        self.prof.__enter__()
+        self.lib = load_kernels()
+        self.saved = {name: getattr(self.lib, name) for name in self.ENTRIES}
+        self.events = []
+
+        def bracket(entry):
+            def launch(*args):
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(SLEEP_CYCLES)
+                t0.record()
+                err = entry(*args)
+                t1.record()
+                self.events.append((t0, t1))
+                return err
+            return launch
+
+        for name, entry in self.saved.items():
+            setattr(self.lib, name, bracket(entry))
         return self
 
     def __exit__(self, *exc):
-        from torch.autograd import DeviceType
+        import torch
 
-        self.prof.__exit__(*exc)
-        evs = [e for e in self.prof.events()
-               if e.device_type == DeviceType.CUDA
-               and "quad_accumulate" in e.name]
-        evs.sort(key=lambda e: e.time_range.start)
-        self.ms = [e.time_range.elapsed_us() / 1e3 for e in evs]
-
-
-TRACE_TRIES = 3
+        for name, entry in self.saved.items():
+            setattr(self.lib, name, entry)
+        torch.cuda.synchronize()
+        self.ms = [t0.elapsed_time(t1) for t0, t1 in self.events]
 
 
 def kernel_and_call_ms(fn, sync):
     """Two calls of one launcher: the whole call between two CUDA events
     (two memsets, the kernel and the launch gaps between them), then the
-    quad kernel's own device time from a profiler trace around the second
-    call alone. A trace now and then comes back without the kernel's record
-    (seen once in ~130 calls on the H100); the call is then made again, at
-    most TRACE_TRIES times."""
+    quad kernel's own device time between the events around its launch in
+    the second call (``quad_kernel_events``)."""
     call = event_ms(fn, sync)
-    for _ in range(TRACE_TRIES):
-        with quad_kernel_trace() as trace:
-            fn()
-            sync()
-        if len(trace.ms) == 1:
-            return trace.ms[0], call
-    raise AssertionError(f"{TRACE_TRIES} profiler traces around one "
-                         f"launcher call saw {len(trace.ms)} quad kernels")
+    with quad_kernel_events() as trace:
+        fn()
+        sync()
+    if len(trace.ms) != 1:
+        raise AssertionError(f"one launcher call made {len(trace.ms)} quad "
+                             "kernel launches")
+    return trace.ms[0], call
 
 
 def in_turns(fns, sync, rounds=None):
@@ -995,8 +1036,8 @@ def check_slice(dev, sync, workload, card):
     # the path on the host clock
     kern_ms = in_turns(kernels, sync)
     print("kernel timing in turns (direct, staged, staged, direct; kernel "
-          "device time from the profiler, launcher call between CUDA "
-          "events; ms): " + ms_line(kern_ms))
+          "device time between CUDA events around its launch, launcher "
+          "call between CUDA events; ms): " + ms_line(kern_ms))
     print("staged alternatives in turns (ms): "
           + ms_line(in_turns(alternatives, sync, rounds=SWEEP_ROUNDS)))
     by_item_max = {}
@@ -2860,6 +2901,12 @@ def check_cli(dev, sync, card, shapes=None, workload=None):
     return launches
 
 
+# the genome cell's map and its single-device table, kept by phase 10 for
+# phase 11, and phase 4's workload, kept for phase 11c
+GENOME = {}
+SLICE = {}
+
+
 def genome_workload(n_chroms=20, bins_per=13_500, contacts_per=7_500_000,
                     n_sites=37_000, binsize=10_000, seed=0):
     """``bench.py:866`` ``bench_genome``'s map and sites with its RNG calls,
@@ -2916,16 +2963,17 @@ def genome_workload(n_chroms=20, bins_per=13_500, contacts_per=7_500_000,
     return clr, pd.concat(frames, ignore_index=True)
 
 
-def genome_run(clr, feats, dev, **kw):
+def genome_run(clr, feats, dev, mesh=None, **kw):
     """One genome-cell run: the PileUpper that ``pileup(**GENOME_KW)``
-    builds, by strand. Returns ``(PileUpper, table)``."""
+    builds, by strand, on ``mesh`` where given. Returns ``(PileUpper,
+    table)``."""
     from coolpuppy_tpu_torch import CoordCreator, PileUpper
 
     args = dict(GENOME_KW, **kw)
     del args["by_strand"]
     nshifts = args.pop("nshifts")
     cc = CoordCreator(feats, clr.binsize, nshifts=nshifts, **args)
-    pu = PileUpper(clr, cc, control=nshifts > 0, device=dev)
+    pu = PileUpper(clr, cc, control=nshifts > 0, device=dev, mesh=mesh)
     return pu, pu.pileupsByStrandWithControl()
 
 
@@ -3083,6 +3131,8 @@ def check_genome(dev, sync, card, shapes=None, workload=None,
     chunk_snips = importlib.import_module(
         "coolpuppy_tpu_torch.engine.pileup")._STREAM_CHUNK
     t, (clr, feats) = timed(workload or genome_workload, lambda: None)
+    if workload is None:
+        GENOME["map"] = (clr, feats)
     print(f"genome workload: {len(clr.chromnames)} chromosomes, {clr.n_bins} "
           f"bins, {clr.n_pixels} pixels, {len(feats)} sites in {t:.1f} s")
     t, eng = timed(engine or engine_workload, lambda: None)
@@ -3122,6 +3172,8 @@ def check_genome(dev, sync, card, shapes=None, workload=None,
     data = np.stack(checked["data"].to_list())
     if data.shape[1:] != (21, 21) or not np.isfinite(data).any():
         raise AssertionError(f"genome output: shape {data.shape}")
+    if workload is None:
+        GENOME["table"] = checked
     print(f"genome checked run: {n_snips} snips, {len(checked)} rows "
           f"({list(checked['orientation'])}), launches {launches} (one a "
           f"chunk of at most {chunk_snips} snips), stream_regions "
@@ -3173,6 +3225,458 @@ def check_genome(dev, sync, card, shapes=None, workload=None,
     return launches
 
 
+# -- phase 11: the mesh ----------------------------------------------------
+
+# (a) per mode: the map ("toy": toy_cooler() with toy_features() in the toy
+# view; "dry": the dry run's 1,408 + 704-bin map and its 72 sites,
+# parallel/dryrun.py, whose chr1 bands over 2 and 4 devices), the pileup()
+# keywords ("expected_df": True for the toy expected table), BEDPE rows
+# (toy_bedpe()), engine constants for the mode (a block of 8 groups at
+# W = 7), whether a region must band, and the route on the card
+MESH_SIZES = (2, 4)
+MESH_MODES = {
+    "cis_banded": dict(map="dry", kw=dict(
+        flank=3_000_000, mindist=0, maxdist=120_000_000, nshifts=1, seed=0,
+        by_strand=True), banded=True),
+    "cis_replicated": dict(map="toy", kw=dict(TOY_KW, nshifts=1, seed=0,
+                                               by_strand=True)),
+    "expected": dict(map="toy", kw=dict(TOY_KW, expected_df=True)),
+    "coverage": dict(map="toy", kw=dict(TOY_KW, clr_weight_name=None,
+                                        coverage_norm=True)),
+    "trans": dict(map="dry", kw=dict(flank=3_000_000, nshifts=1, seed=0,
+                                     trans=True), banded=True),
+    "rescale": dict(map="toy", kw=dict(RESCALE_KW, local=True),
+                    route="rescale_torch"),
+    "wide_banded": dict(map="dry", kw=dict(
+        flank=61_000_000, mindist=0, maxdist=200_000_000, nshifts=1, seed=0,
+        by_strand=True), banded=True, route="generic_torch"),
+    "stripes_banded": dict(map="dry", kw=dict(
+        flank=3_000_000, mindist=0, maxdist=60_000_000, store_stripes=True),
+        banded=True),
+    "stripes_replicated": dict(map="toy", kw=dict(TOY_KW,
+                                                   store_stripes=True)),
+    "by_window_blocked": dict(map="dry", kw=dict(
+        flank=3_000_000, mindist=0, maxdist=60_000_000, nshifts=1, seed=0,
+        by_window=True), patch={"_BLOCK_BYTES": 2 * 7 * 7 * 8 * 8},
+        banded=True),
+    "bedpe": dict(map="toy", kw=dict(TOY_KW, features_format="bedpe"),
+                  bedpe=True),
+}
+# (b) the genome cell on meshes of these sizes
+GENOME_MESH_SIZES = (1, 2, 4)
+# (c) bench.py:673 bench_scaling's workload through the mesh session alone
+SCALING_LOCI = 262_144
+SCALING_RUNS = 3
+# (d) two ranks on the card: each builds this genome map (the genome
+# cell's chromosome size and sites per chromosome) and gets this long
+RANK_WORKLOAD = dict(n_chroms=4, n_sites=7_400)
+RANK_SECONDS = 600
+RANK_RTOL = 1e-5
+
+
+class last_upper:
+    """The ``PileUpper`` whose ``pileupsWithControl`` runs last in a block
+    (``pu``): ``pileup()`` builds its own, and its counters and
+    ``mesh_stats`` are read after the call."""
+
+    def __enter__(self):
+        eng = importlib.import_module("coolpuppy_tpu_torch.engine.pileup")
+        self.cls = eng.PileUpper
+        self.saved = inner = self.cls.pileupsWithControl
+        self.pu = None
+        outer = self
+
+        def recording(pu, *args, **kw):
+            outer.pu = pu
+            return inner(pu, *args, **kw)
+
+        self.cls.pileupsWithControl = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.pileupsWithControl = self.saved
+
+
+def mesh_maps():
+    """The two maps of ``MESH_MODES``: name -> (Cooler, features, view,
+    expected table)."""
+    from coolpuppy_tpu_torch.parallel.dryrun import toy_map, toy_sites
+
+    clr, dense, weights = toy_cooler()
+    return {
+        "toy": (clr, toy_features(), toy_regions(),
+                toy_expected(clr, dense, weights, toy_regions())),
+        "dry": (toy_map(), toy_sites(), None, None),
+    }
+
+
+def mesh_mode_run(name, maps, device, mesh=None):
+    """One ``MESH_MODES`` entry through ``pileup()`` on ``device`` (and
+    ``mesh``). Returns ``(PileUpper, table)``."""
+    from coolpuppy_tpu_torch import pileup
+
+    spec = MESH_MODES[name]
+    clr, feats, view, expected = maps[spec["map"]]
+    kw = dict(spec["kw"])
+    if kw.get("expected_df") is True:
+        kw["expected_df"] = expected
+    if spec.get("bedpe"):
+        feats = toy_bedpe()
+    with engine_patch(**spec.get("patch", {})), last_upper() as cap:
+        table = pileup(clr, feats, view_df=view, device=device, mesh=mesh,
+                       **kw)
+    return cap.pu, table
+
+
+def check_mesh_modes(dev):
+    """Phase 11a: every ``MESH_MODES`` entry on ``LociMesh([dev] * n)`` for
+    n in MESH_SIZES, held against the single-device run on ``dev`` and the
+    ``LociMesh(["cpu"] * n)`` run as in 5a; the ``_rowshard_*`` counters
+    equal to the CPU run's; on the quad route a launch on every device that
+    holds snips; the current CUDA device unchanged after the runs. Returns
+    ``{mode: launches per device}`` of the largest mesh."""
+    import torch
+
+    import coolpuppy_tpu_torch.ops.quad_gather as qg
+    from coolpuppy_tpu_torch.parallel import LociMesh
+
+    cuda = dev.type == "cuda"
+    current = torch.cuda.current_device() if cuda else None
+    maps = mesh_maps()
+    launches = {}
+    for name, spec in MESH_MODES.items():
+        _, single = mesh_mode_run(name, maps, dev)
+        for n in MESH_SIZES:
+            qg.LAUNCHES = 0
+            pu, got = mesh_mode_run(name, maps, dev, LociMesh([dev] * n))
+            launched = qg.LAUNCHES
+            cpu_pu, want = mesh_mode_run(name, maps, "cpu",
+                                         LociMesh(["cpu"] * n))
+            # the quad route must launch on the card (and where a CPU
+            # rehearsal counts its plain version as launches)
+            route = spec.get("route") or (
+                "cuda_kernel" if cuda or launched else "plain")
+            what = f"mesh mode {name} n={n}"
+            err = compare_tables(got, single, what=what + " vs one device",
+                                 **ENGINE_MODES_TOL)
+            err_cpu = compare_tables(got, want, what=what + " vs the CPU",
+                                     **ENGINE_MODES_TOL)
+            counters = (pu._rowshard_regions, pu._rowshard_fallbacks)
+            if counters != (cpu_pu._rowshard_regions,
+                            cpu_pu._rowshard_fallbacks):
+                raise AssertionError(f"{what}: counters {counters} on the "
+                                     "card, CPU other")
+            if got["accumulate"].iloc[0] != route:
+                raise AssertionError(f"{what}: route "
+                                     f"{got['accumulate'].iloc[0]}")
+            st = pu.mesh_stats
+            if route == "cuda_kernel" and (
+                    sum(st["launches"]) != launched
+                    or any(s and not k for s, k in zip(st["snips"],
+                                                      st["launches"]))):
+                raise AssertionError(f"{what}: launches {st['launches']} "
+                                     f"({launched} in all) for snips "
+                                     f"{st['snips']}")
+            if spec.get("banded") and not pu._rowshard_regions:
+                raise AssertionError(f"{what}: no region banded")
+            launches[name] = st["launches"]
+            print(f"{what}: {len(got)} rows, n {list(got['n'])}, route "
+                  f"{route}, banded {counters[0]}, fallbacks {counters[1]}, "
+                  f"replicated {st['replicated']}, snips per device "
+                  f"{st['snips']}, launches per device {st['launches']}, "
+                  f"stack bytes per device {st['stack_bytes']}, halo bytes "
+                  f"{st['halo_bytes']}; max_abs_err vs one device {err:.3g},"
+                  f" vs the CPU {err_cpu:.3g} ok")
+    if cuda and torch.cuda.current_device() != current:
+        raise AssertionError(f"current CUDA device {current} became "
+                             f"{torch.cuda.current_device()}")
+    print(f"mesh modes: current device unchanged ({current})")
+    return launches
+
+
+def mesh_line(what, t, pu, n_snips, card):
+    """Print one mesh run: the wall, the phases and what the mesh did."""
+    st = pu.mesh_stats
+    sec = {k: round(v, 4) for k, v in sorted(pu.timers.seconds.items())}
+    print(f"{what}: {n_snips} snips in {t:.3f} s ({n_snips / t:.0f} snips/s "
+          f"on {card}); phases {json.dumps(sec)}; regions banded "
+          f"{st['banded']}, replicated {st['replicated']} (fallbacks "
+          f"{pu._rowshard_fallbacks}); launches per device {st['launches']},"
+          f" snips per device {st['snips']}; largest stack per device "
+          f"{st['stack_bytes']} bytes; halo copies {st['halo_bytes']} bytes")
+
+
+def check_mesh_genome(dev, sync, card, shapes=None, workload=None):
+    """Phase 11b: the genome cell (phase 10's map and single-device table,
+    or built here where phase 10 did not run) on ``LociMesh([dev] * n)``
+    for n in GENOME_MESH_SIZES: each run held against the single-device
+    table (counts exact, ``data`` rtol 1e-4), with its wall, phases and
+    what the mesh did; then the largest mesh's run again, profiled, with
+    the kernel's shapes and bound. Returns ``{n: launches}``."""
+    import coolpuppy_tpu_torch.ops.quad_gather as qg
+    from coolpuppy_tpu_torch.parallel import LociMesh
+
+    if workload is None and "map" in GENOME:
+        clr, feats = GENOME["map"]
+    else:
+        t, (clr, feats) = timed(workload or genome_workload, lambda: None)
+        print(f"genome workload for the mesh: {clr.n_pixels} pixels, "
+              f"{len(feats)} sites in {t:.1f} s")
+    single = GENOME.get("table") if workload is None else None
+    if single is None:
+        t, (_, single) = timed(lambda: genome_run(clr, feats, dev), sync)
+        print(f"genome single-device table: {t:.2f} s")
+    n_snips = engine_snips(single)
+    out = {}
+    for n in GENOME_MESH_SIZES:
+        mesh = LociMesh([dev] * n)
+        qg.LAUNCHES = 0
+        t, (pu, table) = timed(lambda: genome_run(clr, feats, dev, mesh=mesh),
+                               sync)
+        err = compare_tables(table, single, rtol=ENGINE_RTOL, atol=1e-7,
+                             what=f"genome mesh of {n}")
+        if table["accumulate"].iloc[0] != (
+                "cuda_kernel" if dev.type == "cuda" or qg.LAUNCHES
+                else "plain"):
+            raise AssertionError(f"genome mesh of {n}: route "
+                                 f"{table['accumulate'].iloc[0]}")
+        st = pu.mesh_stats
+        if sum(st["launches"]) != qg.LAUNCHES or any(
+                s and not k for s, k in zip(st["snips"], st["launches"])):
+            raise AssertionError(f"genome mesh of {n}: launches "
+                                 f"{st['launches']} for snips {st['snips']}")
+        out[n] = st["launches"]
+        mesh_line(f"genome mesh of {n}", t, pu, n_snips, card)
+        print(f"genome mesh of {n} vs one device: n/control_n/num exact, data "
+              f"max_abs_err {err:.3g} (rtol {ENGINE_RTOL}) ok")
+    n = GENOME_MESH_SIZES[-1]
+    mesh = LociMesh([dev] * n)
+    qg.LAUNCHES = 0
+    ran = {}
+    with launch_shapes() as called:
+        prof = profile_run(lambda: ran.update(run=genome_run(
+            clr, feats, dev, mesh=mesh)), sync)
+    print(f"genome mesh of {n} device busy share of one run: {prof['text']}")
+    rec = shape_record(f"genome mesh of {n}", called.calls,
+                       prof["kernel_ms"], qg.LAUNCHES, card)
+    if shapes is not None:
+        shapes[f"genome_mesh_{n}"] = rec
+    return out
+
+
+def scaling_workload(n_loci=SCALING_LOCI, **kw):
+    """``bench.py:673`` ``bench_scaling``'s inputs at its size:
+    ``make_workload`` at ``n_loci`` loci and W = 21 (``kw``: its other
+    sizes), or, where phase 4 left its 1M-locus workload (the same map),
+    that workload's first ``n_loci`` loci; with the port's dense B=128 stack
+    of the touched tiles. Returns ``(TileStack, r1, r2, cid, valid,
+    evec)``, ``cid`` the group plus 4 for a flipped snip."""
+    from bench import make_workload
+    from coolpuppy_tpu_torch import build_tile_stack
+
+    if "workload" in SLICE and not kw:
+        _, coo, *loci, valid, evec = SLICE.pop("workload")
+        r1, r2, gid, flip = (a[:n_loci] for a in loci)
+    else:
+        _, coo, r1, r2, gid, flip, valid, evec = make_workload(
+            n_loci=n_loci, W=21, **kw)
+    ts = build_tile_stack(coo, B, r1=r1, r2=r2, window1=21, window2=21)
+    return ts, r1, r2, (gid + 4 * flip).astype(np.int32), valid, evec
+
+
+def check_mesh_session(dev, sync, card, workload=None):
+    """Phase 11c: ``QuadMeshSession.run_chunk`` on ``LociMesh([dev] * n)``
+    at bench_scaling's size against ``QuadPileupSession.run_many`` on
+    ``dev``: ``num`` exact, poison planes equal, ``sum`` rtol 1e-5; snips/s
+    (best of SCALING_RUNS, fetch included) and its retention against the
+    mesh of one. Returns ``{n: snips/s}``."""
+    import coolpuppy_tpu_torch.ops.quad_gather as qg
+    from coolpuppy_tpu_torch.parallel import (
+        LociMesh,
+        QuadMeshSession,
+        build_row_partition,
+        route_snips,
+    )
+
+    t, (ts, r1, r2, cid, valid, evec) = timed(workload or scaling_workload,
+                                              lambda: None)
+    print(f"mesh session workload: {len(r1)} snips, {ts.n_tiles} tiles in "
+          f"{t:.1f} s")
+    cfg = dict(W=21, capacity=8, ooe=True)
+    one = qg.QuadPileupSession(ts, valid, valid, evec, cfg, dev)
+    want = one.run_many(r1, r2, cid)
+    t1 = min(timed(lambda: one.run_many(r1, r2, cid), sync)[0]
+             for _ in range(SCALING_RUNS))
+    print(f"mesh session: QuadPileupSession {len(r1) / t1:.0f} snips/s "
+          f"({t1:.4f} s)")
+    rates = {}
+    for n in GENOME_MESH_SIZES:
+        part = build_row_partition(ts, r1, n)
+        order, counts = route_snips(part, r1)
+        items = np.split(order, np.cumsum(counts)[:-1])
+        session = QuadMeshSession(LociMesh([dev] * n), ts, part, valid,
+                                  valid, evec, cfg)
+        rows = [[a[it] for it in items] for a in (r1, r2, cid)]
+
+        def run():
+            return qg.QuadPileupSession.finalize([session.run_chunk(*rows)])
+
+        got = run()
+        split = list(session.snips)
+        if not np.array_equal(got["num"], want["num"]):
+            raise AssertionError(f"mesh session n={n}: num differs")
+        pois = want["poison"] > 0
+        if not np.array_equal(got["poison"] > 0, pois):
+            raise AssertionError(f"mesh session n={n}: poison differs")
+        np.testing.assert_allclose(got["sum"][~pois], want["sum"][~pois],
+                                   rtol=1e-5, atol=1e-5,
+                                   err_msg=f"mesh session n={n}")
+        t = min(timed(run, sync)[0] for _ in range(SCALING_RUNS))
+        rates[n] = len(r1) / t
+        print(f"mesh session n={n}: {rates[n]:.0f} snips/s ({t:.4f} s, best "
+              f"of {SCALING_RUNS}), retention {rates[n] / rates[1]:.3f} of "
+              f"the mesh of one; snips per device {split}, stack "
+              f"bytes per device {session.stack_bytes}, halo bytes "
+              f"{session.halo_bytes}; num exact, sum rtol 1e-5 vs "
+              f"QuadPileupSession ok. All {n} devices are one card whose SMs "
+              f"they share: this is the partition + halo + sum overhead, not "
+              f"scaling ({card})")
+    return rates
+
+
+def map_hash(clr, feats):
+    """A sha256 of a map's pixels and weights and of the sites."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in clr.pixels_chunk(0, clr.n_pixels):
+        h.update(np.ascontiguousarray(a).tobytes())
+    h.update(np.ascontiguousarray(
+        clr.bins_df()["weight"].to_numpy()).tobytes())
+    h.update(feats.to_csv(index=False).encode())
+    return h.hexdigest()
+
+
+def rank_main(rank, port, out, device, workload):
+    """One rank of phase 11d: joins the gloo group of two ranks, builds the
+    genome map of ``workload`` from seed 0, checks that both ranks hold the
+    same map (their hashes over ``all_gather_object``), runs the genome
+    cell on its loci mesh (``make_loci_mesh()`` on the card, one CPU device
+    for ``device="cpu"``) and prints its region pairs and the exchange's
+    bytes and seconds; rank 0 writes its table's groups, ``n`` and ``data``
+    to ``out``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from coolpuppy_tpu_torch.parallel import (
+        LociMesh,
+        init_distributed,
+        local_region_pairs,
+        make_loci_mesh,
+    )
+
+    init_distributed(init_method=f"tcp://localhost:{port}", world_size=2,
+                     rank=rank, timeout=datetime.timedelta(
+                         seconds=RANK_SECONDS // 2))
+    try:
+        clr, feats = genome_workload(**workload)
+        hashes = [None, None]
+        dist.all_gather_object(hashes, map_hash(clr, feats))
+        if hashes[0] != hashes[1]:
+            raise AssertionError(f"rank {rank}: the ranks' maps differ")
+        mesh = (make_loci_mesh() if device == "cuda"
+                else LociMesh([device]))
+        t, (pu, table) = timed(lambda: genome_run(clr, feats, mesh.devices[0],
+                                                  mesh=mesh), lambda: None)
+        pairs = local_region_pairs(pu._region_pairs())
+        print(f"rank {rank}: map {hashes[rank][:12]} equal on both ranks; "
+              f"mesh {[str(d) for d in mesh.devices]}; region pairs {pairs} "
+              f"({len(pairs)}); {engine_snips(table)} snips in {t:.2f} s; "
+              f"exchange {pu.timers.counts.get('exchange_bytes', 0)} bytes in "
+              f"{pu.timers.seconds.get('exchange', 0.0):.4f} s", flush=True)
+        if rank == 0:
+            np.savez(out, groups=np.asarray([str(g) for g in table["group"]]),
+                     n=table["n"].to_numpy(float),
+                     control_n=table["control_n"].to_numpy(float),
+                     data=np.stack([np.asarray(d, float)
+                                    for d in table["data"]]))
+    finally:
+        dist.destroy_process_group()
+
+
+def check_two_ranks(dev, sync, card, workload=None):
+    """Phase 11d: this script started twice as ranks of a gloo group
+    (``rank_main``), each on ``dev``'s type, while this process builds the
+    same map and runs it alone; rank 0's table is held against that run:
+    group keys, ``n`` and ``control_n`` exact, ``data`` rtol 1e-5. A rank
+    that fails or outlasts RANK_SECONDS fails the phase (and is killed)."""
+    import socket
+
+    workload = dict(workload or RANK_WORKLOAD)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    os.makedirs("build", exist_ok=True)
+    out = os.path.abspath(os.path.join("build", "chip_smoke_rank0.npz"))
+    if os.path.exists(out):
+        os.remove(out)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r), "--port",
+         str(port), "--out", out, "--device", dev.type, "--workload",
+         json.dumps(workload)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        clr, feats = genome_workload(**workload)
+        _, want = genome_run(clr, feats, dev)
+        outs = [p.communicate(timeout=RANK_SECONDS)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} exited {p.returncode}:\n"
+                                 f"{text[-3000:]}")
+        lines = [ln for ln in text.splitlines() if ln.startswith("rank ")]
+        if len(lines) != 1:
+            raise AssertionError(f"rank {r} printed no result:\n"
+                                 f"{text[-3000:]}")
+        print(lines[0])
+    got = np.load(out)
+    if list(got["groups"]) != [str(g) for g in want["group"]]:
+        raise AssertionError("two ranks: groups differ from one process")
+    for col in ("n", "control_n"):
+        np.testing.assert_array_equal(got[col], want[col].to_numpy(float),
+                                      err_msg=f"two ranks: {col}")
+    data = np.stack([np.asarray(d, float) for d in want["data"]])
+    np.testing.assert_allclose(got["data"], data, rtol=RANK_RTOL, atol=1e-8,
+                               equal_nan=True, err_msg="two ranks: data")
+    print(f"two ranks == one process: {len(want)} rows, n {list(want['n'])},"
+          f" data rtol {RANK_RTOL} ok ({wall:.1f} s with both ranks' builds; "
+          f"{card})")
+
+
+def parse_rank(argv):
+    """The options of a phase-11d rank (``check_two_ranks`` starts this
+    script with them)."""
+    import argparse
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--rank", type=int, required=True)
+    parser.add_argument("--port", type=int, required=True)
+    parser.add_argument("--out", required=True)
+    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--workload", default=json.dumps(RANK_WORKLOAD))
+    args = parser.parse_args(argv)
+    return (args.rank, args.port, args.out, args.device,
+            json.loads(args.workload))
+
+
 def openmp_runtimes():
     """The OpenMP runtime libraries mapped into this process."""
     import re
@@ -3183,7 +3687,7 @@ def openmp_runtimes():
             if re.match(r"lib[gi]?omp", os.path.basename(p))}
 
 
-PHASES = (3, 4, 5, 6, 7, 8, 9, 10)
+PHASES = (3, 4, 5, 6, 7, 8, 9, 10, 11)
 
 
 def parse_phases(argv):
@@ -3213,6 +3717,10 @@ def parse_phases(argv):
 def main(argv=None):
     import torch
 
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if "--rank" in argv:
+        rank_main(*parse_rank(argv))
+        return 0
     phases = parse_phases(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
@@ -3287,6 +3795,8 @@ def main(argv=None):
               f"snips in {t:.1f} s")
         record = check_slice(dev, sync, workload, card)
         check_sweep(dev, sync, workload, card)
+        if 11 in phases:
+            SLICE["workload"] = workload
         del workload, coo, r1
         phase_done(4)
 
@@ -3335,6 +3845,17 @@ def main(argv=None):
         record["genome_launches"] = check_genome(dev, sync, card,
                                                  record["shapes"])
         phase_done(10)
+
+    # -- 11. the mesh: toy modes, the genome cell, the session, two ranks --
+    if 11 in phases:
+        record["mesh_launches"] = {
+            "modes": check_mesh_modes(dev),
+            "genome": check_mesh_genome(dev, sync, card, record["shapes"]),
+        }
+        GENOME.clear()
+        record["mesh_session_snips_s"] = check_mesh_session(dev, sync, card)
+        check_two_ranks(dev, sync, card)
+        phase_done(11)
 
     # -- result -----------------------------------------------------------
     print(card)

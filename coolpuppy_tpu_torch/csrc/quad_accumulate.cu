@@ -351,6 +351,21 @@ cudaError_t staged_occupancy(int* blocks, int threads, int smem_bytes) {
       blocks, quad_accumulate_staged_kernel<P>, threads, smem_bytes);
 }
 
+// The thread's current device for one launcher call: set to `device` on
+// entry and put back to the caller's on every return path, so that a launch
+// on one card leaves what PyTorch reads as the current device (and every
+// later "cuda" without an index) as it found it.
+struct DeviceGuard {
+  int prev = -1;
+  cudaError_t err;
+  explicit DeviceGuard(int device) {
+    err = cudaGetDevice(&prev);
+    if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  }
+  ~DeviceGuard() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
 }  // namespace
 
 extern "C" {
@@ -365,8 +380,8 @@ int quad_accumulate_launch(const void* stiles, const void* k,
                            const void* qstart, const void* qcount,
                            const void* snips, int nq, int W, int C, void* sum,
                            void* num, void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   if (nq <= 0) return (int)cudaSuccess;
   const int ww = W * W;
   int threads = ((ww + 31) / 32) * 32;
@@ -389,8 +404,8 @@ int quad_accumulate_staged_launch(const void* stiles, const void* k,
                                   const void* snips, int nq, int W, int C,
                                   int S, int P, int smem_bytes, void* sum,
                                   void* num, void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   const int threads = staged_threads(W, P);
   if (threads == 0 || smem_bytes != staged_smem_bytes(W, S))
     return (int)cudaErrorInvalidValue;
@@ -419,8 +434,9 @@ int quad_accumulate_staged_launch(const void* stiles, const void* k,
 // runtime's occupancy calculator gives them; a negative CUDA error code on
 // failure or on arguments the staged launch would refuse.
 int quad_accumulate_staged_occupancy(int W, int S, int P, int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return -(int)err;
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return -(int)guard.err;
+  cudaError_t err;
   const int threads = staged_threads(W, P);
   const int smem_bytes = staged_smem_bytes(W, S);
   if (threads == 0 || smem_bytes == 0) return -(int)cudaErrorInvalidValue;

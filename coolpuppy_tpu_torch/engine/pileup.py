@@ -31,6 +31,17 @@ bank send the region to the collected path above, with the same results.
 The host finishes with the reference's normalization algebra: division by
 shifted controls or expected, coverage normalization, local symmetrization.
 
+Under a mesh (``mesh=``, a ``parallel.LociMesh``; the reference :1496-1600)
+regions take the collected path and no stream: on the quad route each mesh
+device holds one row band of the region's stack plus the first tile row of
+the next band (``parallel/quad_mesh.py``), or a copy of the whole stack
+where the region does not band, and launches the kernel once on its snips;
+wider windows run the generic step per band (``parallel/rowshard.py``) or
+per replica, rescale per replica (``parallel/mesh.py``); the accumulators
+are summed on the mesh's first device. In a multi-process run
+(``parallel/distributed.py``) each process takes its round-robin share of
+region pairs and the per-region outputs are all-gathered before the reduce.
+
 The extension hooks choose among four routes per region (``pileup_region``):
 ``postprocess_frame_func`` alone and ``accumulate_values`` extras over frame
 columns stay on the accumulate routes above; ``postprocess_batch_func``
@@ -450,9 +461,12 @@ def _codes(col):
 
 class PileUpper:
     """See reference coolpup.py:752–836 for parameter semantics; the
-    constructor surface is the JAX package's minus ``mesh`` and
-    ``backend``, plus ``device`` (a torch device: ``"cuda"`` runs the CUDA
-    kernel, ``"cpu"`` the plain PyTorch version). ``tile_f16`` and
+    constructor surface is the JAX package's minus ``backend``, plus
+    ``device`` (a torch device: ``"cuda"`` runs the CUDA kernel, ``"cpu"``
+    the plain PyTorch version). ``mesh`` is None, ``"auto"`` (every CUDA
+    device, ``parallel.make_loci_mesh``) or a ``parallel.LociMesh``, whose
+    devices must be of ``device``'s type; results then land on its first
+    device. ``tile_f16`` and
     ``stripe_f16`` (the reference's f16 wires) are accepted, ignored — the
     port ships float32 — and recorded as ignored in the output.
     ``chunk_size`` and ``tile_size`` are accepted and unused, as in the
@@ -483,8 +497,30 @@ class PileUpper:
         checkpoint_dir=None,
         trace_dir=None,
         device="cuda",
+        mesh=None,
     ):
         self.device = resolve_device(device)
+        if isinstance(mesh, str):
+            if mesh != "auto":
+                raise ValueError(f"mesh={mesh!r}: use None, 'auto' or a "
+                                 "LociMesh")
+            from ..parallel.mesh import make_loci_mesh
+
+            mesh = make_loci_mesh()
+        if mesh is not None:
+            if mesh.type != self.device.type:
+                raise ValueError(
+                    f"a mesh of {mesh.type} devices with device="
+                    f"{str(self.device)!r}: pass the device type of the mesh"
+                )
+            self.device = mesh.devices[0]
+        self.mesh = mesh
+        # regions the mesh banded / left replicated for lack of tile rows or
+        # for a snip-load skew (the reference's counters), and what the mesh
+        # runs of the last pileupsWithControl did (``_new_mesh_stats``)
+        self._rowshard_regions = 0
+        self._rowshard_fallbacks = 0
+        self.mesh_stats = self._new_mesh_stats()
         self.clr = clr
         self.resolution = clr.binsize
         self.CC = CC
@@ -789,6 +825,7 @@ class PileUpper:
                 self.rescale
                 or self.store_stripes
                 or (self.expected and not self.ooe)
+                or self.mesh is not None
                 or dual_anchor
             ):
                 raise ValueError(
@@ -1033,6 +1070,8 @@ class PileUpper:
                 with self._phase("device"):
                     acc = self._stream_accumulate(stream, dev, arr, W, G,
                                                   launches)
+            elif self.mesh is not None:
+                acc = self._mesh_accumulate(dev, arr, W, G)
             else:
                 with self._phase("tiles"):
                     tile_stack = self._build_tile_stack(dev, arr, W)
@@ -1246,12 +1285,12 @@ class PileUpper:
         return None
 
     def _maybe_open_stream(self, region1, region2, dev, prefetch=False):
-        """The stream of a region pair where one applies (no rescale, W
-        within the quad kernel's reach): called in the region loop, or from
-        the region prefetch, whose stricter tile cap keeps several
+        """The stream of a region pair where one applies (no rescale, no
+        mesh, W within the quad kernel's reach): called in the region loop,
+        or from the region prefetch, whose stricter tile cap keeps several
         prefetched stacks from filling the device. None otherwise."""
         W = self._window_bins()
-        if self.rescale or W > quad_gather.W_MAX:
+        if self.rescale or W > quad_gather.W_MAX or self.mesh is not None:
             return None
         max_tiles = _PREFETCH_TILES if prefetch else _STREAM_TILES
         if region2 == region1 and self.CC.kind == "bed" and not self.trans:
@@ -1455,14 +1494,29 @@ class PileUpper:
         the region's normalized stack in blocks of ``_block_half(W)``
         groups; coverage and expected emission from the exact host sums
         (``_side_outputs``); stripes of the ROI snips, non-finite values as
-        NaN."""
+        NaN. Under a mesh, each device runs it on its copy of the stack
+        over its even shard of every block's snips
+        (``parallel.mesh.sharded_generic_step``)."""
         stiles, tmap = self._device_stack(tile_stack, dev)
         r1, r2 = (torch.from_numpy(arr[k].astype(np.int64)).to(self.device)
                   for k in ("r1", "r2"))
+        stripes = bool(self.store_stripes)
 
-        def step(ix, cid, C):
-            return generic_accumulate(stiles, tmap, r1[ix], r2[ix], cid, W,
-                                      C, stripes=bool(self.store_stripes))
+        if self.mesh is None:
+            def step(ix, cid, C):
+                return generic_accumulate(stiles, tmap, r1[ix], r2[ix], cid,
+                                          W, C, stripes=stripes)
+        else:
+            from ..parallel.mesh import replicate, sharded_generic_step
+
+            stacks = replicate(self.mesh, stiles)
+            tmaps = replicate(self.mesh, tmap)
+            self._mesh_region(stacks, 0)
+
+            def step(ix, cid, C):
+                return sharded_generic_step(self.mesh, stacks, tmaps, r1[ix],
+                                            r2[ix], cid, W, C,
+                                            stripes=stripes)
 
         half = min(_next_pow2(G), _block_half(W))
         out = self._torch_blocks(arr, G, half, step)
@@ -1480,7 +1534,10 @@ class PileUpper:
         through ``rescale_accumulate`` at Hmax = its extent, in blocks of
         ``_block_half(R)`` groups. Windows are cut from the stack directly
         (no bucket restack). Returns flip-merged float64 totals [G, R, R]
-        (``poison`` all zero) and the ROI snips' stripes."""
+        (``poison`` all zero) and the ROI snips' stripes. Under a mesh each
+        device runs a bucket's step on its copies of the stack and vectors
+        over its even shard of the snips
+        (``parallel.mesh.sharded_rescale_step``)."""
         R = self.rescale_size
         stiles, tmap = self._device_stack(tile_stack, dev)
 
@@ -1490,6 +1547,13 @@ class PileUpper:
         evec = upload(dev["evec"], torch.float32)
         cov1 = upload(dev["cov1"], torch.float32)
         cov2 = upload(dev["cov2"], torch.float32)
+        if self.mesh is not None:
+            from ..parallel.mesh import replicate, sharded_rescale_step
+
+            per_device = list(zip(*(replicate(self.mesh, t)
+                                    for t in (stiles, tmap, evec, cov1,
+                                              cov2))))
+            self._mesh_region([p[0] for p in per_device], 0)
         extent = np.maximum(arr["h1"], arr["w2"]).astype(np.int64)
         buckets = np.maximum(
             _RESCALE_MIN_BUCKET,
@@ -1510,10 +1574,13 @@ class PileUpper:
             )
 
             def step(ix, cid, C, d=d, cfg=cfg):
-                return rescale_accumulate(
-                    stiles, tmap, evec, cov1, cov2, d["r1"][ix], d["r2"][ix],
-                    d["h1"][ix], d["w2"][ix], d["dd0"][ix], cid, cfg,
-                )
+                snips = (d["r1"][ix], d["r2"][ix], d["h1"][ix], d["w2"][ix],
+                         d["dd0"][ix], cid)
+                if self.mesh is not None:
+                    return sharded_rescale_step(self.mesh, per_device,
+                                                *snips, cfg)
+                return rescale_accumulate(stiles, tmap, evec, cov1, cov2,
+                                          *snips, cfg)
 
             part = self._torch_blocks(sub, G, half, step)
             for k, v in part.items():
@@ -1528,6 +1595,234 @@ class PileUpper:
             if k in out:
                 out[k] = out[k][arr["roi"]]
         self._routes.add("rescale_torch")
+        return out
+
+    # -- the mesh (reference :1496-1600, :1961-2135, :2374-2515) -------------
+
+    def _new_mesh_stats(self):
+        """What the mesh did over a run: snips and kernel launches per mesh
+        device on the quad route, regions banded and replicated, the
+        largest stack a device held (bytes, per device) and the bytes the
+        halo copies moved."""
+        n = len(self.mesh) if self.mesh is not None else 0
+        return {"snips": [0] * n, "launches": [0] * n, "banded": 0,
+                "replicated": 0, "stack_bytes": [0] * n, "halo_bytes": 0}
+
+    def _mesh_region(self, stacks, halo_bytes, banded=False):
+        """Record one mesh region in ``mesh_stats``."""
+        st = self.mesh_stats
+        st["banded" if banded else "replicated"] += 1
+        st["stack_bytes"] = [
+            max(b, t.numel() * t.element_size())
+            for b, t in zip(st["stack_bytes"], stacks)
+        ]
+        st["halo_bytes"] += int(halo_bytes)
+
+    def _mesh_accumulate(self, dev, arr, W, G):
+        """Phase 2 of a region under a mesh, routed as the reference routes
+        it: the quad route (``_quad_mesh_accumulate``) for W <= 120 unless
+        the coverage histogram would pass ``_COV_HIST_MAX`` entries;
+        otherwise the generic step on a dense stack of the reference's tile
+        size ``max(64, next_pow2(W))``, row-banded over a mesh of more than
+        one device (``_rowshard_accumulate``), else replicated
+        (``_generic_accumulate``)."""
+        if W <= quad_gather.W_MAX and self._quad_mesh_supported(G, dev):
+            with self._phase("tiles"):
+                tile_stack = build_tile_stack_slab(
+                    dev["slab"], quad_gather.B_TILE, r1=arr["r1"],
+                    r2=arr["r2"], window1=W, window2=W)
+            with self._phase("device"):
+                return self._quad_mesh_accumulate(tile_stack, dev, arr, W, G)
+        with self._phase("tiles"):
+            tile_stack = build_tile_stack_slab(
+                dev["slab"], max(64, _next_pow2(W)), r1=arr["r1"],
+                r2=arr["r2"], window1=W, window2=W)
+        with self._phase("device"):
+            out = None
+            if self.mesh.shape["loci"] > 1:
+                out = self._rowshard_accumulate(tile_stack, dev, arr, W, G)
+            if out is None:
+                out = self._generic_accumulate(tile_stack, dev, arr, W, G)
+        return out
+
+    def _quad_mesh_supported(self, G, dev):
+        """The reference's ``_pallas_mesh_supported``: group counts past one
+        accumulator bank run in blocks per device; only the coverage host
+        histogram bounds the route."""
+        if self.coverage_norm:
+            n_cov = max(len(dev["cov1"]), len(dev["cov2"]))
+            if G * n_cov > _COV_HIST_MAX:
+                return False
+        return True
+
+    def _mesh_split(self, tile_stack, r1, count_small):
+        """The band partition of a region over the mesh's ``loci`` devices
+        and the device-major snip order (``rowshard.build_row_partition``,
+        ``route_snips``), or ``(None, None, None)`` where the region has
+        fewer tile rows than devices or the busiest band holds more than 4x
+        the mean snip load. A band counts in ``_rowshard_regions``, a skew
+        in ``_rowshard_fallbacks``, and so does a region too small to band
+        where ``count_small`` (the generic route's count; the quad route's
+        leaves it out, as the reference's does, :1994-2010)."""
+        from ..parallel.rowshard import build_row_partition, route_snips
+
+        n = self.mesh.shape["loci"]
+        part = build_row_partition(tile_stack, r1, n)
+        if part is None:
+            if not count_small:
+                return None, None, None
+            self._rowshard_fallbacks += 1
+            logger.info("rowshard: region too small to band over %d devices, "
+                        "replicating tiles (fallback %d so far)", n,
+                        self._rowshard_fallbacks)
+            return None, None, None
+        order, counts = route_snips(part, r1)
+        if counts.max() > 4 * max(1.0, float(counts.mean())):
+            self._rowshard_fallbacks += 1
+            logger.info("rowshard: snip load skew %.1fx across bands, falling "
+                        "back to replicated tiles",
+                        counts.max() / max(1.0, float(counts.mean())))
+            return None, None, None
+        self._rowshard_regions += 1
+        return part, order, counts
+
+    def _mesh_blocks(self, arr, dev_items, G, half):
+        """The accumulator blocks of a mesh region: ``(base, span, items)``
+        with ``items`` each device's snips of groups [base, base + span) in
+        routed order; one block of all G groups where they fit ``half``
+        (the reference's cid-blocked loop, :2073-2097)."""
+        if G <= half:
+            yield 0, G, dev_items
+            return
+        cidl = arr["cidl"]
+        for base in range(0, G, half):
+            span = min(half, G - base)
+            selm = (cidl >= base) & (cidl < base + span)
+            items = [it[selm[it]] for it in dev_items]
+            if any(len(it) for it in items):
+                yield base, span, items
+
+    def _quad_mesh_accumulate(self, tile_stack, dev, arr, W, G):
+        """The quad kernel per mesh device (the reference's
+        ``_pallas_mesh_accumulate``, :1972-2135): the region's B=128 stack
+        banded over the devices with the halo copy where it partitions
+        (``_mesh_split``), else copied to every device with the snips split
+        evenly; per accumulator block one ``QuadMeshSession.run_chunk``
+        (one launch per device that holds snips, the accumulators summed on
+        the first device) with local groups ``cid - base + half * flip``;
+        coverage and expected emission from the exact host sums
+        (``_side_outputs``); the ROI snips' stripe planes gathered per
+        device and put back in stream order through their ROI positions."""
+        from ..parallel.quad_mesh import QuadMeshSession
+
+        n = self.mesh.shape["loci"]
+        ntot = len(arr["r1"])
+        part, order, counts = self._mesh_split(tile_stack, arr["r1"],
+                                               count_small=False)
+        if part is None:
+            order = np.arange(ntot)
+            counts = np.full(n, ntot // n, np.int64)
+            counts[: ntot % n] += 1
+        dev_items = np.split(order, np.cumsum(counts)[:-1])
+        half = min(_next_pow2(G), _block_half(W))
+        session = QuadMeshSession(
+            self.mesh, tile_stack, part, dev["valid1"], dev["valid2"],
+            dev["evec"],
+            dict(W=W, capacity=2 * half, cis=dev["cis"],
+                 ignore_diags=int(self.ignore_diags),
+                 ooe=bool(self.expected and self.ooe)),
+        )
+        launches = quad_gather.LAUNCHES
+        out = {}
+        for base, span, items in self._mesh_blocks(arr, dev_items, G, half):
+            total = session.run_chunk(
+                [arr["r1"][it] for it in items],
+                [arr["r2"][it] for it in items],
+                [arr["cidl"][it] - base + half * arr["flip"][it]
+                 for it in items],
+            )
+            total = quad_gather.QuadPileupSession.finalize(
+                [total], compact=(span, half))
+            _put_block(out, merge_flip_banks(total, span), base, G)
+        self._routes.add(
+            "cuda_kernel" if quad_gather.LAUNCHES > launches else "plain"
+        )
+        self._side_outputs(dev, arr, W, G, out)
+        if self.store_stripes:
+            roi = arr["roi"]
+            pos = np.cumsum(roi) - 1
+            items_roi = [it[roi[it]] for it in dev_items]
+            hv = session.run_stripes([arr["r1"][it] for it in items_roi],
+                                     [arr["r2"][it] for it in items_roi])
+            n_roi = int(roi.sum())
+            h = np.full((n_roi, W), np.nan, np.float32)
+            v = np.full((n_roi, W), np.nan, np.float32)
+            for rows, it in zip(hv, items_roi):
+                h[pos[it]] = rows[:, :W]
+                v[pos[it]] = rows[:, W:][:, ::-1]
+            out["horizontal_stripe"] = h
+            out["vertical_stripe"] = v
+        st = self.mesh_stats
+        for key in ("snips", "launches"):
+            st[key] = [a + b for a, b in zip(st[key], getattr(session, key))]
+        self._mesh_region([s.stiles for s in session.sessions],
+                          session.halo_bytes, banded=part is not None)
+        return out
+
+    def _rowshard_accumulate(self, tile_stack, dev, arr, W, G):
+        """The generic step on row-banded stacks (the reference's
+        ``_rowshard_accumulate``, :2374-2515): each device normalizes its
+        band and receives the next band's first tile row
+        (``quad_mesh.sharded_normalize_halo``), then runs
+        ``generic_accumulate`` on its routed snips per accumulator block
+        (``rowshard.row_sharded_step``). Returns None where the region does
+        not band (``_mesh_split``): the caller replicates."""
+        from ..parallel.quad_mesh import (
+            halo_copy_bytes,
+            sharded_normalize_halo,
+        )
+        from ..parallel.rowshard import row_sharded_step
+
+        part, order, counts = self._mesh_split(tile_stack, arr["r1"],
+                                               count_small=True)
+        if part is None:
+            return None
+        stacks = sharded_normalize_halo(
+            self.mesh, part, dev["valid1"], dev["valid2"], dev["evec"],
+            ooe=bool(self.expected and self.ooe), cis=dev["cis"],
+            ignore_diags=int(self.ignore_diags))
+        tmaps = [torch.from_numpy(g.astype(np.int64)).to(d)
+                 for g, d in zip(part.grids(), self.mesh.devices)]
+        dev_items = np.split(order, np.cumsum(counts)[:-1])
+        half = min(_next_pow2(G), _block_half(W))
+        stripes = bool(self.store_stripes)
+        ntot = len(arr["r1"])
+        planes = {k: np.full((ntot, W), np.nan, np.float32)
+                  for k in _STRIPE_KEYS} if stripes else {}
+        out = {}
+        for base, span, items in self._mesh_blocks(arr, dev_items, G, half):
+            acc = row_sharded_step(
+                self.mesh, stacks, tmaps,
+                [arr["r1"][it] for it in items],
+                [arr["r2"][it] for it in items],
+                [arr["cidl"][it] - base + half * arr["flip"][it]
+                 for it in items],
+                W, 2 * half, stripes=stripes,
+            )
+            for k in planes:
+                for rows, it in zip(acc.pop(k), items):
+                    planes[k][it] = rows.cpu().numpy()
+            banks = {
+                k: torch.cat([v[:span], v[half: half + span]])
+                .to(torch.float64).cpu().numpy()
+                for k, v in acc.items()
+            }
+            _put_block(out, merge_flip_banks(banks, span), base, G)
+        self._routes.add("generic_torch")
+        self._side_outputs(dev, arr, W, G, out)
+        for k, v in planes.items():
+            out[k] = v[arr["roi"]]
+        self._mesh_region(stacks, halo_copy_bytes(part), banded=True)
         return out
 
     def _side_outputs(self, dev, arr, W, G, out):
@@ -2251,6 +2546,8 @@ class PileUpper:
         device_name = str(self.device)
         if self.device.type == "cuda":
             device_name += f" ({torch.cuda.get_device_name(self.device)})"
+        if self.mesh is not None:
+            device_name += f", loci mesh of {self.mesh.shape['loci']}"
         annot = {
             "clr": os.path.abspath(fname) if fname else None,
             "resolution": self.resolution,
@@ -2364,6 +2661,7 @@ class PileUpper:
 
         self.timers = timers = PhaseTimers()
         self._routes = set()
+        self.mesh_stats = self._new_mesh_stats()
 
         def _ckpt_path(r1, r2):
             safe = re.sub(r"[^A-Za-z0-9_.-]", "_", f"{r1}__{r2}")
@@ -2423,6 +2721,16 @@ class PileUpper:
             return dev
 
         pairs = self._region_pairs()
+        # the processes of a multi-process run under a mesh each take their
+        # round-robin share of region pairs, and exchange the per-region
+        # outputs after the loop (reference :3566-3602)
+        multiprocess = False
+        if self.mesh is not None:
+            from ..parallel import distributed
+
+            multiprocess = distributed.world_size() > 1
+            if multiprocess:
+                pairs = distributed.local_region_pairs(pairs)
         n_prefetch = max(1, min(_PREFETCH_MAX, nproc if nproc > 0 else
                                 _PREFETCH_MAX))
         pileups = []
@@ -2441,6 +2749,10 @@ class PileUpper:
                     futures[i + n_prefetch] = pool.submit(
                         _stage_with_stream, *pairs[i + n_prefetch])
                 pileups.append(_run_one(r1, r2, dev))
+        if multiprocess:
+            with timers.phase("exchange"):
+                timers.count("exchange_bytes", len(pickle.dumps(pileups)))
+                pileups = distributed.allreduce_region_maps(pileups)
 
         with timers.phase("finalize"):
             sum_func = partial(sum_pups, extra_funcs=extra_sum_funcs)
@@ -2630,12 +2942,14 @@ def pileup(
     nproc=1,
     seed=None,
     device="cuda",
+    mesh=None,
 ):
     """One-shot pileup API (reference coolpup.py:1922–2279): the JAX
-    package's parameters minus ``mesh`` and ``backend``, plus ``device``
-    (``"cuda"``: the hand-written kernel on the card, raising without one;
-    ``"cpu"``: the plain PyTorch version). ``clr`` is a
-    ``coolpuppy_tpu_torch.Cooler``."""
+    package's parameters minus ``backend``, plus ``device`` (``"cuda"``:
+    the hand-written kernel on the card, raising without one; ``"cpu"``:
+    the plain PyTorch version). ``mesh``: None, ``"auto"`` or a
+    ``parallel.LociMesh`` of ``device``'s type (``PileUpper``). ``clr`` is
+    a ``coolpuppy_tpu_torch.Cooler``."""
     groupby = groupby or []
     distance_edges = "default"
     if by_distance is not False:
@@ -2734,6 +3048,7 @@ def pileup(
         tile_f16=tile_f16,
         nproc=nproc,
         device=device,
+        mesh=mesh,
     )
 
     if by_window:

@@ -368,13 +368,17 @@ def _launch(variant, entry, extra, stiles, k, qstart, qcount, snips, W, C):
     out_num = torch.zeros((C, W, W), dtype=torch.int32, device=stiles.device)
     nq = int(qstart.shape[0])
     if nq:
-        err = getattr(lib, entry)(
-            stiles.data_ptr(), k.data_ptr(), qstart.data_ptr(),
-            qcount.data_ptr(), snips.data_ptr(), nq, W, C, *extra,
-            out_sum.data_ptr(), out_num.data_ptr(),
-            torch.cuda.current_stream(stiles.device).cuda_stream,
-            stiles.device.index,
-        )
+        # the launchers set the kernel's device and restore the caller's;
+        # the guard keeps a launch on another card from changing PyTorch's
+        # current device as well
+        with torch.cuda.device(stiles.device):
+            err = getattr(lib, entry)(
+                stiles.data_ptr(), k.data_ptr(), qstart.data_ptr(),
+                qcount.data_ptr(), snips.data_ptr(), nq, W, C, *extra,
+                out_sum.data_ptr(), out_num.data_ptr(),
+                torch.cuda.current_stream(stiles.device).cuda_stream,
+                stiles.device.index,
+            )
         if err != 0:
             msg = lib.quad_accumulate_error_string(err).decode()
             raise RuntimeError(
@@ -501,9 +505,24 @@ class QuadPileupSession:
                              f"[1, {C_MAX}]")
         self.device = torch.device(device)
         self.tile_stack = tile_stack
+        self.tile_map = tile_stack.tile_map
         self.stiles = normalized_stack(
             tile_stack, valid1, valid2, evec, self.device, **norm
         )
+
+    @classmethod
+    def from_normalized(cls, stiles, tile_map, W, capacity):
+        """A session over a stack already normalized on its device
+        (``stiles``, with ``tile_map`` the [nr+1, nc+1] host grid of its
+        slots): one device's band or replica of a region on a mesh
+        (``parallel/quad_mesh.QuadMeshSession``)."""
+        self = cls.__new__(cls)
+        self.W, self.C = int(W), int(capacity)
+        self.device = stiles.device
+        self.tile_stack = None
+        self.tile_map = np.asarray(tile_map)
+        self.stiles = stiles
+        return self
 
     def stage(self, r1, r2, cid):
         """Host quad sort + work-item split, uploaded to the device: the
@@ -519,7 +538,7 @@ class QuadPileupSession:
         if len(cid) and (np.min(r1) < 0 or np.min(r2) < 0):
             raise ValueError("QuadPileupSession: negative window start")
         snips, k, qstart, qcount = sort_quads(
-            r1, r2, cid, self.tile_stack.tile_map, B_TILE
+            r1, r2, cid, self.tile_map, B_TILE
         )
         if corner_layout(self.W).staged:
             k, qstart, qcount = split_items(k, qstart, qcount)
@@ -566,7 +585,7 @@ class QuadPileupSession:
         mid = W // 2
         if not hasattr(self, "_tmap_dev"):
             self._tmap_dev = torch.from_numpy(
-                np.asarray(self.tile_stack.tile_map, np.int64)
+                np.asarray(self.tile_map, np.int64)
             ).to(self.device)
         tmap = self._tmap_dev
         ar = torch.arange(W, device=self.device)

@@ -645,7 +645,6 @@ def normalize_tiles(
         raise NotImplementedError(
             "fold_weights (the int8 raw-count wire) is not ported"
         )
-    device = tiles.device
     K = int(tiles.shape[0])
     tr = np.zeros(K, np.int64)
     tc = np.zeros(K, np.int64)
@@ -665,8 +664,29 @@ def normalize_tiles(
         else:
             epad[: min(ev.size, L)] = ev[:L]
 
-    trd, tcd = (torch.from_numpy(a).to(device) for a in (tr, tc))
-    v1d, v2d, ed = (torch.from_numpy(a).to(device) for a in (v1, v2, epad))
+    out = normalize_slots(tiles, tr, tc, B, v1, v2, epad, ooe=ooe, cis=cis,
+                          ignore_diags=ignore_diags, frame_shift=frame_shift,
+                          slab=slab)
+    out[0] = torch.nan
+    return out
+
+
+def normalize_slots(tiles, tr, tc, B, v1, v2, epad, ooe=False, cis=True,
+                    ignore_diags=2, frame_shift=0, slab=1024):
+    """The per-pixel normalization of ``normalize_tiles`` for slots whose
+    tile coordinates are given: slot k of ``tiles`` [K, B, B] lies at tile
+    row ``tr[k]`` and column ``tc[k]`` (int numpy [K]); ``v1``/``v2`` are
+    the 0/1 valid-bin vectors padded to the grid and ``epad`` the expected
+    vector padded with NaN (float32 numpy). Returns the NaN-encoded float32
+    [K, B, B] stack on ``tiles.device``, slot 0 untouched by any rule of
+    its own (callers set it)."""
+    device = tiles.device
+    K = int(tiles.shape[0])
+    L = len(epad)
+    trd, tcd = (torch.from_numpy(np.asarray(a, np.int64)).to(device)
+                for a in (tr, tc))
+    v1d, v2d, ed = (torch.from_numpy(np.asarray(a, np.float32)).to(device)
+                    for a in (v1, v2, epad))
     ar = torch.arange(B, device=device)
     out = torch.empty((K, B, B), dtype=torch.float32, device=device)
     for lo in range(0, K, slab):
@@ -681,7 +701,6 @@ def normalize_tiles(
         if ooe:
             val = val / ed[diag.abs().clamp_(max=L - 1)]
         out[lo:hi] = torch.where(mask > 0, val, torch.nan)
-    out[0] = torch.nan
     return out
 
 

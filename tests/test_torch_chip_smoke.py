@@ -1,5 +1,6 @@
 """CPU rehearsals of ``chip_smoke.py``'s phases at a tiny size (5b, 6b, 7b/7c,
-3, 4, 8a-8c, 9a/9b, 10): the same control flow, checks and timing lines,
+3, 4, 8a-8c, 9a/9b, 10, 11a-11d): the same control flow, checks and timing
+lines,
 with ``quad_accumulate`` swapped for a plain version that counts its calls
 as launches (the CUDA kernel cannot run here)."""
 
@@ -121,7 +122,7 @@ def _fake_kernels(monkeypatch):
         def __exit__(self, *exc):
             self.ms = [1.0] * (qg.LAUNCHES - self.before)
 
-    monkeypatch.setattr(chip_smoke, "quad_kernel_trace", trace)
+    monkeypatch.setattr(chip_smoke, "quad_kernel_events", trace)
 
 
 def test_kernel_phase_rehearsal(monkeypatch, capsys):
@@ -254,11 +255,12 @@ def test_extension_phase_rehearsal(monkeypatch, capsys):
 
 
 def test_phases_option():
-    assert chip_smoke.parse_phases([]) == {3, 4, 5, 6, 7, 8, 9, 10}
+    assert chip_smoke.parse_phases([]) == {3, 4, 5, 6, 7, 8, 9, 10, 11}
     assert chip_smoke.parse_phases(["--phases", "1,2,8"]) == {1, 2, 8}
     assert chip_smoke.parse_phases(["--phases", "9"]) == {9}
     assert chip_smoke.parse_phases(["--phases", "10"]) == {10}
-    for bad in ("11", "x", "", "1,2", ","):
+    assert chip_smoke.parse_phases(["--phases", "11"]) == {11}
+    for bad in ("12", "x", "", "1,2", ","):
         try:
             chip_smoke.parse_phases(["--phases", bad])
         except SystemExit as e:
@@ -393,3 +395,64 @@ def test_covered_pixels_counts_each_stack_pixel_once():
             for j in range(b, b + W):
                 cells.add((int(tmap[i // 128, j // 128]), i % 128, j % 128))
     assert got == len(cells)
+
+
+def test_mesh_modes_phase_rehearsal(monkeypatch, capsys):
+    """Phase 11a with the CPU as the card and the plain version counting
+    its calls as launches: every mesh mode on meshes of 2 and 4 against one
+    device and the CPU mesh, a launch on every device that holds snips."""
+    _counted_plain(monkeypatch)
+    launches = chip_smoke.check_mesh_modes(torch.device("cpu"))
+    assert set(launches) == set(chip_smoke.MESH_MODES)
+    assert all(n > 0 for n in launches["cis_banded"])
+    assert launches["wide_banded"] == [0] * 4
+    out = capsys.readouterr().out
+    for name in chip_smoke.MESH_MODES:
+        for n in chip_smoke.MESH_SIZES:
+            line = next(ln for ln in out.splitlines()
+                        if ln.startswith(f"mesh mode {name} n={n}: "))
+            assert line.endswith(" ok")
+    assert "route generic_torch, banded 2" in out
+    assert "mesh modes: current device unchanged (None)" in out
+
+
+def test_mesh_genome_and_session_phase_rehearsal(monkeypatch, capsys):
+    """Phases 11b and 11c at a tiny size: the genome cell of 3 chromosomes
+    of 1,200 bins on meshes of 1, 2 and 4 against one device, and the mesh
+    session on 3,000 loci of a 2,000-bin map."""
+    _counted_plain(monkeypatch)
+    dev = torch.device("cpu")
+    shapes = {}
+    out_launches = chip_smoke.check_mesh_genome(
+        dev, lambda: None, "cpu rehearsal", shapes,
+        workload=lambda: chip_smoke.genome_workload(
+            n_chroms=3, bins_per=1_200, contacts_per=50_000, n_sites=360))
+    assert sorted(out_launches) == [1, 2, 4]
+    assert out_launches[1] == [3] and len(out_launches[4]) == 4
+    assert shapes["genome_mesh_4"]["launches"] == sum(out_launches[4])
+    rates = chip_smoke.check_mesh_session(
+        dev, lambda: None, "cpu rehearsal",
+        workload=lambda: chip_smoke.scaling_workload(
+            n_loci=3_000, n_bins=2_000, nnz_target=100_000))
+    assert sorted(rates) == [1, 2, 4]
+    out = capsys.readouterr().out
+    for n in (1, 2, 4):
+        assert f"genome mesh of {n}: " in out
+        assert f"genome mesh of {n} vs one device: " in out
+        assert f"mesh session n={n}: " in out
+    assert "genome mesh of 4 device busy share of one run: " in out
+    assert "genome mesh of 4 kernel bound: " in out
+
+
+def test_two_ranks_phase_rehearsal(capsys):
+    """Phase 11d on the CPU: two gloo ranks started from the script, each on
+    a 2-chromosome map, against this process's one-process run."""
+    chip_smoke.check_two_ranks(
+        torch.device("cpu"), lambda: None, "cpu rehearsal",
+        workload=dict(n_chroms=2, bins_per=1_200, contacts_per=50_000,
+                      n_sites=240))
+    out = capsys.readouterr().out
+    assert "rank 0: map " in out and "rank 1: map " in out
+    assert "region pairs [('chr1', 'chr1')] (1)" in out
+    assert "region pairs [('chr2', 'chr2')] (1)" in out
+    assert "two ranks == one process: " in out

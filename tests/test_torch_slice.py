@@ -128,6 +128,12 @@ pup = P.pileup(clr, toy_features(), view_df=toy_regions(), mindist=0,
                device="cpu")
 assert list(pup.sort_values("orientation")["n"]) == [1, 3, 1, 1, 6]
 assert pup["accumulate"].iloc[0] == "plain"
+# the same run on a loci mesh of two CPU devices
+from coolpuppy_tpu_torch.parallel import LociMesh
+mp = P.pileup(clr, toy_features(), view_df=toy_regions(), mindist=0,
+              flank=2_000_000, nshifts=1, seed=0, by_strand=True,
+              device="cpu", mesh=LociMesh(["cpu"] * 2))
+assert list(mp.sort_values("orientation")["n"]) == [1, 3, 1, 1, 6]
 # and one trans pileup: 3 x 3 features across the two chromosomes
 tp = P.pileup(clr, toy_features(), view_df=toy_regions(), flank=2_000_000,
               trans=True, nshifts=1, seed=0, device="cpu")
