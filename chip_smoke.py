@@ -16,17 +16,20 @@ measured). Phases, each printing its lines and, as it ends, its seconds:
    up, never imported);
 2. build: compiles ``coolpuppy_tpu_torch/csrc/*.cu`` for sm_90a and loads
    it, with ptxas' register and spill report, and the staged kernel's
-   shared memory, threads and resident blocks per SM at W = 21, 33, 65;
-3. kernel vs plain: both CUDA quad kernels (the staged one wherever its
-   corner fits shared memory, the direct one at every W) against the plain
-   PyTorch version on small inputs: W = 11, 21, 65 and 120 on synthetic
-   stacks (a 900-snip quad, group ids above 512, zero ``evec`` entries that
-   poison sums with +inf, an empty stream), the largest staged W and the
-   first direct W, a quad of more than 50 groups in runs of 1-3 snips, quads
-   of exactly ``ITEM_MAX`` and ``ITEM_MAX + 1`` snips, an item longer than
-   the kernel's chunk, and quads with missing tiles (slot 0): ``num`` exact,
-   poison planes equal, finite ``sum`` within rtol 1e-5 / atol 1e-5; the
-   routed ``quad_accumulate`` must take the variant ``corner_layout`` names;
+   bands, shared memory, threads and resident blocks per SM at W = 21, 33,
+   65, 110, 111 and 120;
+3. kernel vs plain: both CUDA quad kernels (the staged one, routed at every
+   W, in one band of window rows up to W = 110 and two from 111 to 120, and
+   the direct one, kept as a comparator) against the plain PyTorch version
+   on small inputs: W = 11, 21, 65, 115 and 120 on synthetic stacks (a
+   900-snip quad, group ids above 512, zero ``evec`` entries that poison
+   sums with +inf, an empty stream), the largest one-band W and the first
+   banded W, a quad of more than 50 groups in runs of 1-3 snips, quads of
+   exactly ``ITEM_MAX`` and ``ITEM_MAX + 1`` snips, an item longer than the
+   kernel's chunk, and quads with missing tiles (slot 0) at W = 21, 33,
+   111 and 120: ``num`` exact, poison planes equal, finite ``sum`` within
+   rtol 1e-5 / atol 1e-5; the routed ``quad_accumulate`` must launch the
+   staged kernel;
 4. the slice at the headline size (``bench.make_workload``: a 20,000-bin
    chromosome, 12M contacts, 1M loci, W = 21, observed-over-expected, 4
    groups, 25% flips): COO -> ``build_tile_stack_sym`` ->
@@ -44,8 +47,9 @@ measured). Phases, each printing its lines and, as it ends, its seconds:
    the whole path (with its phases), prints the kernel's bound (bytes over
    3.35 TB/s against float adds over 67 TFLOP/s) and its share of it, the
    device's busy share of one end-to-end run from ``torch.profiler``, and a
-   sweep over W = 11, 33, 65, the largest staged W and the first direct W
-   at 100,000 loci of the same map, each held against the plain version;
+   sweep over W = 11, 33, 65, 110 (one band), 111, 115 and 120 (two bands)
+   at 100,000 loci of the same map, both kernels held against the plain
+   version and timed in turns beside the bound;
 5. the engine: ``coolpuppy_tpu_torch.pileup`` on an in-memory ``Cooler``.
    (a) Every mode of the port (``ENGINE_MODES``) on a toy two-chromosome
    map with ``device="cuda"`` and with ``device="cpu"`` (the plain
@@ -94,7 +98,17 @@ measured). Phases, each printing its lines and, as it ends, its seconds:
    (+-1 Mb at 10 kb) over 2,000 stranded sites of the engine map with one
    shifted control: a checked run (route ``generic_torch``), 300 sites
    card against CPU (counts exact, ``data`` rtol 1e-4), and the timings of
-   (b).
+   (b). (d) 119-bin windows (+-590 kb at 10 kb: loop or CTCF-site pileups
+   with +-0.6 Mb flanks, or the default 100 kb flank on 2 kb Micro-C maps)
+   over the engine cell's 20,000 stranded sites with ``maxdist=3_000_000``,
+   the automatic ``mindist`` (1.2 Mb) and one shifted control, where the
+   staged kernel runs two bands an item: a warm-up, a checked run that must
+   launch the staged kernel only (route ``cuda_kernel``), the same run with
+   the direct kernel in its place (``direct_swapped``: counts exact,
+   ``data`` rtol 1e-4), the plain-swapped run (the same), 300 sites card
+   against CPU, two timed runs with the phases, a profiled run (busy
+   share), and each kernel's device time over its run's launches (CUDA
+   events around each launch) beside the bound and the plain version's.
 8. the extension hooks. (a) Every route of the hooks and every by-window
    case that groups through the frame hook (``HOOK_MODES``: the frame func,
    frame-column extras by strand and with controls, the batch hook, snip
@@ -223,7 +237,8 @@ SWEEP_ROUNDS = 1
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 SWEEP_LOCI = 100_000
-SWEEP_W = (11, 33, 65)  # plus the largest staged W and the first direct W
+# the largest one-band W (110), then two bands an item (111 to 120)
+SWEEP_W = (11, 33, 65, 110, 111, 115, 120)
 SWEEP_FULL_W = 11  # also swept over every locus of the headline
 ITEM_MAX_SWEEP = (512, 1024, 2048, 4096, 8192)
 
@@ -335,6 +350,10 @@ WIDE_CELL_KW = dict(features_format="bed", flank=1_000_000,
 WIDE_CELL_SITES = 2_000
 WIDE_SUBSET_SITES = 300
 CELL_REPEATS = 2
+# phase 7d: 119-bin windows (+-590 kb at 10 kb) over the engine cell's sites,
+# the staged kernel in two bands; mindist automatic (2 * flank + 2 bins)
+W119_CELL_KW = dict(ENGINE_KW, flank=590_000, maxdist=3_000_000)
+W119_SUBSET_SITES = 300
 
 # phase 8a: the extension routes and the by-window cases that group through
 # a frame hook, on the toy map. Per mode: "features" (toy_features() with
@@ -505,12 +524,12 @@ def small_problem(W, seed):
     return coo, r1, r2, cid, valid, evec, cfg_kw
 
 
-def staged_limit():
-    """``(largest staged W, first direct W)`` from ``corner_layout``."""
+def band_limit():
+    """``(largest one-band W, first banded W)`` from ``corner_layout``."""
     from coolpuppy_tpu_torch.ops.quad_gather import W_MAX, corner_layout
 
     first = next(W for W in range(1, W_MAX + 1)
-                 if not corner_layout(W).staged)
+                 if corner_layout(W).bands > 1)
     return first - 1, first
 
 
@@ -555,9 +574,9 @@ def kernel_cases():
     )
     from coolpuppy_tpu_torch.ops.tiles import build_tile_stack_sym
 
-    last_staged, first_direct = staged_limit()
-    for W, seed in ((11, 7), (21, 8), (65, 9), (120, 10), (last_staged, 11),
-                    (first_direct, 12)):
+    last_single, first_banded = band_limit()
+    for W, seed in ((11, 7), (21, 8), (65, 9), (120, 10), (last_single, 11),
+                    (first_banded, 12), (115, 17)):
         coo, r1, r2, cid, valid, evec, cfg_kw = small_problem(W, seed)
         ts = build_tile_stack_sym(coo, B, r1=r1, r2=r2, window1=W, window2=W)
         sess = QuadPileupSession(ts, valid, valid, evec, cfg_kw, "cpu")
@@ -576,7 +595,7 @@ def kernel_cases():
     yield ("W=21 item longer than the chunk", *synthetic_case(
         21, 15, [2 * STAGE_CHUNK + 77, 40], [full, [5, 6, 7, 8]], C=9))
     missing = [[1, 0, 2, 0], [0, 0, 3, 4], [0, 0, 0, 0], [0, 5, 0, 0]]
-    for W in (21, 33, first_direct):
+    for W in (21, 33, first_banded, 120):
         yield (f"W={W} missing tiles", *synthetic_case(
             W, 16 + W, [60, 50, 7, 40], missing))
 
@@ -601,9 +620,10 @@ def variant_args(quads, variant, device):
 
 
 def check_case(name, stiles, quads, W, C, device, sync):
-    """One phase-3 case: every kernel that takes this W against the plain
-    version (``num`` exact, poison equal, ``sum`` within SMALL_TOL), and the
-    routed ``quad_accumulate`` on the items its kernel takes. Returns the
+    """One phase-3 case: both kernels against the plain version (``num``
+    exact, poison equal, ``sum`` within SMALL_TOL), the staged one on split
+    and on whole quads, and the routed ``quad_accumulate`` on the staged
+    kernel's items, which must launch the staged kernel. Returns the
     variants held and the largest absolute error."""
     import torch
 
@@ -612,13 +632,10 @@ def check_case(name, stiles, quads, W, C, device, sync):
     st = torch.from_numpy(stiles).to(device)
     want = qg.quad_accumulate_plain(
         st, *variant_args(quads, "whole", device), W, C)
-    staged = qg.corner_layout(W).staged
-    runs = [("direct", qg.quad_accumulate_direct, "direct")]
-    if staged:
-        runs += [("staged", qg.quad_accumulate_staged, "staged"),
-                 ("staged, whole quads", qg.quad_accumulate_staged, "whole")]
-    runs.append(("routed", qg.quad_accumulate,
-                 "staged" if staged else "direct"))
+    runs = [("direct", qg.quad_accumulate_direct, "direct"),
+            ("staged", qg.quad_accumulate_staged, "staged"),
+            ("staged, whole quads", qg.quad_accumulate_staged, "whole"),
+            ("routed", qg.quad_accumulate, "staged")]
     err = 0.0
     for label, fn, split in runs:
         args = variant_args(quads, split, device)
@@ -627,9 +644,8 @@ def check_case(name, stiles, quads, W, C, device, sync):
         sync()
         took = {v: qg.VARIANT_LAUNCHES[v] - before[v] for v in before}
         n_items = int(args[0].shape[0])
-        if label == "routed" and took != {
-                "staged": int(staged and n_items > 0),
-                "direct": int(not staged and n_items > 0)}:
+        if label == "routed" and took != {"staged": int(n_items > 0),
+                                          "direct": 0}:
             raise AssertionError(f"{name}: routed launch counted {took}")
         err = max(err, compare(got, want, what=f"{label} vs plain {name}",
                                **SMALL_TOL))
@@ -640,9 +656,12 @@ def check_kernels(dev, sync):
     """Phase 3: both kernels against the plain version at small shapes."""
     import torch
 
+    from coolpuppy_tpu_torch.ops.quad_gather import corner_layout
+
     for name, stiles, quads, W, C in kernel_cases():
         held, err, want = check_case(name, stiles, quads, W, C, dev, sync)
-        print(f"kernel vs plain {name}: quads {len(quads[2])} snips "
+        print(f"kernel vs plain {name}: bands {corner_layout(W).bands} "
+              f"quads {len(quads[2])} snips "
               f"{len(quads[0])} C {C} [{'; '.join(held)}] "
               f"max_abs_err {err:.3g} num {int(want[1].sum())} "
               f"poison {int(torch.isinf(want[0]).sum())} ok")
@@ -689,7 +708,11 @@ def covered_pixels(k, qstart, qcount, snips, W, block=2048):
         w = snips[pos].long()
         marks = torch.zeros((hi - lo, B, B), device=dev)
         marks[item, w >> 24, (w >> 17) & 0x7F] = 1.0
-        cov = F.max_pool2d(F.pad(marks[:, None], (W - 1,) * 4), W, stride=1)
+        # the W x W max-pool as a column pass and a row pass (a max over a
+        # box is the max of its rows' maxima): 2W compares a pixel, not W^2
+        cov = F.max_pool2d(F.pad(marks[:, None], (W - 1,) * 4), (W, 1),
+                           stride=1)
+        cov = F.max_pool2d(cov, (1, W), stride=1)
         quad = torch.zeros((hi - lo, 2 * B, 2 * B), device=dev)
         quad[:, :S, :S] = cov[:, 0]
         for j, (r, c) in enumerate(((0, 0), (0, B), (B, 0), (B, B))):
@@ -737,12 +760,15 @@ class launch_shapes:
 
 def shape_record(what, calls, kernel_ms, launches, card):
     """Print and return one shape's row of the kernel table: launches,
-    the kernel's time, its bound on these inputs and the share of it.
+    the kernel's time, its bound on these inputs and the share of it, and
+    the plain version's time in the plain-swapped run of the same name.
     ``calls`` holds ``call_shape`` records or ``quad_accumulate``
     arguments."""
     calls = [c if isinstance(c, dict) else call_shape(*c) for c in calls]
     ms, by, nbytes, ops = kernel_bound(calls)
+    plain = PLAIN_MS.get(what)
     rec = dict(launches=launches, bound_ms=ms, bound_by=by, ms=kernel_ms,
+               plain_ms=plain,
                **{key: sum(c[key] for c in calls)
                   for key in ("pixels", "groups", "items", "snips")},
                C=max((c["C"] for c in calls), default=0))
@@ -751,7 +777,9 @@ def shape_record(what, calls, kernel_ms, launches, card):
     print(f"{what} kernel bound: {ms:.5f} ms by {by} ({nbytes} bytes, {ops} "
           f"adds; pixels {rec['pixels']}, groups {rec['groups']}, items "
           f"{rec['items']}, snips {rec['snips']}, C {rec['C']}, launches "
-          f"{launches}); kernel {share} on {card}")
+          f"{launches}); kernel {share}; plain version "
+          f"{'not measured' if plain is None else f'{plain:.3f} ms'} on "
+          f"{card}")
     return rec
 
 
@@ -1092,10 +1120,11 @@ def check_slice(dev, sync, workload, card):
 
 def check_sweep(dev, sync, workload, card):
     """Phase 4's sweep over window sizes: the first SWEEP_LOCI loci of the
-    headline map at W = 11, 33, 65, the largest staged W and the first
-    direct W, and every locus at W = 11; every kernel that takes the W is
-    held against the plain version (``num`` exact, poison equal, ``sum``
-    rtol 1e-4) and timed in turns beside its bound."""
+    headline map at every W of SWEEP_W (one band up to 110, two from 111),
+    and every locus at W = 11; both kernels are held against the plain
+    version (``num`` exact, poison equal, ``sum`` rtol 1e-4) and timed in
+    turns (direct, staged, staged, direct) beside the routed (staged)
+    kernel's bound."""
     import coolpuppy_tpu_torch.ops.quad_gather as qg
     from coolpuppy_tpu_torch.ops.tiles import build_tile_stack_sym
 
@@ -1107,8 +1136,7 @@ def check_sweep(dev, sync, workload, card):
     qg.PLAIN_CHUNK = 8192  # bounds the plain version's index tensors
     try:
         for W, loci in ((SWEEP_FULL_W, len(r1)),
-                        *((W, SWEEP_LOCI)
-                          for W in (*SWEEP_W, *staged_limit()))):
+                        *((W, SWEEP_LOCI) for W in SWEEP_W)):
             a = np.minimum(r1[:loci], coo.shape[0] - W - 1)
             b = np.minimum(r2[:loci], coo.shape[0] - W - 1)
             cid = cid_all[:loci]
@@ -1119,9 +1147,7 @@ def check_sweep(dev, sync, workload, card):
                 dict(W=W, capacity=C, cis=True, ignore_diags=2, ooe=True),
                 dev)
             quads = qg.sort_quads(a, b, cid, ts.tile_map, B)
-            variants = ["direct"]
-            if qg.corner_layout(W).staged:
-                variants.append("staged")
+            variants = ["direct", "staged"]
             args = {v: (sess.stiles, *variant_args(quads, v, dev), W, C)
                     for v in variants}
             launchers = {"direct": qg.quad_accumulate_direct,
@@ -1137,15 +1163,16 @@ def check_sweep(dev, sync, workload, card):
                                        atol=1e-6,
                                        what=f"sweep W={W} {v} vs plain"))
             ms = in_turns(fns, sync)
-            routed = variants[-1]
+            routed = "staged"
             bound, by, _, _ = kernel_bound([call_shape(*args[routed])])
             med = statistics.median(ms[routed]["kernel"])
             lay = qg.corner_layout(W)
             print(f"sweep W={W}: {len(a)} snips, quads {len(quads[2])}, "
-                  f"items {int(args[routed][1].shape[0])}, tiles "
-                  f"{ts.n_tiles}, routed {routed}, smem_bytes "
-                  f"{lay.smem_bytes if lay.staged else 0}, threads "
-                  f"{qg.pixels_per_thread(W) if lay.staged else 256}, "
+                  f"items {int(args[routed][1].shape[0])} (direct "
+                  f"{int(args['direct'][1].shape[0])}), tiles {ts.n_tiles}, "
+                  f"routed {routed}, bands {lay.bands} of {lay.band_rows} "
+                  f"rows, smem_bytes {lay.smem_bytes}, (pixels/thread, "
+                  f"threads) {qg.pixels_per_thread(W)}, "
                   f"max_abs_err {err:.3g}; ms in turns: {ms_line(ms)}; "
                   f"plain {t_plain * 1e3:.1f} ms (one run); bound "
                   f"{bound:.5f} ms by {by}, bound/kernel {bound / med:.4f} "
@@ -2184,6 +2211,138 @@ def check_wide_cell(dev, sync, card, workload=None):
                      lambda: run(feats))
 
 
+def direct_swapped(what, run):
+    """``run`` with ``quad_accumulate`` swapped for the direct kernel, the
+    first design, routed nowhere since the staged kernel took every W: each
+    call's items cut into single-group runs (``split_runs``, as the direct
+    kernel takes them) and launched there, the launch counts set to 0 just
+    before. Every launch must be the direct kernel's. Returns ``(table,
+    launches)``."""
+    import torch
+
+    import coolpuppy_tpu_torch.ops.quad_gather as qg
+
+    def direct(stiles, k, qstart, qcount, snips, W, C):
+        items = qg.split_runs(*(a.cpu().numpy()
+                                for a in (snips, k, qstart, qcount)))
+        items = [torch.from_numpy(np.ascontiguousarray(a, np.int32))
+                 .to(stiles.device) for a in items]
+        s, n = qg.quad_accumulate_direct(stiles, *items, snips, W, C)
+        return s.to(torch.float64), n.to(torch.float64)
+
+    routed = qg.quad_accumulate
+    qg.quad_accumulate = direct
+    try:
+        qg.LAUNCHES = 0
+        qg.VARIANT_LAUNCHES.update(staged=0, direct=0)
+        table = run()
+        launches, took = qg.LAUNCHES, dict(qg.VARIANT_LAUNCHES)
+    finally:
+        qg.quad_accumulate = routed
+    if launches < 1 or took != {"staged": 0, "direct": launches} or \
+            table["accumulate"].iloc[0] != "cuda_kernel":
+        raise AssertionError(f"{what}: direct-swapped run launched {took}, "
+                             f"route {table['accumulate'].iloc[0]!r}")
+    return table, launches
+
+
+def check_w119_cell(dev, sync, card, shapes=None, workload=None):
+    """Phase 7d: 119-bin windows over the engine cell's sites
+    (``W119_CELL_KW``), where the staged kernel runs two bands an item: a
+    warm-up, a checked run that must launch the staged kernel only, the
+    same run with the direct kernel in its place (counts exact, ``data``
+    rtol 1e-4), W119_SUBSET_SITES sites card against CPU, timed runs and a
+    profiled run (busy share); each kernel's device time is the sum over
+    its launches in the checked and the direct-swapped run, between CUDA
+    events around each launch (``quad_kernel_events``), beside the bound
+    and the plain-swapped run's plain version (counts exact, ``data`` rtol
+    1e-4 against the checked run).
+    Returns the checked run's launches; ``shapes``, a dict, gets the cell's
+    ``shape_record`` with the direct kernel's ms beside it."""
+    import coolpuppy_tpu_torch.ops.quad_gather as qg
+    from coolpuppy_tpu_torch import CoordCreator, PileUpper, pileup
+
+    t0 = time.perf_counter()
+    t, (clr, feats) = timed(workload or engine_workload, lambda: None)
+    W = 2 * (W119_CELL_KW["flank"] // clr.binsize) + 1
+    print(f"w119 workload: {clr.n_bins} bins, {clr.n_pixels} pixels, "
+          f"{len(feats)} sites, W {W} in {t:.1f} s")
+
+    def run(f, device=dev):
+        return pileup(clr, f, device=device, **W119_CELL_KW)
+
+    def since():
+        return f"(at {time.perf_counter() - t0:.1f} s)"
+
+    t, warm = timed(lambda: run(feats.iloc[:ENGINE_WARMUP_SITES]), sync)
+    print(f"w119 warm-up ({ENGINE_WARMUP_SITES} sites): "
+          f"{engine_snips(warm)} snips in {t:.2f} s")
+    with quad_kernel_events() as staged_ev:
+        checked, launches, calls, t = kernel_run(
+            "w119 run", lambda: run(feats), dev)
+    n_snips = engine_snips(checked)
+    data = np.stack(checked["data"].to_list())
+    if data.shape[1:] != (W, W) or not np.isfinite(data).any():
+        raise AssertionError(f"w119 output: shape {data.shape}, finite "
+                             f"{int(np.isfinite(data).sum())}")
+    print(f"w119 checked run: {n_snips} snips, {len(checked)} rows, W {W}, "
+          f"launches {launches} (staged only), route "
+          f"{checked['accumulate'].iloc[0]}, {t:.2f} s {since()}")
+
+    with quad_kernel_events() as direct_ev:
+        direct, direct_launches = direct_swapped("w119", lambda: run(feats))
+    err = compare_tables(checked, direct, rtol=ENGINE_RTOL, atol=1e-7,
+                         what="w119 staged vs direct kernel")
+    print(f"w119 staged vs direct kernel (whole run, {direct_launches} "
+          f"direct launches): counts exact, data max_abs_err {err:.3g} (rtol "
+          f"{ENGINE_RTOL}) ok {since()}")
+    chunk = qg.PLAIN_CHUNK
+    qg.PLAIN_CHUNK = 8192  # bounds the plain version's index tensors
+    try:
+        plain = plain_swapped("w119", lambda: run(feats))
+    finally:
+        qg.PLAIN_CHUNK = chunk
+    err = compare_tables(checked, plain, rtol=ENGINE_RTOL, atol=1e-7,
+                         what="w119 kernel vs plain")
+    print(f"w119 kernel vs plain (whole run, plain version "
+          f"{PLAIN_MS['w119']:.1f} ms): counts exact, data max_abs_err "
+          f"{err:.3g} (rtol {ENGINE_RTOL}) ok {since()}")
+    del plain, direct
+
+    sub = feats.iloc[:W119_SUBSET_SITES]
+    got = run(sub)
+    t, want = timed(lambda: run(sub, device="cpu"), lambda: None)
+    err = compare_tables(got, want, rtol=ENGINE_RTOL, atol=1e-7,
+                         what="w119 subset card vs cpu")
+    print(f"w119 subset ({len(sub)} sites, {engine_snips(want)} snips, CPU "
+          f"{t:.1f} s) card vs CPU: counts exact, data max_abs_err "
+          f"{err:.3g} (rtol {ENGINE_RTOL}) ok {since()}")
+
+    def run_timed():
+        kw = {k: v for k, v in W119_CELL_KW.items()
+              if k not in ("by_strand", "nshifts")}
+        cc = CoordCreator(feats, clr.binsize,
+                          nshifts=W119_CELL_KW["nshifts"], **kw)
+        pu = PileUpper(clr, cc, control=True, device=dev)
+        return pu, pu.pileupsByStrandWithControl()
+
+    timed_runs("w119", run_timed, CELL_REPEATS, n_snips, sync, card,
+               engine_snips)
+    prof = profile_run(lambda: run(feats), sync)
+    print(f"w119 device busy share of one run: {prof['text']} {since()}")
+    staged_ms, direct_ms = sum(staged_ev.ms), sum(direct_ev.ms)
+    rec = shape_record("w119", calls, staged_ms, launches, card)
+    rec["direct_ms"] = direct_ms
+    print(f"w119 kernels (summed over each run's launches, CUDA events): "
+          f"staged {staged_ms:.3f} ms in {launches} launches, direct "
+          f"{direct_ms:.3f} ms in {direct_launches}, direct/staged "
+          f"{direct_ms / staged_ms:.2f}; bound {rec['bound_ms']:.5f} ms by "
+          f"{rec['bound_by']} on {card} {since()}")
+    if shapes is not None:
+        shapes["w119"] = rec
+    return launches
+
+
 def center_snip(snip):
     """bench_extension's per-snip hook: the nansum of a central block (rows
     and columns 8:13 of a 21-bin window; the toy's whole 5-bin window)."""
@@ -2386,22 +2545,51 @@ def kernel_run(what, run, dev):
     return table, launches, called.calls, t
 
 
+# the plain version's time in each plain-swapped run, by the run's name
+# (``shape_record`` of the same name reports it beside the kernel's)
+PLAIN_MS = {}
+
+
 def plain_swapped(what, run):
     """``run`` with ``quad_accumulate`` swapped for the plain version: no
-    launch, route ``plain``."""
+    launch, route ``plain``. The plain calls' time (CUDA events around each
+    call on a card, the host clock on the CPU), summed, goes to
+    ``PLAIN_MS[what]``."""
+    import torch
+
     import coolpuppy_tpu_torch.ops.quad_gather as qg
 
+    spans = []
+
+    def plain(stiles, *args):
+        if not stiles.is_cuda:
+            t = time.perf_counter()
+            out = qg.quad_accumulate_plain(stiles, *args)
+            spans.append(1e3 * (time.perf_counter() - t))
+            return out
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = qg.quad_accumulate_plain(stiles, *args)
+        t1.record()
+        spans.append((t0, t1))
+        return out
+
     kernel = qg.quad_accumulate
-    qg.quad_accumulate = qg.quad_accumulate_plain
+    qg.quad_accumulate = plain
     try:
         qg.LAUNCHES = 0
-        plain = run()
+        table = run()
         launches = qg.LAUNCHES
     finally:
         qg.quad_accumulate = kernel
-    if launches != 0 or plain["accumulate"].iloc[0] != "plain":
+    if launches != 0 or table["accumulate"].iloc[0] != "plain":
         raise AssertionError(f"{what}: plain-swapped run launched {launches}")
-    return plain
+    if any(isinstance(x, tuple) for x in spans):
+        torch.cuda.synchronize()
+    PLAIN_MS[what] = sum(x if isinstance(x, float) else x[0].elapsed_time(x[1])
+                         for x in spans)
+    return table
 
 
 def check_extension(dev, sync, card, shapes=None, workload=None):
@@ -3757,15 +3945,17 @@ def main(argv=None):
     t, lib = timed(lambda: build(verbose=True), lambda: None)
     load_kernels()
     print(f"build: {lib} in {t:.1f} s")
-    last_staged, first_direct = staged_limit()
-    for W in (21, 33, 65, last_staged):
+    last_single, first_banded = band_limit()
+    for W in (21, 33, 65, last_single, first_banded, qg.W_MAX):
         lay = qg.corner_layout(W)
         pixels, threads = qg.pixels_per_thread(W)
-        print(f"staged kernel W={W}: corner {lay.side} x {lay.stride} floats, "
-              f"smem_bytes {lay.smem_bytes}, threads {threads}, pixels/thread "
-              f"{pixels}, blocks/SM {qg.staged_occupancy(W, dev)}")
-    print(f"staged kernel: largest staged W {last_staged}, first direct W "
-          f"{first_direct} ({qg.SMEM_MAX} bytes of shared memory a block)")
+        print(f"staged kernel W={W}: {lay.bands} band(s) of {lay.band_rows} "
+              f"rows, corner {lay.side} x {lay.stride} floats, staged rows "
+              f"{B - 1 + lay.band_rows}, smem_bytes {lay.smem_bytes}, threads "
+              f"{threads}, pixels/thread {pixels}, blocks/SM "
+              f"{qg.staged_occupancy(W, dev)}")
+    print(f"staged kernel: largest one-band W {last_single}, first banded W "
+          f"{first_banded} ({qg.SMEM_MAX} bytes of shared memory a block)")
 
     # the kernel's record: phase 4 fills it; a run without phase 4 lists
     # the kernel with the shapes of the phases it did run, and null for
@@ -3814,11 +4004,13 @@ def main(argv=None):
                                                record["shapes"])
         phase_done(6)
 
-    # -- 7. rescale and W > 120: toy map, then the two cells -------------
+    # -- 7. rescale and W > 120: toy map, the two cells; the W = 119 cell -
     if 7 in phases:
         check_rescale_wide_toy(dev)
         check_rescale_cell(dev, sync, card)
         check_wide_cell(dev, sync, card)
+        record["w119_launches"] = check_w119_cell(dev, sync, card,
+                                                  record["shapes"])
         phase_done(7)
 
     # -- 8. the extension hooks: toy map, bench_extension, BEDPE windows --

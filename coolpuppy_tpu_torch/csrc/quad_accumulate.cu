@@ -21,8 +21,7 @@
 // ~61 us is the working ceiling, with ~5 issue slots a pixel about as much
 // again on 132 x 4 schedulers.
 //
-// The staged kernel (quad_accumulate_staged_kernel), taken wherever its
-// shared memory fits:
+// The staged kernel (quad_accumulate_staged_kernel), taken at every W:
 //   - Offsets are below 128, so a window never reaches past row or column
 //     128 + W - 2. The block copies that (128 + W - 1)^2 corner of the
 //     superwindow (88 KB at W = 21; the superwindow would be 256 KB, more
@@ -32,6 +31,25 @@
 //     is then (a*S + b) + (i*S + j): the first term is decoded once per
 //     snip per block into shared memory, the second once per thread, and
 //     the inner loop is an add, a shared load, two compares and two adds.
+//   - Bands, where the corner does not fit a block (from W = 111: 238 x 239
+//     floats and the chunk buffers are 233,840 bytes, a block has 232,448):
+//     the window's rows are cut into R bands of H = ceil(W / R) rows, and
+//     each item gets R blocks, one a band (blockIdx.x = item * R + band, so
+//     the bands of an item are dispatched together and share its tiles in
+//     L2). Band r holds window rows [r*H, r*H + H); with a < 128 it reaches
+//     superwindow rows [r*H, r*H + 127 + H) only, and stages those rows:
+//     (127 + H) x S floats, 185,504 bytes at W = 120, R = 2. Its pixel term
+//     is ((i - r*H)*S + j). The R blocks of an item flush disjoint pixels,
+//     so the atomics per pixel do not change; each snip word is decoded R
+//     times and the corner copy moves (2 * 187) / 247 = 1.5x the rows. The
+//     host picks the fewest bands that fit (R = 1 up to W = 110, R = 2 from
+//     111 to 120). The band arithmetic is a template flag: with one band it
+//     folds away and the kernel is the one without bands (done at run time
+//     for R = 1 too, it took P = 16 to 80 registers and 52 bytes of
+//     spills). Thread block clusters, which would let one block read a
+//     peer's half of the corner, are not used: a read of distributed shared
+//     memory costs several local reads, and the window loads are nearly all
+//     of the work.
 //   - S = W + 128, so S = W (mod 32): a warp's 32 consecutive pixels span
 //     two window rows and still hit 32 distinct banks. Rows are then not
 //     16-byte aligned and the copy moves 4 bytes a cp.async. The other
@@ -48,23 +66,23 @@
 //     over a run and flushes them with one atomicAdd each at the run's end:
 //     as many atomics as one item per run would make, but the corner is
 //     staged once per item.
-//   - Every pixel is held at once: threads = ceil(W*W / P) rounded up to a
-//     warp, P = 1, 2, 4, 8 or 16 pixels a thread in registers, so the
-//     item's snips are walked once. The fewest pixels that cover the window
-//     are the fastest (W = 21: 0.182 ms at P = 1, 0.197 at 2, 0.321 at 4).
+//   - Every pixel of the band is held at once: threads = ceil(H*W / P)
+//     rounded up to a warp, P = 1, 2, 4, 8 or 16 pixels a thread in
+//     registers, so the item's snips are walked once. The fewest pixels that
+//     cover the band are the fastest (W = 21: 0.182 ms at P = 1, 0.197 at 2,
+//     0.321 at 4); W = 111..120 take P = 8 with 800..928 threads.
 //   - Items longer than kChunk snips are walked in chunks of kChunk (the
-//     decoded offsets and run starts live in shared memory); a run that
-//     crosses a chunk boundary is flushed twice, which changes no result.
-//     The host cuts items at ITEM_MAX = kChunk = 1024 snips: 0.182 ms at
-//     the headline against 0.204 at 512 and 0.189 at 2048.
+//     decoded offsets and run starts live in shared memory, per block); a
+//     run that crosses a chunk boundary is flushed twice, which changes no
+//     result. The host cuts items at ITEM_MAX = kChunk = 1024 snips: 0.182
+//     ms at the headline against 0.204 at 512 and 0.189 at 2048.
 //
-// The direct kernel (quad_accumulate_kernel), where the corner and the
-// chunk buffers exceed a block's 232,448 bytes (from W = 111): one block per
-// single-group item (the host's split_runs), windows read straight from
-// global memory through L1/L2 with the region select and address arithmetic
-// per pixel, 8 loads in flight, 256 threads striding the pixels. It is also
-// the earlier design at every W, timed beside the staged kernel (the
-// headline: 0.547 ms direct, 0.182 ms staged).
+// The direct kernel (quad_accumulate_kernel), the first design, kept as a
+// comparator and no longer routed: one block per single-group item (the
+// host's split_runs), windows read straight from global memory through
+// L1/L2 with the region select and address arithmetic per pixel, 8 loads
+// in flight, 256 threads striding the pixels (the headline: 0.547 ms
+// direct, 0.182 ms staged).
 //
 // num is int32 in both, so counts stay exact far past float32's 2^24.
 
@@ -175,18 +193,22 @@ __device__ __forceinline__ void add_snip(const unsigned char* corner, int off,
   }
 }
 
-template <int P>
+template <int P, bool kBands>
 __global__ void __launch_bounds__(P <= 8 ? 1024 : 768)
 quad_accumulate_staged_kernel(const float* __restrict__ stiles,
                               const int32_t* __restrict__ k,
                               const int32_t* __restrict__ qstart,
                               const int32_t* __restrict__ qcount,
                               const int32_t* __restrict__ snips, int W, int C,
-                              int S, int corner_bytes,
+                              int S, int H, int corner_bytes,
                               float* __restrict__ sum,
                               int32_t* __restrict__ num) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int q = blockIdx.x;
+  // R blocks an item, one a band of H window rows (one block, H = W,
+  // without bands)
+  const int R = kBands ? (W + H - 1) / H : 1;
+  const int q = kBands ? blockIdx.x / R : blockIdx.x;
+  const int row0 = kBands ? (blockIdx.x - q * R) * H : 0;  // first window row
   const int cnt = qcount[q];
   if (cnt <= 0) return;  // uniform across the block: no barrier is skipped
   float* corner = reinterpret_cast<float*>(smem);
@@ -204,18 +226,23 @@ quad_accumulate_staged_kernel(const float* __restrict__ stiles,
   const int nwarps = blockDim.x >> 5;
   const int side = kTile + W - 1;
   const int WW = W * W;
+  const int rows = kBands ? min(H, W - row0) : W;  // the band's window rows
+  const int band_side = kTile - 1 + rows;  // superwindow rows they reach
+  const int npix = rows * W;             // the band's pixels
+  const int base = row0 * W;             // its first pixel in the window
 
-  // 1. the reachable corner, one warp a row: all of tile 00, W - 1 columns
-  // of 01, W - 1 rows of 10, the (W - 1)^2 corner of 11
+  // 1. the band's rows [row0, row0 + band_side) of the reachable corner,
+  // one warp a row: columns of tile 00 or 10, then W - 1 of 01 or 11
   {
     const float* t00 = stiles + (size_t)k[4 * q + 0] * kTileElems;
     const float* t01 = stiles + (size_t)k[4 * q + 1] * kTileElems;
     const float* t10 = stiles + (size_t)k[4 * q + 2] * kTileElems;
     const float* t11 = stiles + (size_t)k[4 * q + 3] * kTileElems;
-    for (int r = warp; r < side; r += nwarps) {
-      const int tr = (r & (kTile - 1)) * kTile;
-      const float* left = (r < kTile ? t00 : t10) + tr;
-      const float* right = (r < kTile ? t01 : t11) + tr;
+    for (int r = warp; r < band_side; r += nwarps) {
+      const int sr = row0 + r;  // the superwindow row
+      const int tr = (sr & (kTile - 1)) * kTile;
+      const float* left = (sr < kTile ? t00 : t10) + tr;
+      const float* right = (sr < kTile ? t01 : t11) + tr;
       float* dst = corner + r * S;
       for (int c = lane; c < side; c += 32)
         __pipeline_memcpy_async(
@@ -224,12 +251,13 @@ quad_accumulate_staged_kernel(const float* __restrict__ stiles,
     __pipeline_commit();
   }
 
-  // each thread's pixels p = tid + m * blockDim.x, as byte offsets
+  // each thread's pixels p = tid + m * blockDim.x of the band, as byte
+  // offsets from the band's first row
   int pix[P];
 #pragma unroll
   for (int m = 0; m < P; ++m) {
     const int p = tid + m * blockDim.x;
-    const int pp = p < WW ? p : 0;  // idle slots read pixel 0, flush nothing
+    const int pp = p < npix ? p : 0;  // idle slots read pixel 0, flush nothing
     const int i = pp / W;
     pix[m] = (i * S + (pp - i * W)) * 4;
   }
@@ -303,52 +331,65 @@ quad_accumulate_staged_kernel(const float* __restrict__ stiles,
 #pragma unroll
       for (int m = 0; m < P; ++m) {
         const int p = tid + m * blockDim.x;
-        if (p < WW) flush(sum, num, g, C, WW, p, s[m], n[m]);
+        if (p < npix) flush(sum, num, g, C, WW, base + p, s[m], n[m]);
       }
     }
   }
 }
 
-// threads of the staged launch for P pixels a thread, 0 if P does not fit W
-int staged_threads(int W, int P) {
+// threads of the staged launch for bands of H rows and P pixels a thread,
+// 0 if P does not fit the band or H is not a band height of W
+int staged_threads(int W, int H, int P) {
   if (P != 1 && P != 2 && P != 4 && P != 8 && P != 16) return 0;
-  const int ww = W * W;
-  const int threads = (((ww + P - 1) / P + 31) / 32) * 32;
+  if (W < 1 || H < 1 || H > W) return 0;
+  const int px = H * W;
+  const int threads = (((px + P - 1) / P + 31) / 32) * 32;
   return threads <= (P <= 8 ? 1024 : 768) ? threads : 0;
 }
 
-// the staged launch's dynamic shared memory, 0 if S is too short for W
-int staged_smem_bytes(int W, int S) {
+// the staged launch's dynamic shared memory for bands of H rows: the band's
+// 127 + H corner rows of S floats, then the chunk buffers; 0 if S is too
+// short for W or H is not a band height of W
+int staged_smem_bytes(int W, int S, int H) {
   const int side = kTile + W - 1;
-  if (W < 1 || S < side) return 0;
-  return ((side * S * 4 + 15) / 16) * 16 + kTailBytes;
+  if (W < 1 || H < 1 || H > W || S < side) return 0;
+  return (((kTile - 1 + H) * S * 4 + 15) / 16) * 16 + kTailBytes;
+}
+
+// the staged kernel for P pixels a thread, with bands where H < W
+template <int P>
+decltype(&quad_accumulate_staged_kernel<P, false>) staged_kernel(int W,
+                                                                 int H) {
+  return H < W ? quad_accumulate_staged_kernel<P, true>
+               : quad_accumulate_staged_kernel<P, false>;
 }
 
 template <int P>
 cudaError_t staged_launch(const void* stiles, const void* k,
                           const void* qstart, const void* qcount,
-                          const void* snips, int nq, int W, int C, int S,
-                          int threads, int smem_bytes, void* sum, void* num,
-                          cudaStream_t stream) {
+                          const void* snips, int blocks, int W, int C, int S,
+                          int H, int threads, int smem_bytes, void* sum,
+                          void* num, cudaStream_t stream) {
+  const auto kernel = staged_kernel<P>(W, H);
   cudaError_t err = cudaFuncSetAttribute(
-      quad_accumulate_staged_kernel<P>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
-  quad_accumulate_staged_kernel<P><<<nq, threads, smem_bytes, stream>>>(
+  kernel<<<blocks, threads, smem_bytes, stream>>>(
       (const float*)stiles, (const int32_t*)k, (const int32_t*)qstart,
-      (const int32_t*)qcount, (const int32_t*)snips, W, C, S,
+      (const int32_t*)qcount, (const int32_t*)snips, W, C, S, H,
       smem_bytes - kTailBytes, (float*)sum, (int32_t*)num);
   return cudaGetLastError();
 }
 
 template <int P>
-cudaError_t staged_occupancy(int* blocks, int threads, int smem_bytes) {
+cudaError_t staged_occupancy(int* blocks, int W, int H, int threads,
+                             int smem_bytes) {
+  const auto kernel = staged_kernel<P>(W, H);
   cudaError_t err = cudaFuncSetAttribute(
-      quad_accumulate_staged_kernel<P>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, quad_accumulate_staged_kernel<P>, threads, smem_bytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                       threads, smem_bytes);
 }
 
 // The thread's current device for one launcher call: set to `device` on
@@ -393,60 +434,77 @@ int quad_accumulate_launch(const void* stiles, const void* k,
   return (int)cudaGetLastError();
 }
 
-// Launches the staged kernel over nq work items; an item may hold many
-// groups, sorted. S is the corner's row stride in floats, P the pixels a
-// thread holds, smem_bytes the dynamic shared memory the caller worked out:
-// it must equal this file's own layout, or the launch is refused with
-// cudaErrorInvalidValue, as is a P that does not fit W. Otherwise as
+// Launches the staged kernel over nq work items, ceil(W / H) blocks an item
+// (one a band of H window rows); an item may hold many groups, sorted. S is
+// the corner's row stride in floats, P the pixels a thread holds,
+// smem_bytes the dynamic shared memory the caller worked out: it must equal
+// this file's own layout, or the launch is refused with
+// cudaErrorInvalidValue, as is a P that does not fit the band. Otherwise as
 // quad_accumulate_launch.
 int quad_accumulate_staged_launch(const void* stiles, const void* k,
                                   const void* qstart, const void* qcount,
                                   const void* snips, int nq, int W, int C,
-                                  int S, int P, int smem_bytes, void* sum,
-                                  void* num, void* stream, int device) {
+                                  int S, int H, int P, int smem_bytes,
+                                  void* sum, void* num, void* stream,
+                                  int device) {
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
-  const int threads = staged_threads(W, P);
-  if (threads == 0 || smem_bytes != staged_smem_bytes(W, S))
+  const int threads = staged_threads(W, H, P);
+  if (threads == 0 || smem_bytes != staged_smem_bytes(W, S, H))
     return (int)cudaErrorInvalidValue;
   if (nq <= 0) return (int)cudaSuccess;
+  const long long blocks = (long long)nq * ((W + H - 1) / H);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int nb = (int)blocks;
   cudaStream_t st = (cudaStream_t)stream;
   switch (P) {
     case 1:
-      return (int)staged_launch<1>(stiles, k, qstart, qcount, snips, nq, W, C,
-                                   S, threads, smem_bytes, sum, num, st);
+      return (int)staged_launch<1>(stiles, k, qstart, qcount, snips, nb, W, C,
+                                   S, H, threads, smem_bytes, sum, num, st);
     case 2:
-      return (int)staged_launch<2>(stiles, k, qstart, qcount, snips, nq, W, C,
-                                   S, threads, smem_bytes, sum, num, st);
+      return (int)staged_launch<2>(stiles, k, qstart, qcount, snips, nb, W, C,
+                                   S, H, threads, smem_bytes, sum, num, st);
     case 4:
-      return (int)staged_launch<4>(stiles, k, qstart, qcount, snips, nq, W, C,
-                                   S, threads, smem_bytes, sum, num, st);
+      return (int)staged_launch<4>(stiles, k, qstart, qcount, snips, nb, W, C,
+                                   S, H, threads, smem_bytes, sum, num, st);
     case 8:
-      return (int)staged_launch<8>(stiles, k, qstart, qcount, snips, nq, W, C,
-                                   S, threads, smem_bytes, sum, num, st);
+      return (int)staged_launch<8>(stiles, k, qstart, qcount, snips, nb, W, C,
+                                   S, H, threads, smem_bytes, sum, num, st);
     default:
-      return (int)staged_launch<16>(stiles, k, qstart, qcount, snips, nq, W,
-                                    C, S, threads, smem_bytes, sum, num, st);
+      return (int)staged_launch<16>(stiles, k, qstart, qcount, snips, nb, W,
+                                    C, S, H, threads, smem_bytes, sum, num,
+                                    st);
   }
 }
 
-// Resident blocks of the staged kernel on one SM for (W, S, P), as the
+// Resident blocks of the staged kernel on one SM for (W, S, H, P), as the
 // runtime's occupancy calculator gives them; a negative CUDA error code on
 // failure or on arguments the staged launch would refuse.
-int quad_accumulate_staged_occupancy(int W, int S, int P, int device) {
+int quad_accumulate_staged_occupancy(int W, int S, int H, int P,
+                                     int device) {
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return -(int)guard.err;
   cudaError_t err;
-  const int threads = staged_threads(W, P);
-  const int smem_bytes = staged_smem_bytes(W, S);
+  const int threads = staged_threads(W, H, P);
+  const int smem_bytes = staged_smem_bytes(W, S, H);
   if (threads == 0 || smem_bytes == 0) return -(int)cudaErrorInvalidValue;
   int blocks = 0;
   switch (P) {
-    case 1: err = staged_occupancy<1>(&blocks, threads, smem_bytes); break;
-    case 2: err = staged_occupancy<2>(&blocks, threads, smem_bytes); break;
-    case 4: err = staged_occupancy<4>(&blocks, threads, smem_bytes); break;
-    case 8: err = staged_occupancy<8>(&blocks, threads, smem_bytes); break;
-    default: err = staged_occupancy<16>(&blocks, threads, smem_bytes); break;
+    case 1:
+      err = staged_occupancy<1>(&blocks, W, H, threads, smem_bytes);
+      break;
+    case 2:
+      err = staged_occupancy<2>(&blocks, W, H, threads, smem_bytes);
+      break;
+    case 4:
+      err = staged_occupancy<4>(&blocks, W, H, threads, smem_bytes);
+      break;
+    case 8:
+      err = staged_occupancy<8>(&blocks, W, H, threads, smem_bytes);
+      break;
+    default:
+      err = staged_occupancy<16>(&blocks, W, H, threads, smem_bytes);
+      break;
   }
   return err == cudaSuccess ? blocks : -(int)err;
 }

@@ -118,11 +118,11 @@ def load_kernels():
             f.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, ci]
             f.restype = ci
             f = lib.quad_accumulate_staged_launch
-            f.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp,
-                          vp, ci]
+            f.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp,
+                          vp, vp, ci]
             f.restype = ci
             f = lib.quad_accumulate_staged_occupancy
-            f.argtypes = [ci, ci, ci, ci]
+            f.argtypes = [ci, ci, ci, ci, ci]
             f.restype = ci
             e = lib.quad_accumulate_error_string
             e.argtypes = [ci]

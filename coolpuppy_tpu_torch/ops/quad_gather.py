@@ -16,15 +16,15 @@ semantics on PyTorch tensors:
    ``split_runs`` into one item per (quad, group) run (the direct kernel).
 3. ``quad_accumulate`` adds every snip's W×W window into per-group
    accumulators: ``sum[g] += where(v==v, v, 0)`` and
-   ``num[g] += (v==v) & (|v| != inf)``. On a CUDA tensor it launches one of
-   the two hand-written Hopper kernels of ``csrc/quad_accumulate.cu``, one
-   block per work item over all items in one launch: the staged kernel
-   (``quad_accumulate_staged``), which copies the corner of the quad that
-   windows can reach into shared memory, wherever ``corner_layout(W)`` says
-   that corner fits a block, and the direct kernel
-   (``quad_accumulate_direct``), which reads windows from global memory,
-   elsewhere. On a CPU tensor it runs the plain PyTorch version
-   ``quad_accumulate_plain``.
+   ``num[g] += (v==v) & (|v| != inf)``. On a CUDA tensor it launches the
+   staged kernel of ``csrc/quad_accumulate.cu`` (``quad_accumulate_staged``)
+   over all items in one launch: each item's block copies the corner of the
+   quad that windows can reach into shared memory, or, where that corner
+   does not fit a block (W > 110), each of its ``corner_layout(W).bands``
+   blocks copies the rows one band of window rows reaches. The direct
+   kernel (``quad_accumulate_direct``), which reads windows from global
+   memory, stays callable as a comparator. On a CPU tensor it runs the
+   plain PyTorch version ``quad_accumulate_plain``.
 
 ``QuadPileupSession.run_stripes`` gathers each snip's centre row and
 centre column (the stripe planes) from the same normalized stack as torch
@@ -74,7 +74,7 @@ def _cdiv(a, b):
 
 
 CornerLayout = namedtuple(
-    "CornerLayout", "side stride corner_bytes smem_bytes staged"
+    "CornerLayout", "side stride corner_bytes smem_bytes staged bands band_rows"
 )
 
 
@@ -82,26 +82,36 @@ def corner_layout(W):
     """The staged kernel's shared-memory layout for W×W windows.
 
     Window offsets are below 128, so a window reaches no further than row
-    and column ``side = 128 + W - 1`` of its quad: that corner is staged as
-    ``side`` rows of ``stride`` floats. ``stride = W + 128`` is congruent to
-    W mod 32, which puts a warp's 32 consecutive pixels in 32 distinct
-    banks. ``smem_bytes`` adds the chunk buffers, and ``staged`` says
-    whether a block can take it; where it cannot, ``quad_accumulate``
-    launches the direct kernel."""
+    and column ``side = 128 + W - 1`` of its quad. ``stride = W + 128`` is
+    congruent to W mod 32, which puts a warp's 32 consecutive pixels in 32
+    distinct banks. The window's rows are cut into the fewest ``bands`` of
+    ``band_rows`` rows whose staged rows fit a block, one block a band:
+    band r holds window rows [r*band_rows, (r+1)*band_rows) and stages the
+    ``127 + band_rows`` corner rows from row r*band_rows on
+    (``corner_bytes``). One band, the whole ``side``-row corner, up to
+    W = 110; two from 111 to 120. ``smem_bytes`` adds the chunk buffers,
+    and ``staged`` says whether a block can take them."""
     side = B_TILE + W - 1
     stride = side + 1
-    corner_bytes = _cdiv(side * stride * 4, 16) * 16
-    smem_bytes = corner_bytes + _STAGE_TAIL
+    for bands in range(1, W + 1):
+        band_rows = _cdiv(W, bands)
+        corner_bytes = _cdiv((B_TILE - 1 + band_rows) * stride * 4, 16) * 16
+        smem_bytes = corner_bytes + _STAGE_TAIL
+        if smem_bytes <= SMEM_MAX:
+            break
     return CornerLayout(side, stride, corner_bytes, smem_bytes,
-                        smem_bytes <= SMEM_MAX)
+                        smem_bytes <= SMEM_MAX, _cdiv(W, band_rows),
+                        band_rows)
 
 
 def pixels_per_thread(W):
     """``(P, threads)`` of the staged launch: the fewest pixels a thread
-    holds such that one block covers the W×W window, and the block's
-    threads (a whole number of warps)."""
+    holds such that one block covers a band of ``corner_layout(W)``
+    (``band_rows`` × W pixels), and the block's threads (a whole number of
+    warps)."""
+    pixels = corner_layout(W).band_rows * W
     for P, most in _PIXELS_PER_THREAD:
-        threads = _cdiv(_cdiv(W * W, P), 32) * 32
+        threads = _cdiv(_cdiv(pixels, P), 32) * 32
         if threads <= most:
             return P, threads
     raise ValueError(f"pixels_per_thread: no block covers W={W}")
@@ -244,14 +254,17 @@ def split_items(k, qstart, qcount, item_max=ITEM_MAX):
     return k[quad_of], start.astype(np.int32), count.astype(np.int32)
 
 
-def stage_corner_plain(stiles, k4, W):
-    """Plain PyTorch version of the staged kernel's copy: the corner of one
-    quad that W×W windows can reach, as float32 [side, stride]
-    (``corner_layout``), bits untouched: all of tile ``k4[0]``, W - 1
-    columns of ``k4[1]``, W - 1 rows of ``k4[2]`` and the (W - 1)² corner of
-    ``k4[3]``; the columns past ``side`` are zero. The pixel (i, j) of the
-    window at offsets (a, b) is element ``(a*stride + b) + (i*stride + j)``
-    of the flattened corner (``corner_offsets``)."""
+def stage_corner_plain(stiles, k4, W, band=0):
+    """Plain PyTorch version of the staged kernel's copy: the rows of the
+    corner of one quad that band ``band`` of W×W windows can reach
+    (``corner_layout``), as float32 [127 + rows, stride] from corner row
+    ``band * band_rows`` on, where ``rows`` is the band's window rows; bits
+    untouched. The whole corner is all of tile ``k4[0]``, W - 1 columns of
+    ``k4[1]``, W - 1 rows of ``k4[2]`` and the (W - 1)² corner of
+    ``k4[3]``, [side, stride], which is band 0 where there is one band; the
+    columns past ``side`` are zero. The pixel (i, j) of the window at
+    offsets (a, b) is element ``(a*stride + b) + ((i - band * band_rows) *
+    stride + j)`` of the flattened band (``corner_offsets``)."""
     lay = corner_layout(W)
     t00, t01, t10, t11 = (stiles[int(s)] for s in k4)
     corner = torch.zeros((lay.side, lay.stride), dtype=stiles.dtype,
@@ -260,7 +273,9 @@ def stage_corner_plain(stiles, k4, W):
     corner[:B_TILE, B_TILE:lay.side] = t01[:, :W - 1]
     corner[B_TILE:, :B_TILE] = t10[:W - 1]
     corner[B_TILE:, B_TILE:lay.side] = t11[:W - 1, :W - 1]
-    return corner
+    row0 = band * lay.band_rows
+    rows = min(lay.band_rows, W - row0)
+    return corner[row0:row0 + B_TILE - 1 + rows]
 
 
 def corner_offsets(snips, W, stride):
@@ -272,6 +287,37 @@ def corner_offsets(snips, W, stride):
     ar = torch.arange(W, device=snips.device)
     pix = (ar[:, None] * stride + ar[None, :]).reshape(-1)
     return (w >> 24) * stride + ((w >> 17) & 0x7F), w & 0x1FFFF, pix
+
+
+def quad_accumulate_banded_plain(stiles, k, qstart, qcount, snips, W, C,
+                                 chunk=256):
+    """Plain PyTorch version of the staged kernel's addressing, for tests:
+    per work item and band of ``corner_layout(W)``, the band's staged rows
+    (``stage_corner_plain``), then each window pixel of the band read at
+    its corner offset plus its pixel offset (``corner_offsets``) and added
+    as ``quad_accumulate_plain`` adds it, in float64 and in the same order
+    (items in turn, their snips in turn), ``chunk`` snips a gather. Returns
+    float64 ``(sum, num)`` [C, W, W], ``quad_accumulate_plain``'s bits."""
+    lay = corner_layout(W)
+    out_sum = torch.zeros((C, W * W), dtype=torch.float64,
+                          device=stiles.device)
+    out_num = torch.zeros_like(out_sum)
+    for kk, s, c in zip(k.tolist(), qstart.tolist(), qcount.tolist()):
+        off, g, pix = corner_offsets(snips[s:s + c], W, lay.stride)
+        for band in range(lay.bands):
+            flat = stage_corner_plain(stiles, kk, W, band).reshape(-1)
+            lo = band * lay.band_rows * W
+            hi = min(lo + lay.band_rows * W, W * W)
+            bpix = pix[lo:hi] - band * lay.band_rows * lay.stride
+            for e in range(0, c, chunk):
+                v = flat[off[e:e + chunk, None] + bpix[None, :]]
+                fin = v == v
+                ge = g[e:e + chunk]
+                out_sum[:, lo:hi].index_add_(
+                    0, ge, torch.where(fin, v, 0.0).to(torch.float64))
+                out_num[:, lo:hi].index_add_(
+                    0, ge, (fin & (v.abs() != torch.inf)).to(torch.float64))
+    return out_sum.reshape(C, W, W), out_num.reshape(C, W, W)
 
 
 def quad_accumulate_plain(stiles, k, qstart, qcount, snips, W, C):
@@ -353,10 +399,9 @@ def _check_kernel_args(stiles, k, qstart, qcount, snips, W, C):
 def _launch(variant, entry, extra, stiles, k, qstart, qcount, snips, W, C):
     """Zeroed float32 ``sum`` and int32 ``num`` [C, W, W] on the card and
     one launch of the library's ``entry`` over them (``extra``: the
-    launcher's own integers, after C); the launch's error code is raised,
-    the launch counted."""
+    launcher's own integers, after C), on arguments ``_check_kernel_args``
+    passed; the launch's error code is raised, the launch counted."""
     global LAUNCHES
-    _check_kernel_args(stiles, k, qstart, qcount, snips, W, C)
     if stiles.device.type != "cuda":
         raise ValueError(
             f"quad_accumulate_{variant}: no kernel for {stiles.device}"
@@ -395,7 +440,8 @@ def quad_accumulate_direct(stiles, k, qstart, qcount, snips, W, C):
     CUDA tensors. Every item's snips must share one group, as ``split_runs``
     makes them: the kernel adds a whole item to the group of its first word.
     Returns float32 ``sum`` and int32 ``num`` [C, W, W]; raises where the
-    launch fails."""
+    launch fails. Routed nowhere: a comparator of the staged kernel."""
+    _check_kernel_args(stiles, k, qstart, qcount, snips, W, C)
     return _launch("direct", "quad_accumulate_launch", (), stiles, k, qstart,
                    qcount, snips, W, C)
 
@@ -403,23 +449,19 @@ def quad_accumulate_direct(stiles, k, qstart, qcount, snips, W, C):
 def quad_accumulate_staged(stiles, k, qstart, qcount, snips, W, C,
                            pixels=None):
     """One launch of the staged kernel (the reachable corner of each item's
-    quad copied into shared memory) on CUDA tensors. An item may hold many
-    groups, sorted by group (``split_items``), and any number of snips.
-    ``pixels`` is the pixels a thread holds (1, 2, 4, 8 or 16; default: the
-    fewest that cover the window, ``pixels_per_thread``, which the card
-    showed fastest; another value only for timing it). Returns float32
-    ``sum`` and int32 ``num`` [C, W, W]; raises where the corner does not
-    fit a block or the launch fails."""
+    quad, or of each band of its window rows, copied into shared memory;
+    ``corner_layout(W).bands`` blocks an item) on CUDA tensors. An item may
+    hold many groups, sorted by group (``split_items``), and any number of
+    snips. ``pixels`` is the pixels a thread holds (1, 2, 4, 8 or 16;
+    default: the fewest that cover a band, ``pixels_per_thread``, which the
+    card showed fastest; another value only for timing it). Returns float32
+    ``sum`` and int32 ``num`` [C, W, W]; raises where the launch fails."""
+    _check_kernel_args(stiles, k, qstart, qcount, snips, W, C)
     lay = corner_layout(W)
-    if not lay.staged:
-        raise ValueError(
-            f"quad_accumulate_staged: W={W} needs {lay.smem_bytes} bytes of "
-            f"shared memory, a block has {SMEM_MAX}"
-        )
     P = pixels_per_thread(W)[0] if pixels is None else int(pixels)
     return _launch("staged", "quad_accumulate_staged_launch",
-                   (lay.stride, P, lay.smem_bytes), stiles, k, qstart, qcount,
-                   snips, W, C)
+                   (lay.stride, lay.band_rows, P, lay.smem_bytes), stiles, k,
+                   qstart, qcount, snips, W, C)
 
 
 def staged_occupancy(W, device):
@@ -428,8 +470,9 @@ def staged_occupancy(W, device):
     from ..kernels.build import load_kernels
 
     P = pixels_per_thread(W)[0]
+    lay = corner_layout(W)
     blocks = load_kernels().quad_accumulate_staged_occupancy(
-        W, corner_layout(W).stride, P, torch.device(device).index or 0)
+        W, lay.stride, lay.band_rows, P, torch.device(device).index or 0)
     if blocks < 0:
         raise RuntimeError(
             f"staged_occupancy: CUDA error {-blocks} for W={W}, P={P}"
@@ -446,18 +489,14 @@ def quad_accumulate(stiles, k, qstart, qcount, snips, W, C):
     [C, W, W] on ``stiles.device``.
 
     A CPU tensor runs ``quad_accumulate_plain``, which takes items of any
-    shape. A CUDA tensor launches a CUDA kernel (built at first use) and
-    raises on any failure; W alone picks it: the staged kernel where
-    ``corner_layout(W).staged``, whose items may hold many groups
-    (``split_items``), the direct kernel elsewhere, whose items must each
-    hold one group (``split_runs``). ``QuadPileupSession.stage`` cuts the
-    items to match."""
+    shape. A CUDA tensor launches the staged kernel (built at first use),
+    whose items may hold many groups (``split_items``, as
+    ``QuadPileupSession.stage`` cuts them), and raises on any failure."""
     if stiles.device.type == "cpu":
         _check_kernel_args(stiles, k, qstart, qcount, snips, W, C)
         return quad_accumulate_plain(stiles, k, qstart, qcount, snips, W, C)
-    kernel = (quad_accumulate_staged if corner_layout(W).staged
-              else quad_accumulate_direct)
-    out_sum, out_num = kernel(stiles, k, qstart, qcount, snips, W, C)
+    out_sum, out_num = quad_accumulate_staged(stiles, k, qstart, qcount,
+                                              snips, W, C)
     return out_sum.to(torch.float64), out_num.to(torch.float64)
 
 
@@ -525,10 +564,9 @@ class QuadPileupSession:
         return self
 
     def stage(self, r1, r2, cid):
-        """Host quad sort + work-item split, uploaded to the device: the
-        ``(k, qstart, qcount, snips)`` arguments of ``quad_accumulate``,
-        with the items that the kernel for this W takes (``split_items``
-        where the corner is staged, ``split_runs`` elsewhere)."""
+        """Host quad sort + work-item split (``split_items``), uploaded to
+        the device: the ``(k, qstart, qcount, snips)`` arguments of
+        ``quad_accumulate``."""
         cid = np.asarray(cid)
         if len(cid) and (cid.min() < 0 or cid.max() >= self.C):
             raise ValueError(
@@ -540,10 +578,7 @@ class QuadPileupSession:
         snips, k, qstart, qcount = sort_quads(
             r1, r2, cid, self.tile_map, B_TILE
         )
-        if corner_layout(self.W).staged:
-            k, qstart, qcount = split_items(k, qstart, qcount)
-        else:
-            k, qstart, qcount = split_runs(snips, k, qstart, qcount)
+        k, qstart, qcount = split_items(k, qstart, qcount)
         return tuple(
             torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(self.device)
             for a in (k, qstart, qcount, snips)

@@ -1,6 +1,6 @@
-"""CPU rehearsals of ``chip_smoke.py``'s phases at a tiny size (5b, 6b, 7b/7c,
-3, 4, 8a-8c, 9a/9b, 10, 11a-11d): the same control flow, checks and timing
-lines,
+"""CPU rehearsals of ``chip_smoke.py``'s phases at a tiny size (5b, 6b,
+7b-7d, 3, 4, 8a-8c, 9a/9b, 10, 11a-11d): the same control flow, checks and
+timing lines,
 with ``quad_accumulate`` swapped for a plain version that counts its calls
 as launches (the CUDA kernel cannot run here)."""
 
@@ -81,6 +81,7 @@ def _fake_kernels(monkeypatch):
     """Stand-ins for the two CUDA launchers and the routed wrapper that run
     the plain version on the CPU and count launches as the launchers do."""
     plain = qg.quad_accumulate_plain
+    fired = []  # one entry a launch, never reset
 
     def launcher(variant):
         def launch(stiles, k, qstart, qcount, snips, W, C, **kw):
@@ -94,6 +95,7 @@ def _fake_kernels(monkeypatch):
             if k.shape[0]:
                 qg.LAUNCHES += 1
                 qg.VARIANT_LAUNCHES[variant] += 1
+                fired.append(variant)
             s, n = plain(stiles, k, qstart, qcount, snips, W, C)
             return s.to(torch.float32), n.to(torch.int32)
         return launch
@@ -101,8 +103,7 @@ def _fake_kernels(monkeypatch):
     staged, direct = launcher("staged"), launcher("direct")
 
     def routed(stiles, k, qstart, qcount, snips, W, C):
-        kernel = staged if qg.corner_layout(W).staged else direct
-        s, n = kernel(stiles, k, qstart, qcount, snips, W, C)
+        s, n = staged(stiles, k, qstart, qcount, snips, W, C)
         return s.to(torch.float64), n.to(torch.float64)
 
     monkeypatch.setattr(qg, "quad_accumulate_staged", staged)
@@ -113,39 +114,40 @@ def _fake_kernels(monkeypatch):
                         lambda fn, sync: chip_smoke.timed(fn, sync)[0] * 1e3)
 
     class trace:
-        """One fake kernel time per launch counted during the block."""
+        """One fake kernel time per launch made during the block."""
 
         def __enter__(self):
-            self.before = qg.LAUNCHES
+            self.before = len(fired)
             return self
 
         def __exit__(self, *exc):
-            self.ms = [1.0] * (qg.LAUNCHES - self.before)
+            self.ms = [1.0] * (len(fired) - self.before)
 
     monkeypatch.setattr(chip_smoke, "quad_kernel_events", trace)
 
 
 def test_kernel_phase_rehearsal(monkeypatch, capsys):
     """Phase 3 with the launchers replaced by counting plain versions: every
-    case reaches every variant that takes its W, with the items that variant
-    takes, and the routed wrapper takes the variant ``corner_layout``
-    names."""
+    case reaches both kernels, with the items each takes, and the routed
+    wrapper takes the staged kernel, in two bands from W = 111 on."""
     _fake_kernels(monkeypatch)
     chip_smoke.check_kernels(torch.device("cpu"), lambda: None)
     out = capsys.readouterr().out
-    last_staged, first_direct = chip_smoke.staged_limit()
-    assert qg.corner_layout(last_staged).staged
-    assert not qg.corner_layout(first_direct).staged
-    for name in ("W=11", "W=21", "W=21 empty", "W=65", "W=120",
-                 f"W={last_staged}", f"W={first_direct}",
+    last_single, first_banded = chip_smoke.band_limit()
+    assert (last_single, first_banded) == (110, 111)
+    assert qg.corner_layout(last_single).bands == 1
+    assert qg.corner_layout(first_banded).bands == 2
+    for name in ("W=11", "W=21", "W=21 empty", "W=65", "W=115", "W=120",
+                 f"W={last_single}", f"W={first_banded}",
                  "W=21 by-window runs", "W=21 ITEM_MAX cuts",
                  "W=21 item longer than the chunk", "W=33 missing tiles",
-                 f"W={first_direct} missing tiles"):
+                 f"W={first_banded} missing tiles", "W=120 missing tiles"):
         assert f"kernel vs plain {name}: " in out
     lines = {ln.split(": ")[0]: ln for ln in out.splitlines()}
-    assert "[direct; staged; staged, whole quads; routed]" in \
-        lines["kernel vs plain W=21"]
-    assert "[direct; routed]" in lines["kernel vs plain W=120"]
+    for W in (21, 111, 115, 120):
+        line = lines[f"kernel vs plain W={W}"]
+        assert "[direct; staged; staged, whole quads; routed]" in line
+        assert f"bands {1 if W <= 110 else 2} " in line
 
 
 def test_slice_phase_rehearsal(monkeypatch, capsys):
@@ -182,12 +184,45 @@ def test_slice_phase_rehearsal(monkeypatch, capsys):
     assert "slice: launches 1 variant staged" in out
     assert "kernel timing in turns (direct, staged, staged, direct" in out
     assert "staged by ITEM_MAX in turns" in out
-    last_staged, first_direct = chip_smoke.staged_limit()
-    for W, routed in ((11, "staged"), (33, "staged"), (65, "staged"),
-                      (last_staged, "staged"), (first_direct, "direct")):
+    lines = {ln.split(": ")[0]: ln for ln in out.splitlines()
+             if ln.startswith("sweep W=")}
+    for W in (11, 33, 65, 110, 111, 115, 120):
         assert f"sweep W={W}: 300 snips" in out
-        assert f"routed {routed}" in out
+        line = next(ln for ln in lines.values()
+                    if ln.startswith(f"sweep W={W}: 300 snips"))
+        assert "routed staged" in line
+        assert f"bands {1 if W <= 110 else 2} of " in line
+        assert "direct: kernel" in line and "staged: kernel" in line
     assert "sweep W=11: 3000 snips" in out
+
+
+def test_w119_phase_rehearsal(monkeypatch, capsys):
+    """Phase 7d at a tiny size: 60 sites of a 1,500-bin map at W = 119
+    through the staged kernel's stand-in, the direct-swapped run (the
+    direct launcher's stand-in, which takes single-group items only), the
+    CPU subset, the timings and the bound."""
+    _fake_kernels(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "ENGINE_WARMUP_SITES", 20)
+    monkeypatch.setattr(chip_smoke, "W119_SUBSET_SITES", 30)
+    shapes = {}
+    launches = chip_smoke.check_w119_cell(
+        torch.device("cpu"), lambda: None, "cpu rehearsal", shapes,
+        workload=lambda: chip_smoke.engine_workload(
+            n_sites=60, n_bins=1_500, n_contacts=150_000))
+    assert launches >= 1
+    rec = shapes["w119"]
+    assert rec["launches"] == launches and rec["snips"] > 60
+    assert rec["bound_by"] in ("bytes", "operations")
+    out = capsys.readouterr().out
+    assert "W 119 in " in out
+    assert f"launches {launches} (staged only), route cuda_kernel" in out
+    assert "w119 staged vs direct kernel (whole run, " in out
+    assert "w119 subset (30 sites" in out
+    assert "w119 kernel vs plain (whole run, plain version " in out
+    assert rec["plain_ms"] == chip_smoke.PLAIN_MS["w119"] > 0
+    assert "w119 snips/s:" in out
+    assert f"w119 kernels (summed over each run's launches, CUDA events): " \
+        f"staged {float(launches):.3f} ms in {launches} launches" in out
 
 
 def _counted_plain(monkeypatch):

@@ -1,9 +1,10 @@
 """The staged quad kernel's host side (coolpuppy_tpu_torch/ops/quad_gather.py):
-the multi-group work-item split, the shared-memory corner layout and its
-plain PyTorch staging, the routing between the two kernels by W, and the
-entry points' device defaults, on the CPU, where ``quad_accumulate`` runs its
-plain version. The Pallas kernel of the JAX package runs with
-interpret=True, as its own tests run it."""
+the multi-group work-item split, the shared-memory corner layout with its
+row bands (one band up to W = 110, two from 111 to 120) and their plain
+PyTorch staging, the items of either kernel, and the entry points' device
+defaults, on the CPU, where ``quad_accumulate`` runs its plain version. The
+Pallas kernel of the JAX package runs with interpret=True, as its own tests
+run it."""
 
 import numpy as np
 import pytest
@@ -85,29 +86,66 @@ def test_split_items_cuts_exactly_at_item_max(n, want):
     np.testing.assert_array_equal(ik[-1], k[1])
 
 
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _pr5_layout(W):
+    """The one-band layout as the staged kernel had it before bands: the
+    whole (127 + W)-row corner, and the fewest pixels a thread that cover
+    the W × W window."""
+    def threads(P):
+        return _cdiv(_cdiv(W * W, P), 32) * 32
+
+    side = B + W - 1
+    corner_bytes = _cdiv(side * (side + 1) * 4, 16) * 16
+    P = next(P for P, most in qg._PIXELS_PER_THREAD if threads(P) <= most)
+    return ((side, side + 1, corner_bytes, corner_bytes + qg._STAGE_TAIL),
+            (P, threads(P)))
+
+
 def test_corner_layout_fits_and_flips_once():
-    """Every staged W in 1..120 fits a block's 232,448 bytes of dynamic
-    shared memory, the layout flips to the direct kernel exactly where it
-    stops fitting and never flips back, and the stride keeps its promise:
-    congruent to W mod 32 (distinct banks for 32 consecutive pixels)."""
+    """Every W in 1..120 is staged within a block's 232,448 bytes of
+    dynamic shared memory, in one band (the whole corner, exactly the
+    layout, pixels a thread and threads the kernel had before bands) up to
+    W = 110 and in two bands from 111 to 120: the band count flips once, at
+    the first W whose whole corner does not fit, and never back. The stride
+    keeps its promise (congruent to W mod 32: distinct banks for 32
+    consecutive pixels), and every corner offset plus pixel offset of a
+    band stays inside the rows that band stages."""
     assert qg.SMEM_MAX == 232_448
-    staged = []
+    bands = []
     for W in range(1, qg.W_MAX + 1):
         lay = qg.corner_layout(W)
         assert lay.side == B + W - 1
         assert lay.stride % 32 == W % 32 and lay.stride == lay.side + 1
+        assert lay.staged and lay.smem_bytes <= qg.SMEM_MAX
         assert lay.corner_bytes % 16 == 0
-        assert 0 <= lay.corner_bytes - 4 * lay.side * lay.stride < 16
+        rows = B - 1 + lay.band_rows  # the corner rows one band stages
+        assert 0 <= lay.corner_bytes - 4 * rows * lay.stride < 16
         assert lay.smem_bytes == lay.corner_bytes + qg._STAGE_TAIL
-        assert lay.staged == (lay.smem_bytes <= qg.SMEM_MAX)
-        staged.append(lay.staged)
-        # the largest corner offset plus the largest pixel offset stays
-        # inside the corner
-        assert (127 + W - 1) * lay.stride + 127 + W - 1 < lay.side * lay.stride
-    first_direct = staged.index(False) + 1
-    assert all(staged[:first_direct - 1])
-    assert not any(staged[first_direct - 1:])
-    assert 100 < first_direct <= 115
+        assert lay.band_rows == _cdiv(W, lay.bands)
+        assert (lay.bands - 1) * lay.band_rows < W  # no empty band
+        bands.append(lay.bands)
+        P, threads = qg.pixels_per_thread(W)
+        if lay.bands == 1:
+            assert (lay[:4], (P, threads)) == _pr5_layout(W)
+        else:
+            # a layout with one band fewer would not fit
+            fewer = _cdiv(W, lay.bands - 1)
+            assert (_cdiv((B - 1 + fewer) * lay.stride * 4, 16) * 16
+                    + qg._STAGE_TAIL) > qg.SMEM_MAX
+        for band in range(lay.bands):
+            band_rows = min(lay.band_rows, W - band * lay.band_rows)
+            # the largest corner offset plus the largest pixel offset of the
+            # band stays inside its staged rows
+            assert ((127 + band_rows - 1) * lay.stride + 127 + W - 1
+                    < (B - 1 + band_rows) * lay.stride)
+    first_banded = bands.index(2) + 1
+    assert first_banded == 111
+    assert bands == [1] * 110 + [2] * 10
+    side = B + 110  # the whole corner at W = 111 does not fit
+    assert _cdiv(side * (side + 1) * 4, 16) * 16 + qg._STAGE_TAIL > qg.SMEM_MAX
     # the chunk buffers hold an item of ITEM_MAX snips in one pass
     assert qg.ITEM_MAX <= qg.STAGE_CHUNK
     # the headline window leaves room for two blocks on an SM (228 KB, 1 KB
@@ -116,31 +154,33 @@ def test_corner_layout_fits_and_flips_once():
 
 
 def test_pixels_per_thread_covers_the_window():
+    """One block covers a band of the window (``band_rows`` × W pixels)
+    with the fewest pixels a thread: W = 111..120 take 8 with 800..928
+    threads."""
     for W in range(1, qg.W_MAX + 1):
-        if not qg.corner_layout(W).staged:
-            continue
+        pixels = qg.corner_layout(W).band_rows * W
         P, threads = qg.pixels_per_thread(W)
         assert P in (1, 2, 4, 8, 16) and threads % 32 == 0
-        assert P * threads >= W * W and threads <= (1024 if P <= 8 else 768)
-        assert P == 1 or (P // 2) * 1024 < W * W  # the fewest pixels a thread
+        assert P * threads >= pixels and threads <= (1024 if P <= 8 else 768)
+        assert P == 1 or (P // 2) * 1024 < pixels  # the fewest a thread
     assert qg.pixels_per_thread(21) == (1, 448)
+    assert qg.pixels_per_thread(111) == (8, 800)
+    assert qg.pixels_per_thread(120) == (8, 928)
 
 
 def _corner_accumulate(stiles, k, qstart, qcount, snips, W, C):
-    """quad_accumulate through the staged layout with torch ops: per item,
-    the staged corner, then every window as corner[(a*S+b) + (i*S+j)]."""
-    stride = qg.corner_layout(W).stride
-    out_sum = torch.zeros((C, W * W), dtype=torch.float64)
-    out_num = torch.zeros((C, W * W), dtype=torch.float64)
-    for kk, s, c in zip(k, qstart.tolist(), qcount.tolist()):
-        corner = qg.stage_corner_plain(stiles, kk, W)
-        assert tuple(corner.shape) == qg.corner_layout(W)[:2]
-        off, g, pix = qg.corner_offsets(snips[s:s + c], W, stride)
-        v = corner.reshape(-1)[off[:, None] + pix[None, :]]
-        fin = v == v
-        out_sum.index_add_(0, g, torch.where(fin, v, 0.0).to(torch.float64))
-        out_num.index_add_(0, g, (fin & (v.abs() != torch.inf)).double())
-    return out_sum.reshape(C, W, W), out_num.reshape(C, W, W)
+    """quad_accumulate through the staged layout with torch ops
+    (``quad_accumulate_banded_plain``), after checking the shape of every
+    band the layout stages."""
+    lay = qg.corner_layout(W)
+    for band in range(lay.bands):
+        rows = min(lay.band_rows, W - band * lay.band_rows)
+        corner = qg.stage_corner_plain(stiles, k[0], W, band)
+        assert tuple(corner.shape) == (B - 1 + rows, lay.stride)
+    if lay.bands == 1:
+        assert tuple(corner.shape) == lay[:2]
+    return qg.quad_accumulate_banded_plain(
+        stiles, torch.from_numpy(np.asarray(k)), qstart, qcount, snips, W, C)
 
 
 @pytest.mark.parametrize("W", [1, 11, 21, 33, 110])
@@ -178,6 +218,65 @@ def test_staged_corner_reproduces_plain_bit_for_bit(W):
         assert torch.isinf(want[0]).any()
 
 
+BANDED_CASES = ["missing tiles", "offsets 127", "multi-group items",
+                "item longer than the chunk"]
+
+
+def _banded_case(case, W, C=7):
+    """A stack of random tiles (10% NaN, 1% +inf, slot 0 all NaN) and items
+    for one case: quads with missing tiles; offsets at 127 in either field
+    and both; items holding runs of many groups; one item longer than the
+    kernel's STAGE_CHUNK."""
+    rng = np.random.default_rng(W)
+    st = rng.gamma(1.0, 1.0, (9, B, B)).astype(np.float32)
+    st[rng.random(st.shape) < 0.1] = np.nan
+    st[rng.random(st.shape) < 0.01] = np.inf
+    st[0] = np.nan
+    full = [1, 2, 3, 4]
+    k, counts = {
+        "missing tiles": ([[5, 0, 6, 0], [0, 0, 7, 8], [0, 0, 0, 0],
+                           [0, 8, 0, 0], full], [20, 20, 5, 20, 10]),
+        "offsets 127": ([full, [5, 6, 7, 8]], [30, 30]),
+        "multi-group items": ([full, [5, 6, 7, 8], full], [60, 45, 3]),
+        "item longer than the chunk": ([full],
+                                       [2 * qg.STAGE_CHUNK + 77]),
+    }[case]
+    counts = np.asarray(counts, np.int32)
+    n = int(counts.sum())
+    o1, o2 = rng.integers(0, 128, (2, n))
+    if case == "offsets 127":
+        o1[::3], o2[1::3] = 127, 127
+        o1[2::5] = o2[2::5] = 127
+    else:
+        o1[::97], o2[::89] = 127, 127
+    g = np.concatenate([np.sort(rng.integers(0, C, c)) for c in counts])
+    return (torch.from_numpy(st), torch.from_numpy(np.asarray(k, np.int32)),
+            torch.from_numpy((np.cumsum(counts) - counts).astype(np.int32)),
+            torch.from_numpy(counts),
+            torch.from_numpy(qg.pack_snips(o1, o2, g)), W, C)
+
+
+@pytest.mark.parametrize("case", BANDED_CASES)
+@pytest.mark.parametrize("W", [111, 115, 120])
+def test_banded_plain_reproduces_plain_bit_for_bit(W, case):
+    """The two-band layout of W = 111..120 is only another addressing of
+    the same floats: the plain banded accumulate (each band's staged rows,
+    then each band's pixels at corner offset + pixel offset) gives
+    ``quad_accumulate_plain``'s float64 sums and counts bit for bit."""
+    args = _banded_case(case, W)
+    assert qg.corner_layout(W).bands == 2
+    want = qg.quad_accumulate_plain(*args)
+    got = qg.quad_accumulate_banded_plain(*args)
+    assert torch.equal(got[1], want[1]) and int(want[1].sum()) > 0
+    assert torch.equal(got[0], want[0])  # +inf compares equal, no NaN in sums
+    assert not torch.isnan(want[0]).any() and torch.isinf(want[0]).any()
+    if case == "multi-group items":
+        snips, qstart, qcount = args[4], args[2], args[3]
+        assert len(torch.unique(snips[:int(qcount[0])] & 0x1FFFF)) > 3
+    if case == "item longer than the chunk":
+        assert int(args[3][0]) > qg.STAGE_CHUNK
+
+
 def _pallas_inputs(W, seed=0):
     rng = np.random.default_rng(seed)
     n, S = 300, 400
@@ -194,20 +293,28 @@ def _pallas_inputs(W, seed=0):
     return ts, r1, r2, (r1 - r2).astype(np.int32), cid, valid, evec
 
 
+def _direct_items_pileup(ts, r1, r2, cid, valid, evec, kw):
+    """``run_quad_pileup`` on the CPU with the items the direct kernel
+    takes: the session's quad sort cut by ``split_runs`` instead of
+    ``split_items``."""
+    sess = qg.QuadPileupSession(ts, valid, valid, evec, kw, "cpu")
+    snips, k, qstart, qcount = qg.sort_quads(r1, r2, cid, sess.tile_map, B)
+    items = qg.split_runs(snips, k, qstart, qcount)
+    t = [torch.from_numpy(np.ascontiguousarray(a, np.int32))
+         for a in (*items, snips)]
+    s, n = qg.quad_accumulate(sess.stiles, *t, sess.W, sess.C)
+    return sess.finalize([{"sum": s, "num": n}])
+
+
 @pytest.mark.parametrize("staged", [True, False])
 def test_run_quad_pileup_matches_pallas_with_either_split(staged, monkeypatch):
     """The same inputs through the Pallas kernel (interpret mode) and the
-    port at W = 11, with the items cut for the staged kernel and, with
-    ``corner_layout`` patched so that no W stages, for the direct kernel.
+    port at W = 11, with the items cut for the staged kernel, as the
+    session cuts them, and for the direct kernel (``split_runs``).
     Counts and poison are exact. ``sum``: rtol 1e-5 / atol 1e-5, the
     tolerance of the reference's own Pallas-vs-XLA check: the reference
     accumulates in float32 in quad order, the plain version in float64."""
     W = 11
-    layout = qg.corner_layout
-    if not staged:
-        monkeypatch.setattr(
-            qg, "corner_layout",
-            lambda W: layout(W)._replace(staged=False))
     splits = []
     for name in ("split_items", "split_runs"):
         fn = getattr(qg, name)
@@ -217,13 +324,39 @@ def test_run_quad_pileup_matches_pallas_with_either_split(staged, monkeypatch):
     kw = dict(W=W, capacity=8, cis=True, ignore_diags=2, ooe=True)
     want = ref.run_pallas_pileup(ts, r1, r2, dd0, cid, valid, valid, evec,
                                  dict(kw, interpret=True))
-    got = qg.run_quad_pileup(from_reference(ts), r1, r2, dd0, cid, valid,
-                             valid, evec, kw, device="cpu")
+    if staged:
+        got = qg.run_quad_pileup(from_reference(ts), r1, r2, dd0, cid, valid,
+                                 valid, evec, kw, device="cpu")
+    else:
+        got = _direct_items_pileup(from_reference(ts), r1, r2, cid, valid,
+                                   evec, kw)
     assert splits == ["split_items" if staged else "split_runs"]
     np.testing.assert_array_equal(got["poison"], want["poison"])
     np.testing.assert_array_equal(got["num"], want["num"])
     pois = want["poison"] > 0
     assert pois.any() and np.all(np.isinf(got["sum"][pois]))
+    np.testing.assert_allclose(got["sum"][~pois], want["sum"][~pois],
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("W", [115, 120])
+def test_run_quad_pileup_matches_pallas_in_two_bands(W):
+    """At W = 115 and 120, where the card's staged kernel runs two bands an
+    item, ``run_quad_pileup`` (the session's ``split_items`` items, the
+    plain version on the CPU) against the Pallas kernel in interpret mode,
+    with the tolerances of the W = 11 check above."""
+    assert qg.corner_layout(W).bands == 2
+    ts, r1, r2, dd0, cid, valid, evec = _pallas_inputs(W, seed=W)
+    kw = dict(W=W, capacity=8, cis=True, ignore_diags=2, ooe=True)
+    want = ref.run_pallas_pileup(ts, r1, r2, dd0, cid, valid, valid, evec,
+                                 dict(kw, interpret=True))
+    got = qg.run_quad_pileup(from_reference(ts), r1, r2, dd0, cid, valid,
+                             valid, evec, kw, device="cpu")
+    np.testing.assert_array_equal(got["poison"], want["poison"])
+    np.testing.assert_array_equal(got["num"], want["num"])
+    pois = want["poison"] > 0
+    assert pois.any() and np.all(np.isinf(got["sum"][pois]))
+    assert got["num"].sum() > 0
     np.testing.assert_allclose(got["sum"][~pois], want["sum"][~pois],
                                rtol=1e-5, atol=1e-5)
 
@@ -249,7 +382,8 @@ def test_plain_version_takes_either_item_shape():
 
 def test_launchers_raise_off_the_card():
     """The two launchers take CUDA tensors only, and the staged one only a W
-    whose corner fits: no quiet switch to another version."""
+    the reference's kernel takes (1..120): no quiet switch to another
+    version."""
     W, C = 11, 40
     snips, k, qstart, qcount = _sorted_quads(6, W=W, C=C)
     stiles = torch.zeros((int(k.max()) + 1, B, B))
@@ -259,10 +393,8 @@ def test_launchers_raise_off_the_card():
         qg.quad_accumulate_staged(stiles, *t, W, C)
     with pytest.raises(ValueError, match="no kernel for cpu"):
         qg.quad_accumulate_direct(stiles, *t, W, C)
-    first_direct = next(W for W in range(1, 121)
-                        if not qg.corner_layout(W).staged)
-    with pytest.raises(ValueError, match="shared memory"):
-        qg.quad_accumulate_staged(stiles, *t, first_direct, C)
+    with pytest.raises(ValueError, match=r"W=121 outside \[1, 120\]"):
+        qg.quad_accumulate_staged(stiles, *t, qg.W_MAX + 1, C)
     assert (qg.LAUNCHES, qg.VARIANT_LAUNCHES) == before
 
 

@@ -141,21 +141,30 @@ def test_wide_pileup_matches_reference(toy, name):
     assert int(chip_smoke.all_row(got)["n"]) > 0
 
 
-@pytest.mark.parametrize("flank,route", [(59_000_000, "plain"),
-                                         (60_000_000, "generic_torch")],
-                         ids=["W119", "W121"])
-def test_route_at_the_kernel_limit(toy, flank, route):
+@pytest.mark.parametrize("flank,route,by_window", [
+    (59_000_000, "plain", False), (60_000_000, "generic_torch", False),
+    (55_000_000, "plain", False), (57_000_000, "plain", True),
+], ids=["W119", "W121", "W111", "W115-by_window"])
+def test_route_at_the_kernel_limit(toy, flank, route, by_window):
     """Windows up to 120 bins stay on the quad kernel (its plain version on
-    the CPU); wider ones take the generic path, as the reference's
-    ``_use_pallas`` routes them (:993). Both match the reference."""
+    the CPU; on the card the staged kernel, in two bands from W = 111 on);
+    wider ones take the generic path, as the reference's ``_use_pallas``
+    routes them (:993). All match the reference, by window too."""
     ref_clr, clr, _, _ = toy
     view = chip_smoke.toy_chrom_view(clr)
     kw = dict(features_format="bed", mindist=0, flank=flank, nshifts=1,
               seed=2)
+    if by_window:
+        kw = dict(kw, by_window=True, nshifts=0)
     want = ref.pileup(ref_clr, toy_features(), view_df=view, **kw)
     got = port.pileup(clr, toy_features(), view_df=view, device="cpu", **kw)
     compare_tables(got, want, what=route, **ENGINE_TOL)
     assert got["accumulate"].iloc[0] == route
+    W = 2 * flank // 1_000_000 + 1
+    assert np.asarray(got["data"].iloc[0]).shape == (W, W)
+    assert int(np.asarray(got["num"].iloc[-1]).sum()) > 0
+    if by_window:
+        assert len(got) > 1
 
 
 def test_wide_windows_outside_the_view_are_dropped(toy):
