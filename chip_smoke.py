@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port's loop-APA path, its ``pileup()`` engine in
-all its modes, its ``coolpup-torch`` command line tool and its genome-wide
-many-region path once on one NVIDIA GPU.
+all its modes, its ``coolpup-torch`` command line tool, its genome-wide
+many-region path and its ``.cool`` reader's fetch path once on one NVIDIA
+GPU.
 
     python3 chip_smoke.py [--phases 4,8,10]
 
@@ -196,7 +197,29 @@ measured). Phases, each printing its lines and, as it ends, its seconds:
    against this process's one-process run (keys and counts exact, ``data``
    rtol 1e-5).
 
-Phases 5-10 share the engine map (``bench_cooler`` builds it once a run).
+12. the reader's fetch path and the public surface, on the engine map.
+   (a) The engine cell of 5b through a ``Cooler`` whose store counts its
+   reads (``CountingStore`` over the map's arrays: the fetch code a
+   ``.cool`` file takes, ``Cooler(uri)``): a checked run that must launch
+   the staged kernel, every fetch held to exactly the ``bin1_offset`` rows
+   of its spans, the pixels read per fetch and in all, the threads that
+   fetched, and the table against 5b's checked run (keys and counts exact,
+   ``data`` rtol 1e-4). (b) The seeded fuzz cases of
+   ``tests/test_torch_fuzz.py`` (``fuzz_case``, seeds 1000-1007) scaled to
+   the engine map (``FUZZ_ENGINE``: 2,000-6,000 sites, flanks of 50-200 kb,
+   BED, by-window, BEDPE and local rescaled kinds, groupby, ``min_diag``):
+   per case a checked run through the counting reader (the staged kernel
+   launched where the route is the quad kernel, every fetch its spans), the
+   plain-swapped run (counts exact, NaN positions equal, ``data`` and
+   stripes rtol 1e-4) and the first 300 features card against CPU (rtol
+   1e-5), one line a case with its flags, snips, wall and route. (c)
+   By-strand by-distance APA of the engine cell's 20,000 sites through the
+   notebook alias ``coolpuppy_tpu_torch.coolpup.pileup``: a warm-up, a
+   checked run that must launch the staged kernel, the plain-swapped run,
+   two timed runs with the phases, the busy share of a profiled run and the
+   kernel's time over its launches beside its bound.
+
+Phases 5-12 share the engine map (``bench_cooler`` builds it once a run).
 Any failure raises and exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel JSON
 record, and the one before that the card's name and power limit.
@@ -204,6 +227,7 @@ record, and the one before that the card's name and power limit.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import importlib
 import importlib.util
@@ -213,6 +237,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -867,9 +892,14 @@ class quad_kernel_events:
     """The device time of every quad kernel launched during a block, in
     launch order (``ms``): for the block the library's two launch entries
     are wrapped so that each launch sits between two CUDA events on its
-    stream, behind a short sleep kernel (``SLEEP_CYCLES``)."""
+    stream, behind a short sleep kernel (``cycles``, SLEEP_CYCLES unless
+    given: a launch whose host side takes longer than the sleep, as on a
+    thread that shares the GIL with the coordinate loop, adds that wait)."""
 
     ENTRIES = ("quad_accumulate_launch", "quad_accumulate_staged_launch")
+
+    def __init__(self, cycles=SLEEP_CYCLES):
+        self.cycles = cycles
 
     def __enter__(self):
         import torch
@@ -883,7 +913,7 @@ class quad_kernel_events:
             def launch(*args):
                 t0 = torch.cuda.Event(enable_timing=True)
                 t1 = torch.cuda.Event(enable_timing=True)
-                torch.cuda._sleep(SLEEP_CYCLES)
+                torch.cuda._sleep(self.cycles)
                 t0.record()
                 err = entry(*args)
                 t1.record()
@@ -1375,13 +1405,15 @@ def table_keys(table):
     return list(zip(table["chrom"], table["start"], table["end"]))
 
 
-def compare_tables(got, want, rtol, atol, what):
+def compare_tables(got, want, rtol, atol, what, stripe_tol=None):
     """Hold two pileup tables row by row: the group keys (in order), or a
     by-window table's chrom/start/end keys (rows matched on them), ``n``,
     ``control_n``, ``num`` and ``control_num`` exact; ``data`` within
-    tolerance with NaN positions equal; stripe planes within rtol
-    ``STRIPE_RTOL`` with NaN positions equal and stripe coordinates exact.
-    Returns the largest absolute ``data`` difference."""
+    tolerance with NaN positions equal; stripe planes within ``stripe_tol``
+    (rtol ``STRIPE_RTOL``, atol 0 unless given) with NaN positions equal and
+    stripe coordinates exact. Returns the largest absolute ``data``
+    difference."""
+    stripe_tol = stripe_tol or dict(rtol=STRIPE_RTOL, atol=0)
     gk, wk = table_keys(got), table_keys(want)
     if "group" in want.columns:
         if gk != wk:
@@ -1423,7 +1455,7 @@ def compare_tables(got, want, rtol, atol, what):
                 np.testing.assert_allclose(
                     np.asarray(got[col].iloc[i], float),
                     np.asarray(want[col].iloc[i], float),
-                    rtol=STRIPE_RTOL, atol=0, equal_nan=True,
+                    **stripe_tol, equal_nan=True,
                     err_msg=f"{what}: {col} of row {i}",
                 )
             gc = np.asarray(got["coordinates"].iloc[i], object)
@@ -1486,6 +1518,9 @@ def check_engine_modes(dev):
 # bench_cooler's maps of this run: (generator state before, sizes) ->
 # (Cooler, generator state after)
 BENCH_MAPS = {}
+# phase 5b's checked run, kept for phase 12a: "checked" -> (Cooler,
+# features, table)
+ENGINE = {}
 
 
 def bench_cooler(rng, n_bins=20_000, n_contacts=12_000_000, binsize=10_000):
@@ -1828,6 +1863,7 @@ def check_engine(dev, sync, card, shapes=None):
           f"({list(checked['orientation'])}), launches {launches}, route "
           f"{route}, {t:.2f} s")
 
+    ENGINE["checked"] = (clr, feats, checked)
     plain = plain_swapped("engine", lambda: run(feats))
     err = compare_tables(checked, plain, rtol=ENGINE_RTOL, atol=1e-7,
                          what="engine kernel vs plain")
@@ -2550,10 +2586,11 @@ def kernel_run(what, run, dev):
 PLAIN_MS = {}
 
 
-def plain_swapped(what, run):
+def plain_swapped(what, run, route="plain"):
     """``run`` with ``quad_accumulate`` swapped for the plain version: no
-    launch, route ``plain``. The plain calls' time (CUDA events around each
-    call on a card, the host clock on the CPU), summed, goes to
+    launch, route ``route`` (``plain``; a run whose regions take other
+    routes too names them all). The plain calls' time (CUDA events around
+    each call on a card, the host clock on the CPU), summed, goes to
     ``PLAIN_MS[what]``."""
     import torch
 
@@ -2583,7 +2620,7 @@ def plain_swapped(what, run):
         launches = qg.LAUNCHES
     finally:
         qg.quad_accumulate = kernel
-    if launches != 0 or table["accumulate"].iloc[0] != "plain":
+    if launches != 0 or table["accumulate"].iloc[0] != route:
         raise AssertionError(f"{what}: plain-swapped run launched {launches}")
     if any(isinstance(x, tuple) for x in spans):
         torch.cuda.synchronize()
@@ -3865,6 +3902,424 @@ def parse_rank(argv):
             json.loads(args.workload))
 
 
+# -- phase 12: the reader's fetch path and the public surface --------------
+
+# the seeded fuzz search: phase 12b runs FUZZ_CARD_SEEDS at FUZZ_ENGINE's
+# scale on the card, tests/test_torch_fuzz.py runs FUZZ_SEEDS at FUZZ_TOY's
+# against the JAX package on the CPU. Scales: the chromosomes, the site
+# count, the start range in units (plus 0 or half a unit), the flank range
+# in flank units, TAD widths in units, the kinds of case drawn from, and
+# keywords every case takes
+FUZZ_SEEDS = tuple(range(1000, 1016))
+FUZZ_CARD_SEEDS = FUZZ_SEEDS[:8]
+FUZZ_KINDS = ("bed", "by_window", "bedpe", "trans", "local_rescale")
+FUZZ_TOY = dict(chroms=("chr1", "chr2"), n=(6, 30), start=(101, 148),
+                unit=1_000_000, flank=(2, 4), flank_unit=1_000_000,
+                tad=(3, 8), kinds=FUZZ_KINDS, kw={})
+# the engine map: one 200 Mb chromosome at 10 kb, 2,000-6,000 sites,
+# flanks of 50-200 kb (W = 11-41), pairs within 1 Mb, TADs 20-200 bins
+# wide; no trans kind on one chromosome
+FUZZ_ENGINE = dict(chroms=("chr1",), n=(2_000, 6_001), start=(100, 19_900),
+                   unit=10_000, flank=(5, 21), flank_unit=10_000,
+                   tad=(20, 201),
+                   kinds=tuple(k for k in FUZZ_KINDS if k != "trans"),
+                   kw=dict(maxdist=1_000_000))
+FUZZ_RTOL = 1e-4
+FUZZ_TOL = dict(rtol=FUZZ_RTOL, atol=1e-7)
+FUZZ_CPU_SITES = 300
+# phase 12c: by-distance APA of the engine cell's sites through the
+# notebook alias coolpuppy_tpu_torch.coolpup.pileup; the sleep ahead of each
+# timed launch (~0.5 ms) outlasts the host side of a streamed launch
+BY_DISTANCE_KW = dict(ENGINE_KW, by_distance=True)
+BY_DISTANCE_SLEEP_CYCLES = 1_000_000
+
+
+def fuzz_base(rng, expected_cis, scale=FUZZ_TOY):
+    """The draws of tests/test_fuzz_parity.py::random_case, at FUZZ_TOY's
+    scale the same numbers: ``(features, pileup keywords)`` of stranded
+    sites, a flank, controls or an expected table or coverage
+    normalization, by strand (flipped or not), stripes, by distance."""
+    import pandas as pd
+
+    n = int(rng.integers(*scale["n"]))
+    chroms = rng.choice(list(scale["chroms"]), n)
+    unit, half = scale["unit"], scale["unit"] // 2
+    starts = (rng.integers(*scale["start"], n).astype(np.int64) * unit
+              + rng.integers(0, 2, n) * half)
+    feats = pd.DataFrame({
+        "chrom": chroms, "start": starts,
+        "end": starts + int(rng.integers(1, 3)) * half, "name": "f",
+        "score": rng.uniform(0, 1, n).round(3),
+        "strand": rng.choice(["+", "-"], n),
+    }).sort_values(["chrom", "start"], kind="stable", ignore_index=True)
+    kw = dict(features_format="bed", mindist=0,
+              flank=int(rng.integers(*scale["flank"])) * scale["flank_unit"])
+    mode = rng.integers(0, 4)
+    if mode == 0:
+        kw["nshifts"] = int(rng.integers(1, 3))
+        kw["seed"] = int(rng.integers(0, 100))
+    elif mode == 1:
+        kw["expected_df"] = expected_cis
+        kw["ooe"] = bool(rng.integers(0, 2))
+    elif mode == 2:
+        kw["clr_weight_name"] = None
+        kw["coverage_norm"] = True
+    if rng.integers(0, 2):
+        kw["by_strand"] = True
+        if rng.integers(0, 2):
+            kw["flip_negative_strand"] = True
+    if rng.integers(0, 3) == 0:
+        kw["store_stripes"] = True
+    if rng.integers(0, 3) == 0 and "expected_df" not in kw:
+        kw["by_distance"] = True
+    return feats, kw
+
+
+def fuzz_case(rng, expected, scale=FUZZ_TOY):
+    """One seeded case of the fuzz search: ``(features, pileup keywords)``.
+    ``expected`` maps "cis" (and "trans", where ``scale`` draws trans cases)
+    to expected tables of the map. ``fuzz_base``'s draws come first; the
+    draws after them widen the flag space, each made whatever the case:
+    the kind of case (``scale["kinds"]``: BED as drawn, by window, BEDPE
+    rows of consecutive sites, trans, or local rescaled TADs), a class
+    column to group by (with its order ignored or not) and ``min_diag``.
+    What the packages refuse together gives way to the kind: by distance
+    under trans or local, a groupby under by-window (which ignores it), an
+    ignored group order under BEDPE or local."""
+    import pandas as pd
+
+    feats, kw = fuzz_base(rng, expected["cis"], scale)
+    n, unit = len(feats), scale["unit"]
+    kinds = scale["kinds"]
+    kind = kinds[int(rng.integers(0, len(kinds)))]
+    feats["cls"] = rng.choice(["a", "b", "c"], n)
+    group = rng.integers(0, 3) == 0
+    ignore_order = bool(rng.integers(0, 2)) and kind in ("bed", "trans")
+    with_min_diag = rng.integers(0, 3) == 0
+    min_diag = int(rng.integers(0, 4))
+    rescale_size = 2 * int(rng.integers(4, 17)) + 1
+    widths = rng.integers(*scale["tad"], n) * unit
+    kw.update(scale["kw"])
+    if kind == "by_window":
+        kw["by_window"] = True
+        group = False
+    elif kind == "trans":
+        kw["trans"] = True
+        kw.pop("by_distance", None)
+        if "expected_df" in kw:
+            kw["expected_df"] = expected["trans"]
+    elif kind == "local_rescale":
+        kw.update(local=True, rescale=True, rescale_flank=1,
+                  rescale_size=rescale_size)
+        kw.pop("by_distance", None)
+        feats["end"] = feats["start"] + widths
+    elif kind == "bedpe":
+        a = feats.iloc[:-1].reset_index(drop=True)
+        b = feats.iloc[1:].reset_index(drop=True)
+        same = (a["chrom"] == b["chrom"]).to_numpy()
+        a, b = a[same], b[same]
+        feats = pd.DataFrame({
+            **{f"{c}1": a[c].to_numpy() for c in ("chrom", "start", "end")},
+            **{f"{c}2": b[c].to_numpy() for c in ("chrom", "start", "end")},
+            "strand1": a["strand"].to_numpy(),
+            "strand2": b["strand"].to_numpy(),
+            "cls1": a["cls"].to_numpy(), "cls2": b["cls"].to_numpy(),
+        })
+        kw["features_format"] = "bedpe"
+    if group:
+        kw["groupby"] = ["cls1", "cls2"]
+        if ignore_order:
+            kw["ignore_group_order"] = ["cls1", "cls2"]
+    if with_min_diag:
+        kw["min_diag"] = min_diag
+    return feats, kw
+
+
+def fuzz_flags(kw):
+    """A case's keywords as one short line (an expected table by name)."""
+    return " ".join(f"{k}={'table' if k == 'expected_df' else v}"
+                    for k, v in kw.items() if k != "features_format") \
+        + f" ({kw['features_format']})"
+
+
+class CountingStore:
+    """A ``Cooler`` store that records every read of a pixel column of the
+    store it wraps (a file or arrays): ``reads`` holds ``(thread id,
+    column, start, stop)``."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.filename = inner.filename
+        self.group = inner.group
+        self.reads = []
+        self.lock = threading.Lock()
+
+    @contextlib.contextmanager
+    def open(self):
+        with self.inner.open() as grp:
+            yield _CountingGroup(grp, self)
+
+
+class _CountingGroup:
+    def __init__(self, grp, store):
+        self._grp = grp
+        self._store = store
+        self.attrs = grp.attrs
+
+    def keys(self):
+        return self._grp.keys()
+
+    def __getitem__(self, path):
+        node = self._grp[path]
+        if path.startswith("pixels/"):
+            return _CountingColumn(node, path[len("pixels/"):], self._store)
+        return node
+
+
+class _CountingColumn:
+    def __init__(self, column, name, store):
+        self._column = column
+        self._name = name
+        self._store = store
+        self.shape = column.shape
+        self.dtype = column.dtype
+
+    def __getitem__(self, rows):
+        out = self._column[rows]
+        with self._store.lock:
+            self._store.reads.append((threading.get_ident(), self._name,
+                                      rows.start, rows.stop))
+        return out
+
+
+class fetch_log:
+    """Every ``fetch_slab`` of a ``Cooler`` read through a CountingStore
+    during a block: ``fetches`` holds ``(row extent, column extent, reads,
+    thread id)``, with the ``(column, start, stop)`` reads the fetch made on
+    its own thread."""
+
+    def __init__(self, clr):
+        self.clr = clr
+
+    def __enter__(self):
+        clr, store = self.clr, self.clr.store
+        inner = clr.fetch_slab
+        self.fetches = fetches = []
+
+        def logged(region1, region2=None, *args, **kw):
+            tid = threading.get_ident()
+            with store.lock:
+                mark = len(store.reads)
+            slab = inner(region1, region2, *args, **kw)
+            with store.lock:
+                mine = [r[1:] for r in store.reads[mark:] if r[0] == tid]
+            fetches.append((clr.extent(region1), clr.extent(
+                region2 if region2 is not None else region1), mine, tid))
+            return slab
+
+        clr.fetch_slab = logged
+        return self
+
+    def __exit__(self, *exc):
+        del self.clr.fetch_slab
+
+
+def fetch_spans(clr, fetches):
+    """Hold each logged fetch to its row spans: every pixel column read
+    once a span, exactly rows [bin1_offset[lo], bin1_offset[hi]) of it (a
+    cis fetch one span, a rectangle of two extents both), an empty span not
+    at all. Returns the pixels each fetch read."""
+    from coolpuppy_tpu_torch.io.cool import PIXEL_COLUMNS
+
+    off = clr.bin1_offset()
+    read = []
+    for ext1, ext2, reads, _ in fetches:
+        spans = [ext1] if ext1 == ext2 else [ext1, ext2]
+        want = [(int(off[lo]), int(off[hi])) for lo, hi in spans
+                if off[hi] > off[lo]]
+        for col in PIXEL_COLUMNS:
+            got = [(a, b) for c, a, b in reads if c == col]
+            if got != want:
+                raise AssertionError(f"fetch of {ext1} x {ext2} read {col} "
+                                     f"rows {got}, not its spans {want}")
+        read.append(sum(b - a for a, b in want))
+    return read
+
+
+def table_snips(table):
+    """ROI n + control_n of a pileup table's 'all' row, or of all its rows
+    where it has none."""
+    for key in ("orientation", "group", "chrom"):
+        if key in table:
+            rows = table.loc[table[key].astype(str) == "all"]
+            if len(rows):
+                table = rows.iloc[:1]
+                break
+    control = table["control_n"] if "control_n" in table else 0
+    return int(np.nansum(table["n"].to_numpy(float))
+               + np.nansum(np.asarray(control, float)))
+
+
+def check_reader(dev, sync, card, workload=None):
+    """Phase 12a: the engine cell through a ``Cooler`` whose store counts
+    its reads (``CountingStore`` over the engine map's arrays): a checked
+    run that must launch the staged kernel, every fetch held to its row
+    spans (``fetch_spans``), the pixels read per fetch and in all, the
+    threads that fetched, and the table against phase 5b's checked run (or
+    the same run on the map's own Cooler where phase 5 did not run): keys
+    and counts exact, ``data`` rtol 1e-4. Returns the launches."""
+    from coolpuppy_tpu_torch import Cooler, pileup
+
+    engine = importlib.import_module(engine_patch.MODULE)
+    t, (clr, feats) = timed(workload or engine_workload, lambda: None)
+    reader = Cooler(CountingStore(clr.store))
+    with fetch_log(reader) as log:
+        table, launches, _, t = kernel_run(
+            "reader run", lambda: pileup(reader, feats, device=dev,
+                                         **ENGINE_KW), dev)
+    per_fetch = fetch_spans(reader, log.fetches)
+    threads = len({f[3] for f in log.fetches})
+    print(f"reader run: {table_snips(table)} snips, launches {launches}, "
+          f"route {table['accumulate'].iloc[0]}, {t:.2f} s; {len(per_fetch)} "
+          f"fetches, each exactly its span's rows; pixels read per fetch "
+          f"{per_fetch}, in all {sum(per_fetch)} of the map's "
+          f"{reader.n_pixels}; fetching threads {threads} (the prefetch pool "
+          f"takes at most {engine._PREFETCH_MAX})")
+    held = ENGINE.get("checked")
+    if held is not None and held[0] is clr and held[1].equals(feats):
+        want, source = held[2], "phase 5b's checked run"
+    else:
+        want = kernel_run("engine run", lambda: pileup(
+            clr, feats, device=dev, **ENGINE_KW), dev)[0]
+        source = "the engine cell's checked run on the map's own Cooler"
+    err = compare_tables(table, want, rtol=ENGINE_RTOL, atol=1e-7,
+                         what="reader run vs " + source)
+    print(f"reader run vs {source}: keys and counts exact, data max_abs_err "
+          f"{err:.3g} (rtol {ENGINE_RTOL}) ok")
+    return launches
+
+
+def check_fuzz(dev, sync, card, workload=None, scale=FUZZ_ENGINE,
+               seeds=FUZZ_CARD_SEEDS):
+    """Phase 12b: the seeded fuzz cases (``fuzz_case`` at ``scale``) on the
+    engine map, each through a counting reader of its own: per case a
+    checked run (the staged kernel launched where the route is the quad
+    kernel, every fetch held to its spans), the plain-swapped run (keys and
+    counts exact, NaN positions equal, ``data`` and stripes rtol 1e-4) and
+    the first FUZZ_CPU_SITES features card against CPU (rtol 1e-5, counts
+    exact). Returns the checked runs' launches by seed."""
+    import coolpuppy_tpu_torch.ops.quad_gather as qg
+    from coolpuppy_tpu_torch import Cooler, pileup
+    from coolpuppy_tpu_torch.expected import expected_cis
+
+    clr = (workload or engine_workload)()[0]
+    t, exp = timed(lambda: expected_cis(clr), lambda: None)
+    print(f"fuzz map: {clr.n_bins} bins, {clr.n_pixels} pixels; "
+          f"expected_cis {len(exp)} rows in {t:.2f} s")
+    launches = {}
+    for seed in seeds:
+        feats, kw = fuzz_case(np.random.default_rng(seed), {"cis": exp},
+                              scale)
+        # a reader of its own a case: a coverage column one pileup stores
+        # on its Cooler is reused by the next, whatever its min_diag
+        reader = Cooler(CountingStore(clr.store))
+
+        def run(f, device=dev):
+            return pileup(reader, f, device=device, **kw)
+
+        qg.LAUNCHES = 0
+        qg.VARIANT_LAUNCHES.update(staged=0, direct=0)
+        with fetch_log(reader) as log:
+            t, checked = timed(lambda: run(feats), sync)
+        n = launches[seed] = qg.LAUNCHES
+        route = checked["accumulate"].iloc[0]
+        if "cuda_kernel" in route:
+            if n < 1:
+                raise AssertionError(f"fuzz {seed}: route {route!r}, no "
+                                     "launch")
+            check_variant(f"fuzz {seed}", dev, n)
+        elif n:
+            raise AssertionError(f"fuzz {seed}: route {route!r} but {n} "
+                                 "launches")
+        per_fetch = fetch_spans(reader, log.fetches)
+        plain = plain_swapped(f"fuzz {seed}", lambda: run(feats),
+                              route.replace("cuda_kernel", "plain"))
+        err = compare_tables(checked, plain, what=f"fuzz {seed} vs plain",
+                             stripe_tol=FUZZ_TOL, **FUZZ_TOL)
+        sub = feats.iloc[:FUZZ_CPU_SITES]
+        sub_err = compare_tables(run(sub), run(sub, device="cpu"),
+                                 what=f"fuzz {seed} subset card vs cpu",
+                                 **ENGINE_MODES_TOL)
+        print(f"fuzz {seed}: {fuzz_flags(kw)}; {len(feats)} features, "
+              f"{table_snips(checked)} snips, {len(checked)} rows, wall "
+              f"{t:.2f} s, route {route}, launches {n}; {len(per_fetch)} "
+              f"fetches read {sum(per_fetch)} pixels, each its spans; vs "
+              f"plain max_abs_err {err:.3g} (rtol {FUZZ_RTOL}); first "
+              f"{len(sub)} card vs CPU max_abs_err {sub_err:.3g} (rtol "
+              f"{ENGINE_MODES_TOL['rtol']}) ok")
+    return launches
+
+
+def check_by_distance(dev, sync, card, shapes=None, workload=None):
+    """Phase 12c: by-strand by-distance APA of the engine cell's sites
+    through the notebook alias ``coolpuppy_tpu_torch.coolpup.pileup``
+    (``BY_DISTANCE_KW``, the default band edges): a warm-up, a checked run
+    that must launch the staged kernel (each launch between CUDA events),
+    the plain-swapped run (counts exact, ``data`` rtol 1e-4), two timed runs
+    with the phases (snips/s: the ``all`` row's n + control_n over the
+    wall, median), the busy share of a profiled run and the kernel's time
+    over its launches beside its bound. Returns the launches; ``shapes``,
+    a dict, gets the cell's ``shape_record``."""
+    from coolpuppy_tpu_torch import CoordCreator, PileUpper
+    from coolpuppy_tpu_torch.coolpup import pileup
+
+    t, (clr, feats) = timed(workload or engine_workload, lambda: None)
+
+    def run(f):
+        return pileup(clr, f, device=dev, **BY_DISTANCE_KW)
+
+    t, warm = timed(lambda: run(feats.iloc[:ENGINE_WARMUP_SITES]), sync)
+    print(f"by-distance warm-up ({ENGINE_WARMUP_SITES} sites): "
+          f"{engine_snips(warm)} snips in {t:.2f} s")
+    with quad_kernel_events(BY_DISTANCE_SLEEP_CYCLES) as ev:
+        checked, launches, calls, t = kernel_run(
+            "by-distance run", lambda: run(feats), dev)
+    n_snips = engine_snips(checked)
+    bands = sorted(set(checked["distance_band"].astype(str)) - {"all"})
+    print(f"by-distance checked run: {n_snips} snips, {len(checked)} rows "
+          f"({len(bands)} distance bands x orientations), launches "
+          f"{launches}, route {checked['accumulate'].iloc[0]}, {t:.2f} s")
+    plain = plain_swapped("by_distance", lambda: run(feats))
+    err = compare_tables(checked, plain, rtol=ENGINE_RTOL, atol=1e-7,
+                         what="by-distance kernel vs plain")
+    print(f"by-distance kernel vs plain (whole run): counts exact, data "
+          f"max_abs_err {err:.3g} (rtol {ENGINE_RTOL}) ok")
+    del plain
+
+    def run_timed():
+        kw = {k: v for k, v in BY_DISTANCE_KW.items()
+              if k not in ("by_strand", "by_distance", "nshifts")}
+        cc = CoordCreator(feats, clr.binsize,
+                          nshifts=BY_DISTANCE_KW["nshifts"], **kw)
+        pu = PileUpper(clr, cc, control=True, device=dev)
+        return pu, pu.pileupsByStrandByDistanceWithControl()
+
+    timed_runs("by_distance", run_timed, CELL_REPEATS, n_snips, sync, card,
+               engine_snips)
+    prof = profile_run(lambda: run(feats), sync)
+    print("by-distance device busy share of one run: " + prof["text"])
+    kernel_ms = sum(ev.ms)
+    rec = shape_record("by_distance", calls, kernel_ms, launches, card)
+    rec["profiled_ms"] = prof["kernel_ms"]
+    print(f"by-distance kernel (summed over the checked run's {launches} "
+          f"launches, CUDA events): {kernel_ms:.3f} ms (the profiled run's "
+          f"{prof['kernel_ms']} ms); bound {rec['bound_ms']:.5f} ms by "
+          f"{rec['bound_by']} on {card}")
+    if shapes is not None:
+        shapes["by_distance"] = rec
+    return launches
+
+
 def openmp_runtimes():
     """The OpenMP runtime libraries mapped into this process."""
     import re
@@ -3875,7 +4330,7 @@ def openmp_runtimes():
             if re.match(r"lib[gi]?omp", os.path.basename(p))}
 
 
-PHASES = (3, 4, 5, 6, 7, 8, 9, 10, 11)
+PHASES = (3, 4, 5, 6, 7, 8, 9, 10, 11, 12)
 
 
 def parse_phases(argv):
@@ -4048,6 +4503,16 @@ def main(argv=None):
         record["mesh_session_snips_s"] = check_mesh_session(dev, sync, card)
         check_two_ranks(dev, sync, card)
         phase_done(11)
+
+    # -- 12. the reader's fetch path, the fuzz cases, by distance ----------
+    if 12 in phases:
+        record["reader_launches"] = {
+            "fetch_path": check_reader(dev, sync, card),
+            "fuzz": check_fuzz(dev, sync, card),
+            "by_distance": check_by_distance(dev, sync, card,
+                                             record["shapes"]),
+        }
+        phase_done(12)
 
     # -- result -----------------------------------------------------------
     print(card)

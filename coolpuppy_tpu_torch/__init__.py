@@ -2,7 +2,8 @@
 
 The pile-up of ``coolpuppy_tpu`` (the JAX package, which stays the
 reference) re-built on PyTorch tensors: ``pileup()`` and ``PileUpper`` over
-an in-memory ``Cooler`` for BED and BEDPE features, cis and trans, by
+a ``Cooler`` (a ``.cool`` file read one row span a fetch, or arrays in
+memory) for BED and BEDPE features, cis and trans, by
 strand, distance or window, with stripes, rescaling and the reference's
 extension hooks, with the quad gather-accumulate written by hand in CUDA
 C++ for Hopper (``csrc/``). What a hook author needs is in ``lib``:
@@ -13,7 +14,9 @@ file formats in ``io`` (BED/BEDPE/expected tables, ``.clpy`` pileups,
 tools in ``cli`` (``coolpup-torch``, ``plotpup-torch``, ``dividepups-torch``).
 ``.cool`` and ``.clpy`` files are read and written through h5py, imported
 inside those functions; matplotlib is imported by ``plotting`` and
-``cli.plotpup_cli`` alone. The pileup itself needs neither.
+``cli.plotpup_cli`` alone. The pileup itself needs neither. The reference
+notebooks' import lines work against the aliases ``coolpup``, ``plotpup``
+(which imports matplotlib) and ``lib.io``/``numutils``/``puputils``/``util``.
 
 Importing the package has no side effects: no allocator or thread tuning,
 no kernel build. The kernel is compiled at its first launch on a CUDA
@@ -22,9 +25,13 @@ tensor (``kernels/build.py``).
 
 from ._version import __version__  # noqa: F401
 
-from .coords import CoordCreator  # noqa: F401
+from .coords import (  # noqa: F401
+    CoordCreator,
+    assign_groups,
+    bin_distance_intervals,
+)
 from .engine import PileUpper, pileup  # noqa: F401
-from .io import Cooler  # noqa: F401
+from .io import Cooler, write_cool  # noqa: F401
 from .ops.gather import merge_flip_banks  # noqa: F401
 from .ops.quad_gather import (  # noqa: F401
     QuadPileupSession,

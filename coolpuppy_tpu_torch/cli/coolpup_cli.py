@@ -2,9 +2,10 @@
 ``coolpuppy_tpu/cli/coolpup_cli.py``, same flag surface; reference
 CLI.py:21–350 for flags, :353–603 for its body), plus ``--device``.
 
-``main`` reads the ``.cool`` file and writes the ``.clpy`` file through h5py;
-everything between those two calls is ``pileup_from_args``, which needs
-neither h5py nor a file of the map: it takes any ``Cooler``."""
+``main`` reads the ``.cool`` file with ``Cooler(uri)`` (a fetch's row span
+at a time) and writes the ``.clpy`` file through h5py; everything between
+those two calls is ``pileup_from_args``, which needs neither h5py nor a file
+of the map: it takes any ``Cooler``."""
 
 from __future__ import annotations
 
@@ -348,7 +349,7 @@ def main(argv=None):
     logger.setLevel(getattr(logging, args.logLevel))
     logger.debug(args)
 
-    clr = Cooler.from_cool(args.cool_path)
+    clr = Cooler(args.cool_path)
     pups, outname = pileup_from_args(args, clr)
     save_pileup_df(outname, pups)
     logger.info(f"Saved output to {outname}")

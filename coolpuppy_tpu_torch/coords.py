@@ -320,6 +320,34 @@ class CoordCreator:
                 anchor_idx=codes.astype(np.int64)
             )
 
+    def bedpe2bed(self, df, ends=True, how="center"):
+        """Collapse BEDPE rows to BED (reference coolpup.py:463–487):
+        ``ends=True`` stacks both anchors, sorted; otherwise one interval a
+        pair, from the anchors' centers (``how="center"``), their outer
+        (``"outer"``) or inner (``"inner"``) coordinates."""
+        if ends:
+            df1 = df[["chrom1", "start1", "end1"]].copy()
+            df1.columns = ["chrom", "start", "end"]
+            df2 = df[["chrom2", "start2", "end2"]].copy()
+            df2.columns = ["chrom", "start", "end"]
+            return (
+                pd.concat([df1, df2])
+                .sort_values(["chrom", "start", "end"])
+                .reset_index(drop=True)
+            )
+        df = df.copy()
+        if how == "center":
+            df["chrom"] = df["chrom1"]
+            df["start"] = ((df["start1"] + df["end1"]) // 2).astype(int)
+            df["end"] = ((df["start2"] + df["end2"]) // 2).astype(int)
+        elif how == "outer":
+            df = df[["chrom1", "start1", "end2"]]
+            df.columns = ["chrom", "start", "end"]
+        elif how == "inner":
+            df = df[["chrom1", "end1", "start2"]]
+            df.columns = ["chrom", "start", "end"]
+        return df[["chrom", "start", "end"]]
+
     @staticmethod
     def _lex_sorted(intervals, cols):
         """sort_values(cols) via raw arrays: an O(n) already-sorted check

@@ -232,3 +232,15 @@ def is_valid_expected(
             raise
         return False
     return True
+
+
+def read_chromsizes_table(df_or_path):
+    """``{chrom: length}`` of a chromsizes table: a headerless two-column
+    TSV path (chrom, length) or a frame with those columns."""
+    if isinstance(df_or_path, (str,)):
+        df = pd.read_csv(
+            df_or_path, sep="\t", header=None, names=["chrom", "length"]
+        )
+    else:
+        df = df_or_path
+    return dict(zip(df["chrom"].astype(str), df["length"].astype(np.int64)))

@@ -1,7 +1,8 @@
-"""File formats of the port: the in-memory cooler, BED/BEDPE/expected
-tables, ``.clpy`` pileups, ``.txt`` arrays and the ``.cool`` writer
-(counterpart of ``coolpuppy_tpu/io``). h5py is imported only inside the
-functions that read or write HDF5 files, so the package imports without it."""
+"""File formats of the port: the ``.cool`` reader (a file, or arrays in
+memory), BED/BEDPE/expected tables, ``.clpy`` pileups, ``.txt`` arrays and
+the ``.cool`` writer (counterpart of ``coolpuppy_tpu/io``). h5py is imported
+only inside the functions that read or write HDF5 files, so the package
+imports without it."""
 
 from .cool import Cooler, PixelSlab  # noqa: F401
 from .coolwrite import write_cool  # noqa: F401

@@ -1,26 +1,40 @@
-"""A contact matrix held in numpy arrays, with the slice of the cooler API
-the engine reads (counterpart of ``coolpuppy_tpu/io/cool.py``).
+"""The ``.cool`` reader of the port (counterpart of
+``coolpuppy_tpu/io/cool.py``): the slice of the cooler API the engine,
+``expected.py`` and ``coverage.py`` read.
 
-The reference reads ``.cool`` (HDF5) files on every fetch. The port holds the
-whole matrix in memory: the upper-triangle pixels sorted by (bin1, bin2), a
-``bin1_offset`` row index into them, and the bins table. Two constructors
-fill it:
+A ``Cooler`` reads the cooler schema from a *store*: something whose
+``open()`` yields a group in which ``pixels/bin1_id``, ``pixels/bin2_id``
+and ``pixels/count`` are sliced by row range, beside ``bins/*``,
+``chroms/*``, ``indexes/*`` and the ``bin-size`` attribute. At construction
+it reads the metadata only; the bins table and the ``bin1_offset`` index
+are read at first use and kept; every fetch reads the row span of its
+query and nothing else, under a lock (the region prefetch reads from up to
+four threads). Three ways to build one, all on the same fetch code:
 
+- ``Cooler(uri)`` reads a ``.cool`` file, ``path`` or ``path::group``
+  (``x.mcool::/resolutions/10000``), through a ``FileStore``: h5py opens the
+  file for each read, as the reference does, so the object holds one
+  fetch's rows at a time;
 - ``Cooler.from_arrays(chromsizes, binsize, (bin1, bin2, count), weights)``
-  takes the pixels from the caller, with the layout ``write_cool`` of the
-  JAX package stores (upper triangle, duplicates kept, integer counts as
-  int32);
-- ``Cooler.from_cool(uri)`` reads a ``.cool`` file (``path`` or
-  ``path::group``) with h5py, imported inside that function only: the
-  package itself does not need h5py.
+  takes the pixels from the caller into an ``ArrayStore`` (numpy arrays in
+  the cooler schema; how the card, which has no h5py, builds its maps);
+- ``Cooler.from_cool(uri)`` reads a whole file into an ``ArrayStore``.
+
+h5py is imported inside the functions that open a file: the package itself
+does not need it.
 """
 
 from __future__ import annotations
 
+import os
+import threading
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import numpy as np
 import pandas as pd
+
+PIXEL_COLUMNS = ("bin1_id", "bin2_id", "count")
 
 
 @dataclass
@@ -47,19 +61,87 @@ class PixelSlab:
         return len(self.rows)
 
 
+def parse_cooler_uri(uri):
+    """``(path, group)`` of a cooler URI ``path`` or ``path::group``."""
+    path, _, group = str(uri).partition("::")
+    return path, (group if group.startswith("/") else "/" + group) if group \
+        else "/"
+
+
+# -- stores ----------------------------------------------------------------
+
+
+class FileStore:
+    """A ``.cool`` file (or one group of an ``.mcool``), opened with h5py for
+    each read."""
+
+    def __init__(self, filename, group="/"):
+        self.filename = str(filename)
+        self.group = group
+
+    @contextmanager
+    def open(self):
+        import h5py
+
+        with h5py.File(self.filename, "r") as f:
+            yield f[self.group]
+
+
+class ArrayGroup:
+    """A nested dict of numpy arrays read as an h5py group is:
+    ``grp["pixels/count"][lo:hi]``, ``grp["bins"].keys()``, ``grp.attrs``."""
+
+    def __init__(self, tree, attrs=None):
+        self._tree = tree
+        self.attrs = attrs or {}
+
+    def __getitem__(self, path):
+        node = self._tree
+        for part in path.strip("/").split("/"):
+            node = node[part]
+        return ArrayGroup(node) if isinstance(node, dict) else node
+
+    def keys(self):
+        return self._tree.keys()
+
+
+class ArrayStore:
+    """The cooler schema held in numpy arrays: ``tree`` maps ``chroms``,
+    ``bins``, ``pixels`` and ``indexes`` to dicts of arrays, ``attrs`` holds
+    ``bin-size``. ``filename`` and ``group`` name the file it was read from,
+    if any."""
+
+    def __init__(self, tree, attrs, filename=None, group="/"):
+        self.root = ArrayGroup(tree, attrs)
+        self.filename = filename
+        self.group = group
+
+    @contextmanager
+    def open(self):
+        yield self.root
+
+
+# -- accessors -------------------------------------------------------------
+
+
 class _BinsAccessor:
-    """``clr.bins()[col].fetch(region)`` and ``col in clr.bins().columns``
-    (reference coolpup.py:950–957, 1081–1098)."""
+    """``clr.bins()[col].fetch(region)``, ``clr.bins().fetch(region)`` and
+    ``col in clr.bins().columns`` (reference coolpup.py:950–957,
+    1081–1098)."""
 
     def __init__(self, clr):
         self._clr = clr
 
     @property
     def columns(self):
-        return self._clr.bins_df().columns
+        return self._clr._bin_columns()
 
     def __getitem__(self, col):
         return _BinsColumn(self._clr, col)
+
+    def fetch(self, region):
+        lo, hi = self._clr.extent(region)
+        return self._clr.bins_df().iloc[lo:hi]
 
 
 class _BinsColumn:
@@ -72,22 +154,32 @@ class _BinsColumn:
         return self._clr.bins_df()[self._col].iloc[lo:hi]
 
 
-def _bins_table(chromnames, lengths, binsize):
-    """(chrom_offset, bins DataFrame with chrom/start/end) of a fixed-size
-    bin grid, as ``write_cool`` lays it out."""
+class _MatrixSelector:
+    """``clr.matrix(sparse=..., balance=...).fetch(region1, region2)``."""
+
+    def __init__(self, clr, balance, sparse_out):
+        self._clr = clr
+        self._balance = balance
+        self._sparse = sparse_out
+
+    def fetch(self, region1, region2=None):
+        coo = self._clr.fetch_coo(region1, region2, balance=self._balance)
+        if self._sparse:
+            return coo
+        return np.asarray(coo.todense())
+
+
+def _bin_grid(lengths, binsize):
+    """(chrom_offset, chrom ids, starts, ends) of a fixed-size bin grid, as
+    ``write_cool`` lays it out."""
     n_per = np.ceil(lengths / binsize).astype(np.int64)
-    chrom_offset = np.concatenate([[0], np.cumsum(n_per)])
-    chrom_ids = np.repeat(np.arange(len(chromnames)), n_per)
+    chrom_offset = np.concatenate([[0], np.cumsum(n_per)]).astype(np.int64)
+    chrom_ids = np.repeat(np.arange(len(lengths)), n_per)
     starts = np.concatenate(
         [np.arange(n) * binsize for n in n_per]
     ).astype(np.int64)
     ends = np.minimum(starts + binsize, lengths[chrom_ids]).astype(np.int64)
-    bins = pd.DataFrame({
-        "chrom": np.asarray(chromnames, dtype=object)[chrom_ids],
-        "start": starts,
-        "end": ends,
-    })
-    return chrom_offset, bins
+    return chrom_offset, chrom_ids.astype(np.int32), starts, ends
 
 
 def _sorted_pairs(bin1, bin2):
@@ -96,27 +188,41 @@ def _sorted_pairs(bin1, bin2):
     return bool((d1 >= 0).all() and ((d1 > 0) | (np.diff(bin2) >= 0)).all())
 
 
-class Cooler:
-    """An in-memory contact matrix. Build it with ``from_arrays`` or
-    ``from_cool``."""
+def _names(values):
+    return [c.decode() if isinstance(c, bytes) else str(c) for c in values]
 
-    def __init__(self, chromnames, lengths, binsize, chrom_offset, bins,
-                 bin1, bin2, count, filename=None):
-        self.binsize = int(binsize)
-        self.chromnames = list(chromnames)
-        self.chromsizes = dict(zip(self.chromnames,
-                                   np.asarray(lengths, np.int64)))
-        self.filename = filename
-        self._chrom_offset = np.asarray(chrom_offset, np.int64)
-        self._bins_df = bins
-        self.n_bins = len(bins)
-        self._bin1 = np.asarray(bin1, np.int64)
-        self._bin2 = np.asarray(bin2, np.int64)
-        self._count = count
-        self.n_pixels = len(self._bin1)
-        self._bin1_offset = np.searchsorted(
-            self._bin1, np.arange(self.n_bins + 1)
-        ).astype(np.int64)
+
+class Cooler:
+    """A contact matrix read from a store: ``Cooler(uri)`` for a ``.cool``
+    file (``path`` or ``path::group``), or ``Cooler(store)`` for a store
+    built elsewhere (``from_arrays``, ``from_cool``)."""
+
+    def __init__(self, uri):
+        if isinstance(uri, (str, os.PathLike)):
+            self.uri = str(uri)
+            store = FileStore(*parse_cooler_uri(uri))
+        else:
+            self.uri = None
+            store = uri
+        self.store = store
+        self.filename = store.filename
+        self.group = store.group
+        self._lock = threading.Lock()
+        self._extra_bin_cols = {}
+        with self._lock, self.store.open() as grp:
+            self.binsize = int(grp.attrs["bin-size"])
+            self.chromnames = _names(grp["chroms/name"][:])
+            lengths = np.asarray(grp["chroms/length"][:], np.int64)
+            self.chromsizes = dict(zip(self.chromnames, lengths))
+            self._chrom_offset = np.asarray(grp["indexes/chrom_offset"][:],
+                                            np.int64)
+            self.n_bins = int(grp["bins/start"].shape[0])
+            self.n_pixels = int(grp["pixels/bin1_id"].shape[0])
+            # integer counts (the standard schema) stay exact up to 2^24 on
+            # the float32 slab read
+            self.counts_are_int = grp["pixels/count"].dtype.kind in "iu"
+        self._bins_df = None
+        self._bin1_offset = None
         self._weights_clean_cache = {}
 
     @classmethod
@@ -130,78 +236,115 @@ class Cooler:
         int32, others as float64."""
         chromnames = list(chromsizes.keys())
         lengths = np.array([chromsizes[c] for c in chromnames], np.int64)
-        chrom_offset, bins = _bins_table(chromnames, lengths, int(binsize))
+        chrom_offset, chrom_ids, starts, ends = _bin_grid(lengths,
+                                                          int(binsize))
+        n_bins = len(starts)
         bin1, bin2, count = (np.asarray(a) for a in pixels)
         if not (len(bin1) == len(bin2) == len(count)):
             raise ValueError("from_arrays: bin1, bin2 and count differ in "
                              "length")
         if len(bin1) and (np.any(bin1 > bin2) or bin1.min() < 0
-                          or bin2.max() >= len(bins)):
+                          or bin2.max() >= n_bins):
             raise ValueError("from_arrays: pixels must be upper-triangle "
                              "(bin1 <= bin2) global bin ids in "
-                             f"[0, {len(bins)})")
+                             f"[0, {n_bins})")
         if np.issubdtype(count.dtype, np.integer):
             count = count.astype(np.int32)
         else:
             count = count.astype(np.float64)
+        bin1 = bin1.astype(np.int64, copy=False)
+        bin2 = bin2.astype(np.int64, copy=False)
         if not _sorted_pairs(bin1, bin2):
             order = np.lexsort((bin2, bin1))
             bin1, bin2, count = bin1[order], bin2[order], count[order]
+        bins = {"chrom": chrom_ids, "start": starts, "end": ends}
         if weights is not None:
             weights = np.asarray(weights, np.float64)
-            if weights.shape != (len(bins),):
-                raise ValueError(f"from_arrays: weights must have {len(bins)} "
+            if weights.shape != (n_bins,):
+                raise ValueError(f"from_arrays: weights must have {n_bins} "
                                  f"entries, got {weights.shape}")
             bins["weight"] = weights
-        return cls(chromnames, lengths, binsize, chrom_offset, bins,
-                   bin1, bin2, count)
+        tree = {
+            "chroms": {"name": np.array(chromnames, dtype=object),
+                       "length": lengths},
+            "bins": bins,
+            "pixels": {"bin1_id": bin1, "bin2_id": bin2, "count": count},
+            "indexes": {
+                "chrom_offset": chrom_offset,
+                "bin1_offset": np.searchsorted(
+                    bin1, np.arange(n_bins + 1)).astype(np.int64),
+            },
+        }
+        return cls(ArrayStore(tree, {"bin-size": int(binsize)}))
 
     @classmethod
     def from_cool(cls, uri):
-        """Read a ``.cool`` file (``path`` or ``path::group``) into memory."""
-        import h5py
-
-        path, _, group = str(uri).partition("::")
-        group = (group if group.startswith("/") else "/" + group) if group \
-            else "/"
-        with h5py.File(path, "r") as f:
-            grp = f[group]
-            binsize = int(grp.attrs["bin-size"])
-            chromnames = [c.decode() if isinstance(c, bytes) else str(c)
-                          for c in grp["chroms/name"][:]]
-            lengths = grp["chroms/length"][:].astype(np.int64)
-            chrom_offset = grp["indexes/chrom_offset"][:].astype(np.int64)
-            cols = {c: grp["bins"][c][:] for c in grp["bins"].keys()}
-            bin1 = grp["pixels/bin1_id"][:]
-            bin2 = grp["pixels/bin2_id"][:]
-            count = grp["pixels/count"][:]
-        chrom = cols["chrom"]
-        if chrom.dtype.kind in "iu":
-            cols["chrom"] = np.asarray(chromnames, dtype=object)[chrom]
-        else:
-            cols["chrom"] = np.array(
-                [c.decode() if isinstance(c, bytes) else str(c)
-                 for c in chrom], dtype=object,
-            )
-        return cls(chromnames, lengths, binsize, chrom_offset,
-                   pd.DataFrame(cols), bin1, bin2, count, filename=path)
+        """Read a whole ``.cool`` file (``path`` or ``path::group``) into an
+        ``ArrayStore``."""
+        with FileStore(*parse_cooler_uri(uri)).open() as grp:
+            tree = {
+                name: {k: grp[name][k][:] for k in grp[name].keys()}
+                for name in ("chroms", "bins", "pixels", "indexes")
+            }
+            attrs = {"bin-size": int(grp.attrs["bin-size"])}
+        clr = cls(ArrayStore(tree, attrs, *parse_cooler_uri(uri)))
+        clr.uri = str(uri)
+        return clr
 
     # -- bins --------------------------------------------------------------
 
+    def _bin_columns(self):
+        with self._lock, self.store.open() as grp:
+            cols = list(grp["bins"].keys())
+        return pd.Index(cols + list(self._extra_bin_cols))
+
     def bins_df(self):
-        """Full bins table as a DataFrame (chrom as string)."""
+        """Full bins table as a DataFrame (chrom as string), read once."""
+        if self._bins_df is None:
+            with self._lock:
+                if self._bins_df is None:
+                    with self.store.open() as grp:
+                        bins = {c: grp["bins"][c][:]
+                                for c in grp["bins"].keys()}
+                    chrom = bins["chrom"]
+                    if chrom.dtype.kind in "iu":
+                        chrom = np.asarray(self.chromnames,
+                                           dtype=object)[chrom]
+                    else:
+                        chrom = np.array(_names(chrom), dtype=object)
+                    bins["chrom"] = chrom
+                    df = pd.DataFrame(bins)
+                    for col, arr in self._extra_bin_cols.items():
+                        df[col] = arr
+                    self._bins_df = df
         return self._bins_df
 
     def bins(self):
         return _BinsAccessor(self)
 
     def store_bin_column(self, name, values):
-        """Attach a computed per-bin column (e.g. coverage)."""
+        """Attach a computed per-bin column (e.g. coverage). It lives on the
+        object, not in the store (a file may be read-only), and is kept in
+        the bins table whether that was read before or after."""
         values = np.asarray(values)
         if values.shape != (self.n_bins,):
             raise ValueError(f"store_bin_column: {name} must have "
                              f"{self.n_bins} entries, got {values.shape}")
-        self._bins_df[name] = values
+        with self._lock:
+            self._extra_bin_cols[name] = values
+            if self._bins_df is not None:
+                self._bins_df[name] = values
+
+    def bin1_offset(self):
+        """The ``indexes/bin1_offset`` row index (read once): the pixels of
+        bin rows [lo, hi) are rows [bin1_offset[lo], bin1_offset[hi])."""
+        if self._bin1_offset is None:
+            with self._lock:
+                if self._bin1_offset is None:
+                    with self.store.open() as grp:
+                        self._bin1_offset = np.asarray(
+                            grp["indexes/bin1_offset"][:], np.int64)
+        return self._bin1_offset
 
     def _clean_weights(self, balance):
         """Global per-bin balancing weights with NaN -> 0 (cached; threads
@@ -210,7 +353,7 @@ class Cooler:
         w = self._weights_clean_cache.get(balance)
         if w is None:
             w = self._weights_clean_cache.setdefault(balance, np.nan_to_num(
-                self._bins_df[balance].values.astype(np.float32)
+                self.bins_df()[balance].values.astype(np.float32)
             ))
         return w
 
@@ -221,7 +364,7 @@ class Cooler:
         lo, hi = self.extent(region)
         if not weight_name:
             return np.zeros(hi - lo, dtype=bool)
-        w = self._bins_df[weight_name].values[lo:hi].astype(np.float64)
+        w = self.bins_df()[weight_name].values[lo:hi].astype(np.float64)
         return np.isnan(w)
 
     # -- region arithmetic -------------------------------------------------
@@ -262,24 +405,39 @@ class Cooler:
 
     # -- pixels ------------------------------------------------------------
 
+    def _read_pixels(self, start, stop):
+        """Rows [start, stop) of the three pixel columns, as stored, in one
+        open of the store under the lock."""
+        with self._lock, self.store.open() as grp:
+            return tuple(grp["pixels/" + c][start:stop]
+                         for c in PIXEL_COLUMNS)
+
     def _fetch_rect_raw(self, lo1, hi1, lo2, hi2, dtype=np.float32):
         """Stored (upper-triangle) pixels with bin1 in [lo1,hi1), bin2 in
-        [lo2,hi2), counts as ``dtype``."""
-        p_lo = int(self._bin1_offset[lo1])
-        p_hi = int(self._bin1_offset[hi1])
-        bin1 = self._bin1[p_lo:p_hi]
-        bin2 = self._bin2[p_lo:p_hi]
-        count = self._count[p_lo:p_hi].astype(dtype)
+        [lo2,hi2), counts as ``dtype``: one read of the row span
+        [bin1_offset[lo1], bin1_offset[hi1]). float32 is the hot
+        tile-scatter path; the exact compat path (fetch_coo, expected)
+        reads float64 so that counts >= 2**24 stay exact."""
+        b1off = self.bin1_offset()
+        p_lo, p_hi = int(b1off[lo1]), int(b1off[hi1])
+        if p_hi <= p_lo:
+            empty = np.array([], dtype=np.int64)
+            return empty, empty, np.array([], dtype=dtype)
+        bin1, bin2, count = self._read_pixels(p_lo, p_hi)
+        bin1 = bin1.astype(np.int64, copy=False)
+        bin2 = bin2.astype(np.int64, copy=False)
+        count = count.astype(dtype)
         if lo2 <= 0 and hi2 >= self.n_bins:
-            return bin1, bin2, count
+            return bin1, bin2, count  # full column span: nothing to filter
         mask = (bin2 >= lo2) & (bin2 < hi2)
         return bin1[mask], bin2[mask], count[mask]
 
     def fetch_slab(self, region1, region2=None, balance="weight",
                    dtype=np.float32):
         """Stored-triangle pixels of the query rectangle as a PixelSlab. A
-        cis same-extent query keeps the stored triangle (``mirror``);
-        distinct extents read both row spans."""
+        cis same-extent query is one read of its row span (``mirror``: the
+        consumer applies the transpose); distinct extents read both row
+        spans."""
         lo1, hi1 = self.extent(region1)
         lo2, hi2 = self.extent(region2 if region2 is not None else region1)
         weights = self._clean_weights(balance) if balance else None
@@ -313,7 +471,8 @@ class Cooler:
         rows, cols, vals = slab.rows, slab.cols, slab.vals
         if slab.weights is not None:
             balance = "weight" if balance is True else balance
-            w = np.nan_to_num(self._bins_df[balance].values.astype(np.float64))
+            w = np.nan_to_num(self.bins_df()[balance].values.astype(
+                np.float64))
             vals = vals * w[rows] * w[cols]
         if slab.mirror:
             off = rows != cols
@@ -326,10 +485,13 @@ class Cooler:
             (vals, (rows - slab.lo1, cols - slab.lo2)), shape=slab.shape
         )
 
+    def matrix(self, sparse=False, balance="weight"):
+        return _MatrixSelector(self, balance=balance, sparse_out=sparse)
+
     def pixels_chunk(self, start, stop):
-        """Raw pixels [start, stop) as (bin1, bin2, count float64)."""
-        return (
-            self._bin1[start:stop],
-            self._bin2[start:stop],
-            self._count[start:stop].astype(np.float64),
-        )
+        """Raw pixels [start, stop) as (bin1, bin2, count float64), read
+        from the store (whole-genome streaming: coverage, expected)."""
+        bin1, bin2, count = self._read_pixels(start, stop)
+        return (bin1.astype(np.int64, copy=False),
+                bin2.astype(np.int64, copy=False),
+                count.astype(np.float64))

@@ -1,5 +1,5 @@
 """CPU rehearsals of ``chip_smoke.py``'s phases at a tiny size (5b, 6b,
-7b-7d, 3, 4, 8a-8c, 9a/9b, 10, 11a-11d): the same control flow, checks and
+7b-7d, 3, 4, 8a-8c, 9a/9b, 10, 11a-11d, 12a-12c): the same control flow, checks and
 timing lines,
 with ``quad_accumulate`` swapped for a plain version that counts its calls
 as launches (the CUDA kernel cannot run here)."""
@@ -115,6 +115,9 @@ def _fake_kernels(monkeypatch):
 
     class trace:
         """One fake kernel time per launch made during the block."""
+
+        def __init__(self, cycles=None):
+            pass
 
         def __enter__(self):
             self.before = len(fired)
@@ -290,12 +293,13 @@ def test_extension_phase_rehearsal(monkeypatch, capsys):
 
 
 def test_phases_option():
-    assert chip_smoke.parse_phases([]) == {3, 4, 5, 6, 7, 8, 9, 10, 11}
+    assert chip_smoke.parse_phases([]) == {3, 4, 5, 6, 7, 8, 9, 10, 11, 12}
     assert chip_smoke.parse_phases(["--phases", "1,2,8"]) == {1, 2, 8}
     assert chip_smoke.parse_phases(["--phases", "9"]) == {9}
     assert chip_smoke.parse_phases(["--phases", "10"]) == {10}
     assert chip_smoke.parse_phases(["--phases", "11"]) == {11}
-    for bad in ("12", "x", "", "1,2", ","):
+    assert chip_smoke.parse_phases(["--phases", "12"]) == {12}
+    for bad in ("13", "x", "", "1,2", ","):
         try:
             chip_smoke.parse_phases(["--phases", bad])
         except SystemExit as e:
@@ -491,3 +495,44 @@ def test_two_ranks_phase_rehearsal(capsys):
     assert "region pairs [('chr1', 'chr1')] (1)" in out
     assert "region pairs [('chr2', 'chr2')] (1)" in out
     assert "two ranks == one process: " in out
+
+
+def test_reader_phase_rehearsal(monkeypatch, capsys):
+    """Phase 12 at a tiny size on a 1,500-bin map: 12a (200 sites through
+    the counting reader, every fetch its spans, against the engine run),
+    12b (the eight card seeds at 40-80 sites) and 12c (by distance through
+    the notebook alias), with the launchers replaced by counting plain
+    versions."""
+    _fake_kernels(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "ENGINE_WARMUP_SITES", 20)
+    monkeypatch.setattr(chip_smoke, "FUZZ_CPU_SITES", 30)
+    dev = torch.device("cpu")
+
+    def workload():
+        return chip_smoke.engine_workload(n_sites=200, n_bins=1_500,
+                                          n_contacts=150_000)
+
+    assert chip_smoke.check_reader(dev, lambda: None, "cpu rehearsal",
+                                   workload=workload) >= 1
+    out = capsys.readouterr().out
+    assert "fetches, each exactly its span's rows; pixels read per fetch" \
+        in out
+    assert "reader run vs " in out and "keys and counts exact" in out
+    scale = dict(chip_smoke.FUZZ_ENGINE, n=(40, 80), start=(100, 1_400),
+                 tad=(5, 30))
+    launches = chip_smoke.check_fuzz(dev, lambda: None, "cpu rehearsal",
+                                     workload=workload, scale=scale)
+    assert sorted(launches) == list(chip_smoke.FUZZ_CARD_SEEDS)
+    out = capsys.readouterr().out
+    for seed in chip_smoke.FUZZ_CARD_SEEDS:
+        assert f"fuzz {seed}: " in out
+    assert out.count(" ok\n") == len(chip_smoke.FUZZ_CARD_SEEDS)
+    shapes = {}
+    n = chip_smoke.check_by_distance(dev, lambda: None, "cpu rehearsal",
+                                     shapes, workload=workload)
+    assert n >= 1 and shapes["by_distance"]["launches"] == n
+    out = capsys.readouterr().out
+    assert "by-distance kernel vs plain (whole run)" in out
+    assert "by_distance snips/s:" in out
+    assert f"summed over the checked run's {n} launches" in out
+

@@ -1,7 +1,7 @@
-"""The port's in-memory Cooler against the JAX package's .cool reader, on
-the CPU: ``Cooler.from_cool`` on a file the reference fixtures write, and
-``Cooler.from_arrays`` on chip_smoke.py's in-memory build of the same toy
-map, must agree with the reference ``Cooler`` on fetch_slab, extent,
+"""The port's Cooler against the JAX package's .cool reader, on the CPU:
+``Cooler(uri)`` and ``Cooler.from_cool`` on a file the reference fixtures
+write, and ``Cooler.from_arrays`` on chip_smoke.py's in-memory build of the
+same toy map, must agree with the reference ``Cooler`` on fetch_slab, extent,
 offset, bad_bin_mask, bins() and coverage."""
 
 import sys
@@ -38,10 +38,12 @@ def toy(tmp_path_factory):
     return path, ref_clr, dense, weights
 
 
-@pytest.fixture(params=["from_cool", "from_arrays"])
+@pytest.fixture(params=["uri", "from_cool", "from_arrays"])
 def pair(request, toy):
     """(port cooler, reference cooler) over the same toy map."""
     path, ref_clr, _, _ = toy
+    if request.param == "uri":
+        return port.Cooler(path), ref_clr
     if request.param == "from_cool":
         return port.Cooler.from_cool(path), ref_clr
     return chip_smoke.toy_cooler(seed=1)[0], ref_clr

@@ -63,7 +63,7 @@ def worker(rank, port, cool_path, out_path, mode):
                            world_size=2, rank=rank,
                            timeout=datetime.timedelta(seconds=120))
     assert got == (rank, 2), got
-    clr = P.Cooler.from_cool(cool_path)
+    clr = P.Cooler(cool_path)
     cc_kw = dict(MODES[mode])
     by_strand = cc_kw.pop("by_strand", False)
     nshifts = cc_kw.pop("nshifts")

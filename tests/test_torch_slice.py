@@ -1,10 +1,10 @@
 """The port's whole loop-APA slice against the JAX package's, on the CPU:
 a SymTileStack with flips (cid = gid + half*flip) through the session,
 finalize and merge_flip_banks; the same slice, the engine's pileup()
-(cis by strand, and trans) and the coolpup CLI's pileup_from_args on an
-in-memory cooler in a process where jax, coolpuppy_tpu, h5py and matplotlib
-cannot be imported (as on the card's machine); and a source scan for such
-imports."""
+(cis by strand, and trans), the coolpup CLI's pileup_from_args, the public
+surface but ``plotpup`` and the reader's fetch code on an in-memory cooler
+in a process where jax, coolpuppy_tpu, h5py and matplotlib cannot be
+imported (as on the card's machine); and a source scan for such imports."""
 
 import ast
 import os
@@ -166,6 +166,21 @@ with tempfile.TemporaryDirectory() as d:
         assert outname.startswith("toy.cool-1000.0K_over_features_")
         assert cp["features"].iloc[0] == paths["bed"]
         assert np.isfinite(cp["data"].iloc[-1]).any()
+# the public surface but plotpup (which imports matplotlib), and the
+# reader's fetch code over a store of arrays
+import coolpuppy_tpu_torch.coolpup as alias
+import coolpuppy_tpu_torch.genomics
+import coolpuppy_tpu_torch.lib.io
+import coolpuppy_tpu_torch.lib.util
+from coolpuppy_tpu_torch.io.cool import Cooler, parse_cooler_uri
+assert alias.pileup is P.pileup and P.write_cool and P.assign_groups
+assert parse_cooler_uri("x.mcool::resolutions/10") == ("x.mcool",
+                                                       "/resolutions/10")
+again = Cooler(_clr.store)
+assert again.n_pixels == _clr.n_pixels and again.extent("chr2") == (198, 380)
+slab = again.fetch_slab("chr2")
+assert slab.mirror and len(slab.rows) > 0
+assert again.matrix(balance=False).fetch("chr1", "chr2").shape == (198, 182)
 blocked = ("jax", "coolpuppy_tpu", "h5py", "matplotlib")
 loaded = sorted(m for m, v in sys.modules.items()
                 if v is not None and m.split(".")[0] in blocked)

@@ -1,7 +1,8 @@
 """Time two trees of the PyTorch port in turns on one card: the engine
 cell's keywords (``chip_smoke.ENGINE_KW``) over ``bench.py --modes``' sites
-on the engine map, the ``--modes`` trans cell, and the staged quad kernel
-alone over the slice's map (``sweep``).
+on the engine map, the W = 119 cell's keywords (``chip_smoke.W119_CELL_KW``,
+``w119``) over the same sites, the ``--modes`` trans cell, and the staged
+quad kernel alone over the slice's map (``sweep``).
 
     python tools/torch_parent_change.py PARENT_TREE CHANGE_TREE [REPEATS]
         [CELLS]
@@ -102,9 +103,13 @@ def worker(cache, repeats, cells):
     t0 = time.perf_counter()
     if not os.path.exists(cache):
         clr, feats, _, clr2, tfeats = cs.modes_workload()
-        np.savez(cache, e1=clr._bin1, e2=clr._bin2, ec=clr._count,
-                 ew=clr.bins_df()["weight"].to_numpy(), t1=clr2._bin1,
-                 t2=clr2._bin2, tc=clr2._count,
+        # every tree's Cooler reads its pixels through pixels_chunk; the
+        # counts are integers
+        e1, e2, ec = clr.pixels_chunk(0, clr.n_pixels)
+        t1, t2, tc = clr2.pixels_chunk(0, clr2.n_pixels)
+        np.savez(cache, e1=e1, e2=e2, ec=ec.astype(np.int64),
+                 ew=clr.bins_df()["weight"].to_numpy(), t1=t1, t2=t2,
+                 tc=tc.astype(np.int64),
                  tw=clr2.bins_df()["weight"].to_numpy())
         feats.to_pickle(cache + ".feats.pkl")
         tfeats.to_pickle(cache + ".tfeats.pkl")
@@ -126,6 +131,14 @@ def worker(cache, repeats, cells):
         pu = PileUpper(eclr, cc, control=nshifts > 0, device=dev)
         return pu, pu.pileupsByStrandWithControl()
 
+    def w119_run(f):
+        kw = {k: v for k, v in cs.W119_CELL_KW.items()
+              if k not in ("by_strand", "nshifts")}
+        cc = CoordCreator(f, eclr.binsize,
+                          nshifts=cs.W119_CELL_KW["nshifts"], **kw)
+        pu = PileUpper(eclr, cc, control=True, device=dev)
+        return pu, pu.pileupsByStrandWithControl()
+
     def trans_run(f):
         cc = CoordCreator(f, tclr.binsize, nshifts=0,
                           **cs.MODES_CELLS["trans"])
@@ -136,6 +149,7 @@ def worker(cache, repeats, cells):
     small = tfeats.iloc[list(range(200)) + list(range(n_t, n_t + 200))]
     for cell, run, warm, full in (
         ("engine", engine_run, feats.iloc[:1_000], feats),
+        ("w119", w119_run, feats.iloc[:1_000], feats),
         ("trans", trans_run, small, tfeats),
     ):
         if cell not in cells:
@@ -175,7 +189,7 @@ def main(parent, change, repeats=3, cells="engine,trans"):
         r = json.loads(p.stdout.strip().splitlines()[-1])
         res[side].append(r)
         print(side, json.dumps(r), flush=True)
-    for cell in ("engine", "trans"):
+    for cell in ("engine", "w119", "trans"):
         if cell not in cells.split(","):
             continue
         for side in ("parent", "change"):
