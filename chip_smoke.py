@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port's loop-APA path, its ``pileup()`` engine in
 all its modes, its ``coolpup-torch`` command line tool, its genome-wide
-many-region path and its ``.cool`` reader's fetch path once on one NVIDIA
-GPU.
+many-region path, its ``.cool`` reader's fetch path and its transfer wires
+once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases 4,8,10]
 
@@ -219,7 +219,30 @@ measured). Phases, each printing its lines and, as it ends, its seconds:
    two timed runs with the phases, the busy share of a profiled run and the
    kernel's time over its launches beside its bound.
 
-Phases 5-12 share the engine map (``bench_cooler`` builds it once a run).
+13. the transfer wires (the float16/int8 tile upload, the float16 stripe
+   fetch and the flip-merged accumulator fetch, on by default on the card).
+   (a) ``WIRE_TOY``'s cases, the card against the CPU forced onto the same
+   wire (``_tile_f16_mode`` replaced on the instance): ``"lossy"`` on the
+   balanced toy map, ``"exact"`` unbalanced, int8 (``tile_int8`` on the
+   reference's small-count map) and the COO wire (trans); a spy on
+   ``_tile_wire_plan`` must see the case's mode on both sides; counts
+   exact, ``data`` rtol 1e-5. (b) ``WIRE_CELLS`` on the engine map, wire on
+   against ``F32_WIRE``: the engine cell (``"lossy"``), unbalanced
+   (``"exact"``), int8 (the map's counts clipped to 127), by_window (the
+   float16 accumulator fetch) and stripes (float16 planes); counts exact,
+   ``data`` within rtol 2e-3 / atol 1e-5 on the lossy wires and 1e-4 on the
+   others, stripe planes within 2^-11 or 6e-8. (c) The runs in turns (on,
+   off, off, on; the stripes cell on, off), the first two under the
+   profiler: walls, phases, the copies by direction and the largest one,
+   and the device ms of the wire's passes (expand + normalize from the
+   payload, the flip-merged fetch with and without the cast).
+
+Since phase 13 the card takes the wires by default, so a card run held
+against the CPU or a host oracle passes ``F32_WIRE`` (``wires_off`` for the
+CLI), and both sides of a card-vs-card comparison of a blocked by-window
+run pass ``F32_FETCH``.
+
+Phases 5-13 share the engine map (``bench_cooler`` builds it once a run).
 Any failure raises and exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel JSON
 record, and the one before that the card's name and power limit.
@@ -288,6 +311,14 @@ ENGINE_MODES = {
     "coverage_norm": {"clr_weight_name": None, "coverage_norm": True},
 }
 ENGINE_MODES_TOL = dict(rtol=1e-5, atol=1e-7)
+# the transfer wires off: a card run held against the CPU (which takes no
+# wire) or against a host oracle passes these, since the card takes the
+# float16 tile upload and fetches by default; phase 13 holds the wires
+F32_WIRE = dict(tile_f16=False, stripe_f16=False)
+# the float16 fetches off: both sides of a card-vs-card comparison of a
+# blocked by-window run, whose float32 sums differ by the atomics' order
+# before the flip-merged accumulator fetch rounds them to float16
+F32_FETCH = dict(stripe_f16=False)
 # bench.py --engine (bench_engine): pileup() arguments and warm-up size
 ENGINE_KW = dict(features_format="bed", flank=100_000, maxdist=2_000_000,
                  nshifts=1, seed=0, by_strand=True)
@@ -1397,6 +1428,21 @@ class engine_patch:
             setattr(engine, k, v)
 
 
+class wires_off:
+    """The card's runs in a block take no transfer wire, as the CPU's: for
+    callers that cannot pass ``F32_WIRE`` (the CLI has no flag for it)."""
+
+    MODULE = engine_patch.MODULE
+
+    def __enter__(self):
+        self.cls = importlib.import_module(self.MODULE).PileUpper
+        self.saved = self.cls._on_accelerator
+        self.cls._on_accelerator = lambda pu: False
+
+    def __exit__(self, *exc):
+        self.cls._on_accelerator = self.saved
+
+
 def table_keys(table):
     """A pileup table's row keys: chrom/start/end of a by-window table,
     the group otherwise."""
@@ -1503,7 +1549,7 @@ def check_engine_modes(dev):
     for name in ENGINE_MODES:
         kw = mode_kwargs(name, expected)
         got = pileup(clr, toy_features(), view_df=toy_regions(), device=dev,
-                     **kw)
+                     **kw, **F32_WIRE)
         want = pileup(clr, toy_features(), view_df=toy_regions(),
                       device="cpu", **kw)
         err = compare_tables(got, want, what=f"engine mode {name}",
@@ -1583,7 +1629,7 @@ def check_modes_2d(dev):
         features, kw = mode_2d_inputs(name, trans_expected)
         with engine_patch(**MODE_PATCHES.get(name, {})):
             got = pileup(clr, features, view_df=toy_regions(), device=dev,
-                         **kw)
+                         **kw, **F32_WIRE)
             want = pileup(clr, features, view_df=toy_regions(),
                           device="cpu", **kw)
         err = compare_tables(got, want, what=f"2D mode {name}",
@@ -1706,9 +1752,12 @@ def check_modes(dev, sync, card, shapes=None):
     launches = {}
     for cell, kw in MODES_CELLS.items():
         mclr, f, small = inputs[cell]
+        # by_window's checked and plain-swapped runs fetch float32
+        # accumulators: both sides round to float16 otherwise
+        checked_kw = F32_FETCH if kw.get("by_window") else {}
 
-        def run(f, mclr=mclr, kw=kw):
-            return pileup(mclr, f, device=dev, **kw)
+        def run(f, mclr=mclr, kw=kw, **extra):
+            return pileup(mclr, f, device=dev, **kw, **extra)
 
         t, warm = timed(lambda: run(small), sync)
         print(f"modes {cell} warm-up ({len(small)} rows): "
@@ -1719,8 +1768,8 @@ def check_modes(dev, sync, card, shapes=None):
         gathers = []
         gather = qg.QuadPileupSession.stripes_device
 
-        def recording(self, r1, r2):
-            out = gather(self, r1, r2)
+        def recording(self, r1, r2, f16=False):
+            out = gather(self, r1, r2, f16=f16)
             gathers.append((self, r1, r2, out))
             return out
 
@@ -1729,7 +1778,7 @@ def check_modes(dev, sync, card, shapes=None):
             qg.LAUNCHES = 0
             qg.VARIANT_LAUNCHES.update(staged=0, direct=0)
             with launch_shapes() as called:
-                t, checked = timed(lambda: run(f), sync)
+                t, checked = timed(lambda: run(f, **checked_kw), sync)
             launches[cell] = qg.LAUNCHES
         finally:
             qg.QuadPileupSession.stripes_device = gather
@@ -1749,7 +1798,7 @@ def check_modes(dev, sync, card, shapes=None):
             check_stripe_sample(gathers, row, n_snips)
         del gathers
 
-        plain = plain_swapped(f"modes {cell}", lambda: run(f))
+        plain = plain_swapped(f"modes {cell}", lambda: run(f, **checked_kw))
         err = compare_tables(checked, plain, rtol=ENGINE_RTOL, atol=1e-7,
                              what=f"modes {cell} kernel vs plain")
         print(f"modes {cell} kernel vs plain (whole run): counts exact, data "
@@ -1782,8 +1831,9 @@ def check_modes(dev, sync, card, shapes=None):
 def check_stripe_sample(gathers, row, n_snips):
     """The stripes cell: the stripe rows the card gathered (the chunks of
     one region's session), held against ``stripes_host`` on the fetched
-    stack for a sample of snips, and the table's planes against the
-    gathered rows' count."""
+    stack for a sample of snips (cast to float16 where the rows came back
+    on the float16 stripe wire: bit for bit either way), and the table's
+    planes against the gathered rows' count."""
     from coolpuppy_tpu_torch.ops.quad_gather import stripes_host
 
     if not gathers or len({id(g[0]) for g in gathers}) != 1:
@@ -1800,12 +1850,12 @@ def check_stripe_sample(gathers, row, n_snips):
     pick = np.sort(rng.choice(len(r1), min(STRIPE_SAMPLE, len(r1)),
                               replace=False))
     want = stripes_host(sess.stiles.cpu().numpy(), sess.tile_stack.tile_map,
-                        r1[pick], r2[pick], sess.W)
+                        r1[pick], r2[pick], sess.W).astype(hv.dtype)
     np.testing.assert_array_equal(hv[pick], want,
                                   err_msg="stripes vs stripes_host")
     print(f"modes stripes: {len(pick)} of {len(r1)} stripe rows equal "
-          f"stripes_host on the fetched stack "
-          f"({int(np.isnan(want).sum())} NaN) ok")
+          f"stripes_host on the fetched stack ({hv.dtype} rows, "
+          f"{int(np.isnan(want).sum())} NaN) ok")
 
 
 def engine_snips(pups):
@@ -1940,7 +1990,8 @@ def check_rescale_wide_toy(dev):
         for name in modes:
             features, view, kw = phase7_inputs(group, name, clr, dense,
                                                weights)
-            got = pileup(clr, features, view_df=view, device=dev, **kw)
+            got = pileup(clr, features, view_df=view, device=dev, **kw,
+                         **F32_WIRE)
             want = pileup(clr, features, view_df=view, device="cpu", **kw)
             err = compare_tables(got, want, what=f"{group} mode {name}",
                                  **ENGINE_MODES_TOL)
@@ -2174,7 +2225,7 @@ def check_rescale_cell(dev, sync, card, workload=None):
         sub = feats.iloc[:RESCALE_ORACLE_TADS]
         t, want = timed(lambda: rescale_host_oracle(
             clr, sub, R, expected=kw.get("expected_df")), lambda: None)
-        err, n_fin = check_oracle(run(sub, **kw), want, what)
+        err, n_fin = check_oracle(run(sub, **kw, **F32_WIRE), want, what)
         print(f"{what} vs the host loop ({len(sub)} TADs, {t:.1f} s): "
               f"count and mean within rtol {ORACLE_RTOL}, {n_fin} finite "
               f"pixels, max_abs_err {err:.3g} ok")
@@ -2304,8 +2355,8 @@ def check_w119_cell(dev, sync, card, shapes=None, workload=None):
     print(f"w119 workload: {clr.n_bins} bins, {clr.n_pixels} pixels, "
           f"{len(feats)} sites, W {W} in {t:.1f} s")
 
-    def run(f, device=dev):
-        return pileup(clr, f, device=device, **W119_CELL_KW)
+    def run(f, device=dev, **extra):
+        return pileup(clr, f, device=device, **W119_CELL_KW, **extra)
 
     def since():
         return f"(at {time.perf_counter() - t0:.1f} s)"
@@ -2346,7 +2397,7 @@ def check_w119_cell(dev, sync, card, shapes=None, workload=None):
     del plain, direct
 
     sub = feats.iloc[:W119_SUBSET_SITES]
-    got = run(sub)
+    got = run(sub, **F32_WIRE)
     t, want = timed(lambda: run(sub, device="cpu"), lambda: None)
     err = compare_tables(got, want, rtol=ENGINE_RTOL, atol=1e-7,
                          what="w119 subset card vs cpu")
@@ -2466,7 +2517,8 @@ def hook_mode_table(name, clr, dense, weights, device):
         pu_kw["expected"] = toy_expected(clr, dense, weights, toy_regions())
     cc = CoordCreator(features, clr.binsize, **cc_kw)
     pu = PileUpper(clr, cc, view_df=toy_regions(),
-                   control=cc_kw["nshifts"] > 0, device=device, **pu_kw)
+                   control=cc_kw["nshifts"] > 0, device=device, **pu_kw,
+                   **F32_WIRE)
     if spec.get("by_window"):
         return pu.pileupsByWindowWithControl()
     return pu.pileupsWithControl(**hook_run_kwargs(spec.get("run", {})))
@@ -2519,9 +2571,9 @@ def extension_workload(n_big=EXTENSION_SITES[0], n_small=EXTENSION_SITES[1],
     return clr, make_feats(n_big), make_feats(n_small)
 
 
-def extension_run(clr, feats, route, device):
+def extension_run(clr, feats, route, device, **wire):
     """One ``bench_extension`` run of ``route`` ("frame", "batch" or
-    "snip"): ``(PileUpper, table)``."""
+    "snip"), with the wire keywords ``wire``: ``(PileUpper, table)``."""
     from coolpuppy_tpu_torch import CoordCreator, PileUpper
 
     run = {"frame": {"extras": "score1"},
@@ -2530,7 +2582,8 @@ def extension_run(clr, feats, route, device):
            "snip": {"postprocess_snip_func": "center_snip",
                     "extras": "center"}}[route]
     cc = CoordCreator(feats, clr.binsize, **EXTENSION_KW)
-    pu = PileUpper(clr, cc, expected=False, control=False, device=device)
+    pu = PileUpper(clr, cc, expected=False, control=False, device=device,
+                   **wire)
     return pu, pu.pileupsWithControl(**hook_run_kwargs(run))
 
 
@@ -2712,8 +2765,9 @@ def check_extension(dev, sync, card, shapes=None, workload=None):
             rec = shape_record(what, calls, prof["kernel_ms"], launches, card)
             if shapes is not None:
                 shapes["extension_frame_column"] = rec
-    # the same sites through the three routes
-    small = extension_run(clr, feats_small, "frame", dev)[1]
+    # the same sites through the three routes (the hook routes upload
+    # float32, so the kernel route's run does too)
+    small = extension_run(clr, feats_small, "frame", dev, **F32_WIRE)[1]
     ns = {r: int(all_row(t)["n"]) for r, t in tables.items() if r != "frame"}
     ns["frame"] = int(all_row(small)["n"])
     if len(set(ns.values())) != 1:
@@ -2770,22 +2824,24 @@ def check_bedpe_by_window(dev, sync, card, clr, shapes=None, n_sites=None):
           f"within {BEDPE_WINDOW_KW['maxdist']} bp")
     what = "bedpe by-window"
 
-    def run_timed(rows=bedpe):
+    def run_timed(rows=bedpe, **wire):
         cc = CoordCreator(rows, clr.binsize, features_format="bedpe",
                           nshifts=0, **BEDPE_WINDOW_KW)
-        pu = PileUpper(clr, cc, device=dev)
+        pu = PileUpper(clr, cc, device=dev, **wire)
         return pu, pu.pileupsByWindowWithControl()
 
     t, (_, warm) = timed(lambda: run_timed(bedpe.iloc[:10_000]), sync)
     print(f"{what} warm-up (10000 rows): {int(all_row(warm)['n'])} snips in "
           f"{t:.2f} s")
-    checked, launches, calls, t = kernel_run(what, lambda: run_timed()[1],
-                                             dev)
+    # the checked, plain-swapped and dual-anchor runs fetch float32
+    # accumulators (F32_FETCH): their sums differ by the atomics' order
+    checked, launches, calls, t = kernel_run(
+        what, lambda: run_timed(**F32_FETCH)[1], dev)
     n_snips = int(all_row(checked)["n"])
     print(f"{what} checked run: {n_snips} snips, {len(checked)} rows, "
           f"launches {launches}, route {checked['accumulate'].iloc[0]}, "
           f"{t:.2f} s")
-    plain = plain_swapped(what, lambda: run_timed()[1])
+    plain = plain_swapped(what, lambda: run_timed(**F32_FETCH)[1])
     err = compare_tables(checked, plain, rtol=ENGINE_RTOL, atol=1e-7,
                          what=f"{what} kernel vs plain")
     print(f"{what} kernel vs plain (whole run, {len(plain)} rows): windows, "
@@ -2794,7 +2850,7 @@ def check_bedpe_by_window(dev, sync, card, clr, shapes=None, n_sites=None):
     del plain
     t, dual = timed(lambda: pileup(clr, feats, features_format="bed",
                                    by_window=True, device=dev,
-                                   **BEDPE_WINDOW_KW), sync)
+                                   **BEDPE_WINDOW_KW, **F32_FETCH), sync)
     err = compare_tables(checked, dual, rtol=ENGINE_RTOL, atol=1e-7,
                          what=f"{what} vs the BED dual-anchor run")
     print(f"{what} vs the BED dual-anchor run over the same pairs "
@@ -2937,8 +2993,9 @@ def check_cli_toy(dev):
                 print(f"cli {name}: refused on both devices "
                       f"({CLI_REFUSED[name]!r}) ok")
                 continue
-            got, got_name = cli_pileup(argv + ["--device", str(dev)], clr,
-                                       paths["bed"])
+            with wires_off():
+                got, got_name = cli_pileup(argv + ["--device", str(dev)],
+                                           clr, paths["bed"])
             want, want_name = cli_pileup(argv + ["--device", "cpu"], clr,
                                          paths["bed"])
             err = compare_tables(got, want, what=f"cli {name}",
@@ -3549,7 +3606,7 @@ def mesh_mode_run(name, maps, device, mesh=None):
         feats = toy_bedpe()
     with engine_patch(**spec.get("patch", {})), last_upper() as cap:
         table = pileup(clr, feats, view_df=view, device=device, mesh=mesh,
-                       **kw)
+                       **kw, **F32_WIRE)
     return cap.pu, table
 
 
@@ -4224,13 +4281,17 @@ def check_fuzz(dev, sync, card, workload=None, scale=FUZZ_ENGINE,
         # on its Cooler is reused by the next, whatever its min_diag
         reader = Cooler(CountingStore(clr.store))
 
-        def run(f, device=dev):
-            return pileup(reader, f, device=device, **kw)
+        # a by-window case's checked and plain-swapped runs fetch float32
+        # accumulators (F32_FETCH); the CPU subset's card run takes no wire
+        fetch = F32_FETCH if kw.get("by_window") else {}
+
+        def run(f, device=dev, **extra):
+            return pileup(reader, f, device=device, **kw, **extra)
 
         qg.LAUNCHES = 0
         qg.VARIANT_LAUNCHES.update(staged=0, direct=0)
         with fetch_log(reader) as log:
-            t, checked = timed(lambda: run(feats), sync)
+            t, checked = timed(lambda: run(feats, **fetch), sync)
         n = launches[seed] = qg.LAUNCHES
         route = checked["accumulate"].iloc[0]
         if "cuda_kernel" in route:
@@ -4242,12 +4303,12 @@ def check_fuzz(dev, sync, card, workload=None, scale=FUZZ_ENGINE,
             raise AssertionError(f"fuzz {seed}: route {route!r} but {n} "
                                  "launches")
         per_fetch = fetch_spans(reader, log.fetches)
-        plain = plain_swapped(f"fuzz {seed}", lambda: run(feats),
+        plain = plain_swapped(f"fuzz {seed}", lambda: run(feats, **fetch),
                               route.replace("cuda_kernel", "plain"))
         err = compare_tables(checked, plain, what=f"fuzz {seed} vs plain",
                              stripe_tol=FUZZ_TOL, **FUZZ_TOL)
         sub = feats.iloc[:FUZZ_CPU_SITES]
-        sub_err = compare_tables(run(sub), run(sub, device="cpu"),
+        sub_err = compare_tables(run(sub, **F32_WIRE), run(sub, device="cpu"),
                                  what=f"fuzz {seed} subset card vs cpu",
                                  **ENGINE_MODES_TOL)
         print(f"fuzz {seed}: {fuzz_flags(kw)}; {len(feats)} features, "
@@ -4320,6 +4381,437 @@ def check_by_distance(dev, sync, card, shapes=None, workload=None):
     return launches
 
 
+# -- phase 13: the transfer wires ---------------------------------------------
+
+# 13a: each wire on the toy maps, the card against the CPU forced onto the
+# same wire (``_tile_f16_mode`` replaced on the instance, as the reference's
+# own tests force it, tests/test_pallas_modes.py:242-261); ``mode`` is what
+# ``_tile_wire_plan`` must return on both sides, ``coo`` that the stack goes
+# over the COO wire
+WIRE_TOY = {
+    "lossy": dict(mode="lossy"),
+    "exact": dict(mode="exact", pu=dict(clr_weight_name=None)),
+    "int8": dict(mode="int8", map="small_counts"),
+    "coo_trans": dict(mode="lossy", cc=dict(trans=True), coo=True),
+}
+# 13b: the full-size cells on the engine map (its 20,000 sites), wire on
+# (the default) against off (F32_WIRE): keywords, the map ("int8": the
+# engine map's counts clipped to 127), the plan's mode and the tolerance of
+# ``data`` (the lossy wires: the reference's own bound for them,
+# tests/test_pallas_modes.py:258-261; "exact" and int8: rtol 1e-4, the
+# atomics' order); stripe planes within float16's half ulp (2^-11) or
+# atol 6e-8 (its subnormals)
+LOSSY_TOL = dict(rtol=2e-3, atol=1e-5)
+WIRE_STRIPE_TOL = dict(rtol=2.0 ** -11, atol=6e-8)
+WIRE_CELLS = {
+    "engine": dict(kw=ENGINE_KW, mode="lossy", tol=LOSSY_TOL),
+    "unbalanced": dict(kw=dict(ENGINE_KW, clr_weight_name=None),
+                       mode="exact", tol=dict(rtol=1e-4, atol=1e-7)),
+    "int8": dict(kw=ENGINE_KW, mode="int8", map="int8",
+                 tol=dict(rtol=1e-4, atol=1e-7)),
+    "by_window": dict(kw=MODES_CELLS["by_window"], mode="lossy",
+                      tol=LOSSY_TOL, k9=True),
+    "stripes": dict(kw=MODES_CELLS["stripes"], mode="lossy", tol=LOSSY_TOL,
+                    stripe_tol=WIRE_STRIPE_TOL),
+}
+# 13c: cells timed twice more (off, on) after 13b's profiled on and off
+WIRE_TIMED = ("engine", "unbalanced", "int8", "by_window")
+
+
+def small_counts_map(seed=23):
+    """The reference's int8 test map (tests/test_pallas.py:591-622) in
+    memory: 60 bins of 1 Mb on one chromosome, Poisson counts <= 127, 5%
+    NaN-weight bins, 12 stranded sites; ``counts_are_int`` set (an
+    in-memory map takes the int8 wire only where a caller sets it).
+    Returns ``(Cooler, features)``."""
+    import pandas as pd
+
+    from coolpuppy_tpu_torch import Cooler
+
+    rng = np.random.default_rng(seed)
+    binsize, n = 1_000_000, 60
+    i, j = np.triu_indices(n)
+    vals = rng.poisson(10.0 / (1.0 + np.abs(i - j)) + 0.5)
+    keep = vals > 0
+    weights = rng.uniform(0.5, 1.5, n)
+    weights[rng.random(n) < 0.05] = np.nan
+    clr = Cooler.from_arrays({"chrT": n * binsize}, binsize,
+                             (i[keep], j[keep], vals[keep]), weights=weights)
+    clr.counts_are_int = True
+    starts = np.sort(rng.choice(np.arange(5, n - 5), 12, replace=False))
+    feats = pd.DataFrame({
+        "chrom": "chrT", "start": starts * binsize,
+        "end": (starts + 1) * binsize, "name": "x", "score": 0,
+        "strand": rng.choice(["+", "-"], 12),
+    })
+    return clr, feats
+
+
+def int8_map(clr):
+    """The engine map with each pixel's count (its stored entries summed)
+    clipped to 127, an integer the int8 wire ships exactly; the same
+    weights, ``counts_are_int`` set."""
+    from coolpuppy_tpu_torch import Cooler
+
+    b1, b2, count = clr.pixels_chunk(0, clr.n_pixels)
+    key, inv = np.unique(b1.astype(np.int64) * clr.n_bins + b2,
+                         return_inverse=True)
+    count = np.minimum(np.bincount(inv, weights=count), 127).astype(np.int64)
+    out = Cooler.from_arrays(clr.chromsizes, clr.binsize,
+                             (key // clr.n_bins, key % clr.n_bins, count),
+                             weights=clr.bins_df()["weight"].to_numpy())
+    out.counts_are_int = True
+    return out
+
+
+class wire_spy:
+    """What the wires did in a block: the modes ``_tile_wire_plan``
+    returned (``plans``), the dtype each tile upload shipped (``uploads``),
+    the COO wire's ``f16_mode`` per build (``coo``), the ``f16`` of each
+    flip-merged accumulator fetch (``merges``) and the dtypes of the stripe
+    gathers (``stripes``). It keeps the largest ``normalized_stack`` call
+    (``stack_call``) and the first fetch's arguments (``merge_call``) for
+    ``wire_pass_ms``. ``int8`` sets ``tile_int8`` on every PileUpper;
+    ``forced`` makes every PileUpper take the card's wires (a CPU
+    rehearsal)."""
+
+    def __init__(self, int8=False, forced=False):
+        self.int8, self.forced = int8, forced
+
+    def __enter__(self):
+        from coolpuppy_tpu_torch.ops import tiles
+
+        eng = importlib.import_module(engine_patch.MODULE)
+        qg = importlib.import_module("coolpuppy_tpu_torch.ops.quad_gather")
+        self.plans, self.uploads, self.coo = [], [], []
+        self.merges, self.stripes = [], set()
+        self.stack_call = self.merge_call = None
+        saved = self.saved = []
+
+        def patch(obj, name, new):
+            saved.append((obj, name, obj.__dict__.get(name, saved)))
+            setattr(obj, name, new)
+
+        plan, upload, norm = (eng.PileUpper._tile_wire_plan,
+                              tiles.upload_tiles, tiles.normalized_stack)
+        coo, merge = eng.build_tile_stack_coo, eng._stack_merge_fetch
+        gather = qg.QuadPileupSession.stripes_device
+
+        def plan_spy(pu, dev):
+            out = plan(pu, dev)
+            self.plans.append(out[0])
+            return out
+
+        def upload_spy(a, f16_mode, device):
+            out = upload(a, f16_mode, device)
+            self.uploads.append(str(out[0].dtype).replace("torch.", ""))
+            return out
+
+        def norm_spy(ts, *args, **kw):
+            k = ts.n_tiles
+            if self.stack_call is None or k > self.stack_call[0].n_tiles:
+                self.stack_call = (ts, args, kw)
+            return norm(ts, *args, **kw)
+
+        def coo_spy(slab, B, want, f16_mode=False):
+            self.coo.append(f16_mode)
+            return coo(slab, B, want, f16_mode=f16_mode)
+
+        def merge_spy(outs, half, **kw):
+            self.merges.append(bool(kw.get("f16")))
+            if self.merge_call is None:
+                self.merge_call = (outs, half, kw)
+            return merge(outs, half, **kw)
+
+        def gather_spy(sess, r1, r2, f16=False):
+            out = gather(sess, r1, r2, f16=f16)
+            self.stripes.add(str(out.dtype).replace("torch.", ""))
+            return out
+
+        patch(eng.PileUpper, "_tile_wire_plan", plan_spy)
+        patch(tiles, "upload_tiles", upload_spy)
+        patch(tiles, "normalized_stack", norm_spy)
+        patch(eng, "build_tile_stack_coo", coo_spy)
+        patch(eng, "_stack_merge_fetch", merge_spy)
+        patch(qg.QuadPileupSession, "stripes_device", gather_spy)
+        if self.int8:
+            patch(eng.PileUpper, "tile_int8", True)
+        if self.forced:
+            patch(eng.PileUpper, "_on_accelerator", lambda pu: True)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, old in reversed(self.saved):
+            if old is self.saved:  # the attribute was not there
+                delattr(obj, name)
+            else:
+                setattr(obj, name, old)
+
+    def line(self):
+        def kinds(a):
+            return sorted(set(map(str, a)))
+
+        return (f"plans {kinds(self.plans)}, uploads {kinds(self.uploads)}, "
+                f"coo {kinds(self.coo)}, f16 fetches "
+                f"{self.merges.count(True)} of {len(self.merges)}, stripes "
+                f"{sorted(self.stripes)}")
+
+
+def wire_toy_run(name, device, force):
+    """One WIRE_TOY case on ``device``: ``(table, wire_spy)``; ``force``
+    replaces ``_tile_f16_mode`` on the instance with the case's mode (the
+    int8 case forces "lossy", from which the plan takes int8)."""
+    from coolpuppy_tpu_torch import CoordCreator, PileUpper
+
+    spec = WIRE_TOY[name]
+    if spec.get("map") == "small_counts":
+        clr, feats = small_counts_map()
+        view, flank = None, 3_000_000
+    else:
+        clr, feats, view, flank = (toy_cooler()[0], toy_features(),
+                                   toy_regions(), TOY_KW["flank"])
+    cc = CoordCreator(feats, clr.binsize, features_format="bed", flank=flank,
+                      mindist=0, nshifts=0, seed=0, **spec.get("cc", {}))
+    pu = PileUpper(clr, cc, view_df=view, control=False, device=device,
+                   **spec.get("pu", {}))
+    if force:
+        mode = "lossy" if spec["mode"] == "int8" else spec["mode"]
+        pu._tile_f16_mode = lambda: mode
+    with wire_spy(int8=spec["mode"] == "int8") as spy:
+        table = pu.pileupsWithControl()
+    return table, spy
+
+
+def check_wires_toy(dev):
+    """Phase 13a: every WIRE_TOY case on ``dev`` (its own wire on the
+    card; forced where ``dev`` is the CPU) against the CPU forced onto the
+    same wire: the plan's mode on both sides, the COO wire where asked,
+    counts exact, ``data`` within rtol 1e-5."""
+    for name, spec in WIRE_TOY.items():
+        got, gspy = wire_toy_run(name, dev, force=dev.type != "cuda")
+        want, wspy = wire_toy_run(name, "cpu", force=True)
+        what = f"wire toy {name}"
+        for side, spy in (("card", gspy), ("cpu", wspy)):
+            if not spy.plans or set(spy.plans) != {spec["mode"]}:
+                raise AssertionError(f"{what}: {side} plans {spy.plans}")
+            if spec.get("coo") and set(spy.coo) != {spec["mode"]}:
+                raise AssertionError(f"{what}: {side} COO builds {spy.coo}")
+        if sorted(gspy.uploads) != sorted(wspy.uploads):
+            raise AssertionError(f"{what}: uploads {gspy.uploads} on the "
+                                 f"card, {wspy.uploads} on the CPU")
+        err = compare_tables(got, want, what=what, **ENGINE_MODES_TOL)
+        print(f"{what}: {len(got)} rows, n {list(got['n'])}; card "
+              f"{gspy.line()}; the CPU's the same; max_abs_err {err:.3g} "
+              f"(rtol {ENGINE_MODES_TOL['rtol']}) ok")
+
+
+def device_split(fn, sync, dev):
+    """``fn()`` once under ``torch.profiler`` (device activity only; its
+    chrome trace read back): ``(out, wall_s, info)`` with ``info`` the
+    device ms of kernels and of copies, the copies' count, bytes and ms by
+    direction and the largest copy; ``info`` is None where ``dev`` is not a
+    card or the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if dev.type != "cuda":
+        t, out = timed(fn, sync)
+        return out, t, None
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    info = dict(kernel_ms=0.0, copy_ms=0.0, largest=None, big=[],
+                HtoD=[0, 0, 0.0], DtoH=[0, 0, 0.0], DtoD=[0, 0, 0.0])
+    for e in events:
+        cat, ms = e.get("cat", ""), float(e.get("dur", 0.0)) / 1e3
+        if cat == "kernel":
+            info["kernel_ms"] += ms
+        elif cat == "gpu_memcpy":
+            name = e.get("name", "")
+            nbytes = int((e.get("args") or {}).get("bytes", 0))
+            info["copy_ms"] += ms
+            for d in ("HtoD", "DtoH", "DtoD"):
+                if d in name:
+                    acc = info[d]
+                    acc[0] += 1
+                    acc[1] += nbytes
+                    acc[2] += ms
+            if info["largest"] is None or ms > info["largest"][2]:
+                info["largest"] = (name, nbytes, ms)
+            info["big"].append((nbytes, ms, name))
+    if info["kernel_ms"] + info["copy_ms"] <= 0:
+        return out, wall, None
+    return out, wall, info
+
+
+def split_line(info):
+    if info is None:
+        return "device split not measured"
+    big = info["largest"]
+    dirs = ", ".join(f"{d} {n} copies {b} bytes {ms:.3f} ms"
+                     for d in ("HtoD", "DtoH")
+                     for n, b, ms in [info[d]])
+    most = sorted(info["big"], reverse=True)[:4]
+    return (f"kernels {info['kernel_ms']:.3f} ms, copies "
+            f"{info['copy_ms']:.3f} ms ({dirs}); largest copy: "
+            + (f"{big[0]} {big[1]} bytes {big[2]:.3f} ms" if big else "none")
+            + "; most bytes: " + ", ".join(
+                f"{name} {b} bytes {ms:.3f} ms" for b, ms, name in most))
+
+
+def pass_split(fn, sync, dev):
+    """``fn`` once untimed (its first call allocates), then under the
+    profiler (``device_split``): ``(info, text)``, with the time between
+    CUDA events around a third call as ``text`` where the profiler saw no
+    device time (short traces have come back empty on the card)."""
+    fn()
+    sync()
+    info = device_split(fn, sync, dev)[2]
+    if info is not None:
+        return info, None
+    return None, (f"{event_ms(fn, sync):.3f} ms between CUDA events (the "
+                  "profiler saw no device time)")
+
+
+def wire_pass_ms(spy, sync, dev):
+    """The device ms of the wire's torch passes on the inputs ``spy`` kept
+    from the run, each beside its float32 twin (``pass_split``): the
+    largest stack's expansion + normalization from an already uploaded
+    payload (the upconvert × inv, and the weight fold of the int8 wire),
+    and the first flip-merged accumulator fetch with and without the
+    float16 cast (kernels: merge + scale + cast; copies: the DtoH). Lines,
+    or "not measured" off the card."""
+    from coolpuppy_tpu_torch.ops import tiles
+
+    if dev.type != "cuda":
+        return ["not measured (no card)"]
+    lines = []
+    if spy.stack_call is not None:
+        ts, args, kw = spy.stack_call
+        raw = ts.upper if hasattr(ts, "upper") else getattr(ts, "tiles", None)
+        for mode in ((kw.get("f16_mode"), False) if raw is not None
+                     else ()):
+            payload = tiles.upload_tiles(raw, mode, dev)
+            run_kw = dict(kw, f16_mode=mode,
+                          fold_weights=kw.get("fold_weights") and bool(mode))
+            saved = tiles.upload_tiles
+            tiles.upload_tiles = lambda *a, p=payload: p
+            try:
+                info, text = pass_split(
+                    lambda: tiles.normalized_stack(ts, *args, **run_kw),
+                    sync, dev)
+            finally:
+                tiles.upload_tiles = saved
+            lines.append(
+                f"expand + normalize of {ts.n_tiles + 1} tiles from a "
+                f"{str(payload[0].dtype).replace('torch.', '')} payload "
+                f"(fold {bool(run_kw['fold_weights'])}): "
+                + (text or f"{info['kernel_ms']:.3f} ms of kernels"))
+    if spy.merge_call is not None:
+        eng = importlib.import_module(engine_patch.MODULE)
+        outs, half, kw = spy.merge_call
+        for f16 in (True, False):
+            info, text = pass_split(
+                lambda: eng._stack_merge_materialize(eng._stack_merge_fetch(
+                    outs, half, **dict(kw, f16=f16))), sync, dev)
+            lines.append(
+                f"flip-merged fetch of {tuple(outs[0]['sum'].shape)} x "
+                f"{len(outs)} block(s), f16 {f16}: "
+                + (text or split_line(info)))
+    return lines
+
+
+def check_wires(dev, sync, card, workload=None):
+    """Phase 13b/13c: every WIRE_CELLS cell on the engine map, wire on (the
+    default) against off (``F32_WIRE``), each run under the profiler with
+    the launch counts set to 0 just before it and read just after: the
+    plan's mode (spy), the wires taken (f16 fetches in by_window, float16
+    stripe gathers in stripes), ``n``, ``control_n`` and ``num`` exact,
+    ``data`` within the cell's tolerance, stripe planes within
+    WIRE_STRIPE_TOL with NaN and inf positions equal; then, for the cells
+    of WIRE_TIMED, an off and an on run more (turns on, off, off, on) with
+    the walls and phases, the copies by direction and the largest one, and
+    the wire's passes (``wire_pass_ms``). Returns the on runs' launches by
+    cell."""
+    import coolpuppy_tpu_torch.ops.quad_gather as qg
+    from coolpuppy_tpu_torch import pileup
+
+    t, (clr, feats) = timed(workload or engine_workload, lambda: None)
+    t8, clr8 = timed(lambda: int8_map(clr), lambda: None)
+    print(f"wire cells: the engine map ({clr.n_bins} bins, {clr.n_pixels} "
+          f"pixels, {len(feats)} sites, {t:.1f} s), its counts clipped to "
+          f"127 for int8 ({t8:.1f} s); on {card}")
+    forced = dev.type != "cuda"
+    launches = {}
+    for cell, spec in WIRE_CELLS.items():
+        mclr = clr8 if spec.get("map") == "int8" else clr
+        int8 = spec["mode"] == "int8"
+
+        def run(wire, mclr=mclr, spec=spec, int8=int8):
+            with wire_spy(int8=int8, forced=forced) as spy, \
+                    last_upper() as cap:
+                table = pileup(mclr, feats, device=dev, **spec["kw"],
+                               **wire)
+            return table, cap.pu, spy
+
+        runs = []
+        for turn, wire in (("on", {}), ("off", F32_WIRE)):
+            qg.LAUNCHES = 0
+            out, wall, info = device_split(lambda: run(wire), sync, dev)
+            runs.append((turn, wall, out, info, qg.LAUNCHES))
+        (_, _, (on, pu_on, spy), on_info, n_on), \
+            (_, _, (off, _, off_spy), _, n_off) = runs
+        what = f"wire {cell}"
+        if n_on < 1 or on["accumulate"].iloc[0] != \
+                off["accumulate"].iloc[0]:
+            raise AssertionError(f"{what}: {n_on} launches, routes "
+                                 f"{on['accumulate'].iloc[0]} / "
+                                 f"{off['accumulate'].iloc[0]}")
+        launches[cell] = n_on
+        if not spy.plans or set(spy.plans) != {spec["mode"]} or \
+                set(off_spy.plans) != {False}:
+            raise AssertionError(f"{what}: plans {spy.plans} on, "
+                                 f"{off_spy.plans} off")
+        if spec.get("k9") and (not spy.merges or not all(spy.merges)
+                               or any(off_spy.merges)):
+            raise AssertionError(f"{what}: f16 fetches {spy.merges} on, "
+                                 f"{off_spy.merges} off")
+        if spec.get("stripe_tol") and (spy.stripes != {"float16"}
+                                       or off_spy.stripes != {"float32"}):
+            raise AssertionError(f"{what}: stripe gathers {spy.stripes} on,"
+                                 f" {off_spy.stripes} off")
+        err = compare_tables(on, off, what=f"{what} on vs off",
+                             stripe_tol=spec.get("stripe_tol"),
+                             **spec["tol"])
+        print(f"{what} on vs off: {len(on)} rows, {table_snips(on)} snips, "
+              f"{n_on} launches; on: {spy.line()}; counts exact, data "
+              f"max_abs_err {err:.3g} (rtol {spec['tol']['rtol']}"
+              + (", stripes rtol 2^-11 / atol 6e-8" if spec.get("stripe_tol")
+                 else "") + ") ok")
+        if cell in WIRE_TIMED:
+            for turn, wire in (("off", F32_WIRE), ("on", {})):
+                wall, (table, pu, _) = timed(lambda: run(wire), sync)
+                runs.append((turn, wall, (table, pu, None), None, None))
+        for i, (turn, wall, out, info, _) in enumerate(runs):
+            sec = {k: round(v, 4) for k, v in
+                   sorted(out[1].timers.seconds.items())}
+            print(f"{what} run {i + 1} ({turn}"
+                  + (", profiled" if i < 2 and info else "")
+                  + f"): wall {wall:.4f} s on {card}; phases "
+                  f"{json.dumps(sec)}"
+                  + (f"; {split_line(info)}" if i < 2 else ""))
+        for line in wire_pass_ms(spy, sync, dev):
+            print(f"{what} pass: {line} on {card}")
+        del runs, on, off, spy, off_spy, pu_on
+    return launches
+
+
 def openmp_runtimes():
     """The OpenMP runtime libraries mapped into this process."""
     import re
@@ -4330,7 +4822,7 @@ def openmp_runtimes():
             if re.match(r"lib[gi]?omp", os.path.basename(p))}
 
 
-PHASES = (3, 4, 5, 6, 7, 8, 9, 10, 11, 12)
+PHASES = (3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13)
 
 
 def parse_phases(argv):
@@ -4513,6 +5005,12 @@ def main(argv=None):
                                              record["shapes"]),
         }
         phase_done(12)
+
+    # -- 13. the transfer wires: toy cases, the full-size cells, times ----
+    if 13 in phases:
+        check_wires_toy(dev)
+        record["wire_launches"] = check_wires(dev, sync, card)
+        phase_done(13)
 
     # -- result -----------------------------------------------------------
     print(card)

@@ -28,6 +28,16 @@ made, and every ``_STREAM_CHUNK`` snips are quad-sorted and launched as soon
 as they exist. A window off the predicate or more groups than the stream's
 bank send the region to the collected path above, with the same results.
 
+On the card the quad route takes the reference's transfer wires, as the JAX
+package takes them on an accelerator: the raw tiles go up as pow2-scaled
+float16 (``"lossy"`` on balanced maps, ``"exact"`` on raw counts; int8 raw
+counts with the weights folded on the device where ``tile_int8`` is set),
+stripe planes come back as float16, and the accumulators of more groups
+than the reference's pinned bank (by-window) are flip-merged on the device,
+cast to pow2-scaled float16 per key and fetched one flush ahead
+(``_stack_merge_fetch``). ``tile_f16=False`` / ``stripe_f16=False`` turn
+them off; on the CPU every transfer stays float32.
+
 The host finishes with the reference's normalization algebra: division by
 shifted controls or expected, coverage normalization, local symmetrization.
 
@@ -60,8 +70,10 @@ window size, with the reference's four extension hooks.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import itertools
 import logging
+import math
 import os
 import pickle
 import re
@@ -113,6 +125,7 @@ from ..ops.gather import (
 )
 from ..ops.rescale import RescaleConfig, area_resize_host, rescale_accumulate
 from ..ops.tiles import (
+    SymTileStack,
     build_tile_stack_coo,
     build_tile_stack_slab,
     build_tile_stack_slab_sym,
@@ -186,6 +199,81 @@ def _stage_pool():
     return _STAGE_POOL
 
 
+def _stack_merge_fetch(outs, half, f16=False, lazy=False, f16_keys=None):
+    """Stack per-block accumulator dicts (torch tensors [C, W, W], the flip
+    bank at rows [half, 2 * half)), collapse the flip bank ON THE DEVICE
+    (the anti-transpose of rows [half, 2 * half) added to [0, half), the
+    device twin of ``ops/gather.merge_flip_banks``) and fetch once
+    (reference ``engine/pileup.py:96-141``).
+
+    ``f16`` casts each key (of ``f16_keys``, all when None) to float16 with
+    a pow2 scale computed on the device that puts the largest finite |value|
+    near 2^13, as the reference computes it (``floor(log(max) / log(2))``
+    in float32); +inf poison survives the cast. ``lazy`` starts the copies
+    into pinned host buffers and returns the handles for
+    ``_stack_merge_materialize``, so the transfer overlaps later launches.
+    Returns ``{key: (wire, inv_scale or None, copy event or None)}``, or the
+    materialized float64 arrays [nblk, half, W, W] without ``lazy``."""
+    merged = {}
+    for k in outs[0]:
+        v = torch.stack([o[k] for o in outs])
+        lo = v[:, :half]
+        hi = v[:, half : 2 * half].flip((-2, -1)).transpose(-2, -1)
+        m = lo + hi
+        inv = None
+        if f16 and (f16_keys is None or k in f16_keys):
+            fin = torch.where(torch.isfinite(m), m.abs(), 0.0)
+            mx = fin.max()
+            ex = torch.floor(torch.log(torch.clamp(mx, min=1e-30))
+                             / math.log(2.0))
+            # 2^(13 - ex) from its exponent bits: exact on every device
+            e = (13 - ex).clamp(-126, 127).to(torch.int32)
+            bits = (e + 127) << 23
+            scale = torch.where(mx > 0, bits.view(torch.float32).to(m.dtype),
+                                1.0)
+            inv = 1.0 / scale
+            m = (m * scale).to(torch.float16)
+        merged[k] = (m, inv, None)
+    if not lazy:
+        return _stack_merge_materialize(merged)
+    if not any(m.is_cuda for m, _, _ in merged.values()):
+        return merged
+    out = {}
+    for k, (m, inv, _) in merged.items():
+        host = torch.empty(m.shape, dtype=m.dtype, pin_memory=True)
+        host.copy_(m, non_blocking=True)
+        hinv = None
+        if inv is not None:
+            hinv = torch.empty((), dtype=inv.dtype, pin_memory=True)
+            hinv.copy_(inv, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(m.device))
+        out[k] = (host, hinv, done)
+    return out
+
+
+def _stack_merge_materialize(merged):
+    """The float64 host arrays of ``_stack_merge_fetch`` handles: each wire
+    upcast and multiplied by its inverse scale (reference :144-155)."""
+    out = {}
+    for k, (v, inv, done) in merged.items():
+        if done is not None:
+            done.synchronize()
+        a = v.cpu().numpy().astype(np.float64)
+        if inv is not None:
+            a *= float(inv.cpu())
+        out[k] = a
+    return out
+
+
+def _bank_groups(W):
+    """The accumulator bank the reference pins per window tier on an
+    accelerator (reference :1798-1806): past this many groups its
+    ``_pallas_accumulate`` runs in blocks and fetches them flip-merged on the
+    device (``_stack_merge_fetch``), and so does ``_quad_accumulate``."""
+    return 512 if W <= 33 else 128 if W <= 64 else 32
+
+
 class _QuadStream:
     """Single-pass accumulation of one region (the counterpart of the
     reference's ``_PallasStream``, :200-343): the session's tile stack is
@@ -203,18 +291,20 @@ class _QuadStream:
     re-raises from the future. Each ``chunk`` snips are one
     ``run_many`` (one launch of the quad kernel) into groups ``cid + half *
     flip``; the chunks' accumulators are summed on the device and fetched
-    once by ``finish``. ROI snips' stripe planes are gathered per chunk and
+    once by ``finish``. ROI snips' stripe planes are gathered per chunk
+    (as float16 with ``stripe_f16``, the reference's stripe wire) and
     copied to pinned host buffers without blocking, an event each, which
     ``stripe_planes`` waits on."""
 
     def __init__(self, future, half, chunk, device, stripes=False,
-                 timers=None):
+                 timers=None, stripe_f16=False):
         self._fut = future
         self.session = None
         self.half = half
         self.chunk = chunk
         self.device = device
         self.stripes = stripes
+        self.stripe_f16 = stripe_f16
         self.timers = timers
         self.chunks = 0
         self._bufs = {"r1": [], "r2": [], "cid": []}
@@ -267,7 +357,8 @@ class _QuadStream:
 
     def _dispatch_stripes(self, n):
         take = _take(self._sbufs, n)
-        hv = self.session.stripes_device(take["r1"], take["r2"])
+        hv = self.session.stripes_device(take["r1"], take["r2"],
+                                         f16=self.stripe_f16)
         if self.device.type != "cuda":
             self._stripe_parts.append((hv, None))
             return
@@ -294,7 +385,8 @@ class _QuadStream:
 
     def stripe_planes(self):
         """The streamed ROI stripe planes in stream order, float32 numpy
-        ``(horizontal [n, W], vertical [n, W] unreversed)``."""
+        ``(horizontal [n, W], vertical [n, W] unreversed)``; float16 planes
+        are upcast here."""
         W = self.session.W
         parts = []
         for host, done in self._stripe_parts:
@@ -303,6 +395,7 @@ class _QuadStream:
             parts.append(host.numpy())
         hv = np.concatenate(parts) if parts else np.zeros((0, 2 * W),
                                                           np.float32)
+        hv = hv.astype(np.float32, copy=False)
         return hv[:, :W], hv[:, W:]
 
     def discard(self):
@@ -466,11 +559,24 @@ class PileUpper:
     the plain PyTorch version). ``mesh`` is None, ``"auto"`` (every CUDA
     device, ``parallel.make_loci_mesh``) or a ``parallel.LociMesh``, whose
     devices must be of ``device``'s type; results then land on its first
-    device. ``tile_f16`` and
-    ``stripe_f16`` (the reference's f16 wires) are accepted, ignored — the
-    port ships float32 — and recorded as ignored in the output.
+    device.
+
+    ``tile_f16`` and ``stripe_f16`` are the reference's transfer wires,
+    taken where the JAX package takes them on an accelerator. On ``cuda``,
+    ``tile_f16=True`` uploads the quad route's raw tiles as pow2-scaled
+    float16: ``"lossy"`` on balanced maps (at most 2^-11 relative error a
+    value), ``"exact"`` on raw counts (float32 where the round trip is not
+    exact); with the attribute ``tile_int8 = True`` set on the instance, a
+    cis region of a map whose stored counts are integers
+    (``Cooler.counts_are_int``) in [0, 127] ships them as int8 and folds
+    the balancing weights on the device. ``stripe_f16=True`` fetches the
+    stripe planes as float16 and the flip-merged accumulators of more
+    groups than the reference's pinned bank (by-window) as pow2-scaled
+    float16 (``num`` only where no group holds more than 2048 snips), on
+    balanced or OOE-divided values only. ``False`` turns a wire off. On
+    ``cpu`` every transfer is float32 whatever the flags.
     ``chunk_size`` and ``tile_size`` are accepted and unused, as in the
-    JAX package."""
+    JAX package, and recorded in the output's ``ignored`` column."""
 
     def __init__(
         self,
@@ -560,6 +666,8 @@ class PileUpper:
         self.store_stripes = store_stripes
         self.stripe_f16 = stripe_f16
         self.tile_f16 = tile_f16
+        self.chunk_size = int(chunk_size)
+        self.tile_size = tile_size
         self.nproc = nproc
         self.checkpoint_dir = checkpoint_dir
         self.trace_dir = trace_dir
@@ -723,6 +831,16 @@ class PileUpper:
         valid2 = padded(
             (~self.clr.bad_bin_mask(r2c, self.clr_weight_name)).astype(np.float32)
         )
+        # the cleaned balancing weights (0 at bad bins) replace the 0/1
+        # valid vectors on the int8 wire (``_tile_wire_plan``), whose
+        # device normalization folds them; only that wire reads them
+        w1 = w2 = None
+        if self.clr_weight_name and getattr(self, "tile_int8", False):
+            wall = self.clr._clean_weights(self.clr_weight_name)
+            lo1g, hi1g = self.clr.extent(r1c)
+            lo2g, hi2g = self.clr.extent(r2c)
+            w1 = padded(wall[lo1g:hi1g])
+            w2 = padded(wall[lo2g:hi2g])
         if self.coverage_norm:
             cov1 = padded(
                 self.clr.bins()[self.coverage_norm].fetch(r1c).values
@@ -749,11 +867,74 @@ class PileUpper:
             n2=max2 - min2,
             valid1=valid1,
             valid2=valid2,
+            w1=w1,
+            w2=w2,
             cov1=cov1,
             cov2=cov2,
             evec=evec,
             cis=(not self.trans) and region1 == region2,
         )
+
+    # -- the transfer wires (reference :658-720, :777-780) ------------------
+
+    def _on_accelerator(self):
+        """The reference's accelerator test: the card takes the transfer
+        wires, the CPU keeps every transfer float32 (and every golden
+        exact)."""
+        return self.device.type == "cuda"
+
+    def _stripe_f16_effective(self):
+        """f16 stripe and accumulator fetches only when the values are
+        bounded: balancing weights or expected normalization keep them
+        O(1-100); raw counts on deep maps can pass float16's 65504."""
+        if not bool(getattr(self, "stripe_f16", True)):
+            return False
+        # expected WITHOUT ooe leaves raw counts in the stacks (the
+        # expected plane is emitted separately)
+        return bool(self.clr_weight_name) or bool(self.expected and self.ooe)
+
+    def _fetch_f16(self):
+        """Whether stripe planes and the blocked accumulators come back as
+        float16: ``_stripe_f16_effective`` on the card."""
+        return self._stripe_f16_effective() and self._on_accelerator()
+
+    def _tile_f16_mode(self):
+        """The upload wire of raw tiles (``ops/tiles.cast_tiles_f16``):
+        balanced maps carry O(1) values, where scaled float16's <= 2^-11
+        relative error is below the noise of any pile-up average
+        (``"lossy"``); unbalanced maps carry integer counts, shipped
+        float16 only where the cast round-trips exactly (``"exact"``). The
+        CPU keeps float32."""
+        if not bool(getattr(self, "tile_f16", True)):
+            return False
+        if not self._on_accelerator():
+            return False
+        return "lossy" if self.clr_weight_name else "exact"
+
+    def _tile_wire_plan(self, dev):
+        """The wire mode and the per-bin vectors of a staged region. With
+        the attribute ``tile_int8 = True`` (opt-in), a balanced cis region
+        whose STORED counts are integers (``clr.counts_are_int``) in [0,
+        127] ships raw int8 counts (a quarter of float32) and folds the
+        balancing weights on the device: the weight vectors replace the 0/1
+        valid vectors. Everything else takes ``_tile_f16_mode``. Returns
+        ``(mode, valid1, valid2)``."""
+        mode = self._tile_f16_mode()
+        slab = dev.get("slab")
+        if (
+            getattr(self, "tile_int8", False)
+            and mode == "lossy"
+            and dev.get("w1") is not None
+            and dev.get("cis")
+            and getattr(slab, "mirror", False)
+            and getattr(self.clr, "counts_are_int", False)
+            and slab.nnz > 0
+        ):
+            vmax = float(slab.vals.max())
+            vmin = float(slab.vals.min())
+            if 0.0 <= vmin and vmax <= 127.0:
+                return "int8", dev["w1"], dev["w2"]
+        return mode, dev["valid1"], dev["valid2"]
 
     def _phase(self, name):
         timers = self.timers
@@ -1073,8 +1254,11 @@ class PileUpper:
             elif self.mesh is not None:
                 acc = self._mesh_accumulate(dev, arr, W, G)
             else:
+                raw = (W <= quad_gather.W_MAX
+                       and self._tile_wire_plan(dev)[0] == "int8")
                 with self._phase("tiles"):
-                    tile_stack = self._build_tile_stack(dev, arr, W)
+                    tile_stack = self._build_tile_stack(dev, arr, W,
+                                                        raw_counts=raw)
                 with self._phase("device"):
                     if W > quad_gather.W_MAX:
                         acc = self._generic_accumulate(tile_stack, dev, arr,
@@ -1200,16 +1384,17 @@ class PileUpper:
                     lut[k, u] = ensure_cid(kname, int(u))
         return [lut[isctl, a1], lut[isctl, a2], lut]
 
-    def _build_tile_stack(self, dev, arr, window1, window2=None):
+    def _build_tile_stack(self, dev, arr, window1, window2=None,
+                          raw_counts=False):
         """The B=128 tiles the windows of ``arr`` touch (heights
         ``window1``, widths ``window2``, scalars or per-snip arrays), built
         by ``_build_quad_stack``."""
         return self._build_quad_stack(
-            dev, r1=arr["r1"], r2=arr["r2"], window1=window1,
-            window2=window1 if window2 is None else window2,
+            dev, raw_counts=raw_counts, r1=arr["r1"], r2=arr["r2"],
+            window1=window1, window2=window1 if window2 is None else window2,
         )
 
-    def _build_quad_stack(self, dev, **kw):
+    def _build_quad_stack(self, dev, raw_counts=False, **kw):
         """The region's B=128 tile stack for the predicate in ``kw``
         (``r1``/``r2``/``window1``/``window2``, ``band`` or ``want``; the
         reference's ``_build_pallas_stack``, :725-775): the upper-triangle
@@ -1219,10 +1404,16 @@ class PileUpper:
         place of ``touched_tiles`` over millions of windows; the band holds
         every tile a W×W window can reach); the COO wire for an explicit
         tile set of a rectangle with no mirror whose pixels (an int32 index
-        and a float32 value each) undercut 0.7 of the dense stack's bytes;
-        the dense stack otherwise."""
+        and a float32 value each, or a float16 value on the float16 wire)
+        undercut 0.7 of the dense stack's bytes (4 a pixel, 2 on the
+        float16 wire); the dense stack otherwise. ``raw_counts`` scatters a
+        mirrored cis slab WITHOUT the weight fold (the int8 wire, whose
+        device normalization folds the weights)."""
         B = quad_gather.B_TILE
         slab = dev["slab"]
+        if raw_counts and dev["cis"] and slab.mirror \
+                and slab.weights is not None:
+            slab = dataclasses.replace(slab, weights=None)
         if dev["cis"] and slab.mirror:
             r1 = kw.get("r1")
             if r1 is not None and len(r1) > _BAND_WINDOWS and not self.rescale:
@@ -1233,8 +1424,11 @@ class PileUpper:
             return build_tile_stack_slab_sym(slab, B, **kw)
         want = kw.get("want")
         if want is not None and not slab.mirror:
-            if slab.nnz * 8 < 0.7 * (len(want) + 1) * B * B * 4:
-                return build_tile_stack_coo(slab, B, want)
+            f16 = self._tile_f16_mode()
+            pixel_bytes, tile_bytes = (6, 2) if f16 else (8, 4)
+            if slab.nnz * pixel_bytes < 0.7 * (len(want) + 1) * B * B \
+                    * tile_bytes:
+                return build_tile_stack_coo(slab, B, want, f16_mode=f16)
         return build_tile_stack_slab(slab, B, **kw)
 
     # -- the stream (reference :782-980) ------------------------------------
@@ -1345,16 +1539,21 @@ class PileUpper:
                 worst = np.maximum(np.abs(e1 - t2), np.abs(t1 - e2))
                 return bool((worst <= kband).all())
 
+        wire_mode, wv1, wv2 = self._tile_wire_plan(dev)
+
         def build():
             kw = dict(want=want) if want is not None else dict(band=band_bins)
             with self._phase("tiles"):
-                tile_stack = self._build_quad_stack(dev, **kw)
+                tile_stack = self._build_quad_stack(
+                    dev, raw_counts=wire_mode == "int8", **kw)
             with self._phase("stage"):
                 session = quad_gather.QuadPileupSession(
-                    tile_stack, dev["valid1"], dev["valid2"], dev["evec"],
+                    tile_stack, wv1, wv2, dev["evec"],
                     dict(W=W, capacity=2 * half, cis=dev["cis"],
                          ignore_diags=int(self.ignore_diags),
-                         ooe=bool(self.expected and self.ooe)),
+                         ooe=bool(self.expected and self.ooe),
+                         tile_f16=wire_mode,
+                         fold_weights=wire_mode == "int8"),
                     self.device,
                 )
                 ready = None
@@ -1365,7 +1564,8 @@ class PileUpper:
 
         stream = _QuadStream(_stage_pool().submit(build), half, _STREAM_CHUNK,
                              self.device, stripes=bool(self.store_stripes),
-                             timers=self.timers)
+                             timers=self.timers,
+                             stripe_f16=self._fetch_f16())
         stream.covers = covers
         return stream
 
@@ -1378,18 +1578,27 @@ class PileUpper:
         _block_half(W))``. Up to ``half`` groups, every snip goes into one
         ``quad_gather.quad_accumulate`` call; more groups (by-window) run in
         cid-sorted blocks of ``half`` groups with local ids ``cid - base +
-        half * flip``, one call and one flip merge per block, into a [G, ...]
-        host total. ``QuadPileupSession.run_many`` looks ``quad_accumulate``
-        up in its module at call time, so a caller can count its launches
+        half * flip``, one call a block, into a [G, ...] host total. Where
+        the reference runs in blocks (more than ``_bank_groups(W)``
+        groups), each block is flip-merged on the device and fetched by
+        ``_stack_merge_fetch`` (float16 where ``_fetch_f16``), one block in
+        flight (``_merged_blocks``); otherwise it is fetched in float64 and
+        merged on the host. The session takes the upload wire of
+        ``_tile_wire_plan`` (int8 only on an upper-triangle stack).
+        ``QuadPileupSession.run_many`` looks ``quad_accumulate`` up in its
+        module at call time, so a caller can count its launches
         (``quad_gather.LAUNCHES``) or swap it. Returns flip-merged float64
         accumulators [G, ...] plus the side outputs (``_side_outputs``) and
         the ROI snips' stripe planes, gathered from the session's stack (the
         vertical one reversed, reference coolpup.py:1164–1188)."""
         half = min(_next_pow2(G), _block_half(W))
+        wire_mode, wv1, wv2 = self._tile_wire_plan(dev)
+        raw_wire = wire_mode == "int8" and isinstance(tile_stack,
+                                                      SymTileStack)
         session = quad_gather.QuadPileupSession(
             tile_stack,
-            dev["valid1"],
-            dev["valid2"],
+            wv1 if raw_wire else dev["valid1"],
+            wv2 if raw_wire else dev["valid2"],
             dev["evec"],
             dict(
                 W=W,
@@ -1397,30 +1606,78 @@ class PileUpper:
                 cis=dev["cis"],
                 ignore_diags=int(self.ignore_diags),
                 ooe=bool(self.expected and self.ooe),
+                tile_f16=wire_mode if raw_wire or wire_mode != "int8"
+                else False,
+                fold_weights=raw_wire,
             ),
             self.device,
         )
         launches = quad_gather.LAUNCHES
         out = {}
-        for sel, base, span in _group_blocks(arr["cidl"], G, half):
-            ix = slice(None) if sel is None else sel
-            cid = arr["cidl"][ix] - base + half * arr["flip"][ix]
-            total = session.finalize(
-                [session.run_many(arr["r1"][ix], arr["r2"][ix],
-                                  cid.astype(np.int32), fetch=False)],
-                compact=(span, half),
-            )
-            _put_block(out, merge_flip_banks(total, span), base, G)
+        if G > _bank_groups(W):
+            self._merged_blocks(session, arr, G, half, out)
+        else:
+            for sel, base, span in _group_blocks(arr["cidl"], G, half):
+                ix = slice(None) if sel is None else sel
+                cid = arr["cidl"][ix] - base + half * arr["flip"][ix]
+                total = session.finalize(
+                    [session.run_many(arr["r1"][ix], arr["r2"][ix],
+                                      cid.astype(np.int32), fetch=False)],
+                    compact=(span, half),
+                )
+                _put_block(out, merge_flip_banks(total, span), base, G)
         self._routes.add(
             "cuda_kernel" if quad_gather.LAUNCHES > launches else "plain"
         )
         self._side_outputs(dev, arr, W, G, out)
         if self.store_stripes:
             roi = arr["roi"]
-            hv = session.run_stripes(arr["r1"][roi], arr["r2"][roi])
+            hv = session.run_stripes(arr["r1"][roi], arr["r2"][roi],
+                                     f16=self._fetch_f16())
             out["horizontal_stripe"] = hv[:, :W]
             out["vertical_stripe"] = hv[:, W:][:, ::-1]
         return out
+
+    def _merged_blocks(self, session, arr, G, half, out):
+        """The blocked accumulation of ``_quad_accumulate`` with the
+        reference's by-window fetch (K9, reference :1870-1915): each block's
+        used rows (unflipped and flip bank) are flip-merged on the device by
+        ``_stack_merge_fetch`` and their copies started at once; a block is
+        materialized into ``out`` after the next block has launched, so one
+        fetch is in flight. On the card the merge runs on the kernel's
+        float32 sums and counts (exact: the block's float64 accumulators
+        hold one launch's float32 values), cast to pow2-scaled float16 where
+        ``_fetch_f16``; ``num`` takes the cast only where no group holds more
+        than 2048 snips, so every count stays exact. ``poison`` is the +inf
+        plane of the merged sums."""
+        f16 = self._fetch_f16()
+        keys = frozenset(("sum",))
+        if int(np.bincount(arr["cidl"], minlength=G).max(initial=0)) <= 2048:
+            keys = frozenset(("sum", "num"))
+        pending = []
+
+        def drain():
+            base, span, handles = pending.pop(0)
+            part = {k: v[0] for k, v in
+                    _stack_merge_materialize(handles).items()}
+            part["poison"] = np.isinf(part["sum"]).astype(np.float64)
+            _put_block(out, part, base, G)
+
+        for sel, base, span in _group_blocks(arr["cidl"], G, half):
+            ix = slice(None) if sel is None else sel
+            cid = arr["cidl"][ix] - base + half * arr["flip"][ix]
+            acc = session.run_many(arr["r1"][ix], arr["r2"][ix],
+                                   cid.astype(np.int32), fetch=False)
+            acc = {k: torch.cat([v[:span], v[half : half + span]])
+                   for k, v in acc.items()}
+            if self._on_accelerator():
+                acc = {k: v.to(torch.float32) for k, v in acc.items()}
+            pending.append((base, span, _stack_merge_fetch(
+                (acc,), span, f16=f16, lazy=True, f16_keys=keys)))
+            while len(pending) > 1:
+                drain()
+        while pending:
+            drain()
 
     def _stream_accumulate(self, stream, dev, arr, W, G, launches):
         """Phase 2 of a streamed region: the tail launched, the chunks'
@@ -1441,13 +1698,15 @@ class PileUpper:
             out["vertical_stripe"] = v[:, ::-1]
         return out
 
-    def _device_stack(self, tile_stack, dev):
+    def _device_stack(self, tile_stack, dev, f16_mode=False):
         """The region's normalized stack on ``self.device``
-        (``ops/tiles.normalized_stack``: masked pixels NaN, OOE-divided
-        values) and its tile map as an int64 device tensor."""
+        (``ops/tiles.normalized_stack``, uploaded through the wire of
+        ``f16_mode``: masked pixels NaN, OOE-divided values) and its tile
+        map as an int64 device tensor."""
         stiles = normalized_stack(
             tile_stack, dev["valid1"], dev["valid2"], dev["evec"],
-            self.device, ooe=bool(self.expected and self.ooe),
+            self.device, f16_mode=f16_mode,
+            ooe=bool(self.expected and self.ooe),
             cis=dev["cis"], ignore_diags=int(self.ignore_diags),
         )
         tmap = torch.from_numpy(
@@ -1533,13 +1792,17 @@ class PileUpper:
         extent buckets of at least ``_RESCALE_MIN_BUCKET`` bins, each bucket
         through ``rescale_accumulate`` at Hmax = its extent, in blocks of
         ``_block_half(R)`` groups. Windows are cut from the stack directly
-        (no bucket restack). Returns flip-merged float64 totals [G, R, R]
+        (no bucket restack); off a mesh, an upper-triangle stack uploads
+        through ``_tile_f16_mode``'s wire, as the reference's restack base
+        does (:2274-2284). Returns flip-merged float64 totals [G, R, R]
         (``poison`` all zero) and the ROI snips' stripes. Under a mesh each
         device runs a bucket's step on its copies of the stack and vectors
         over its even shard of the snips
         (``parallel.mesh.sharded_rescale_step``)."""
         R = self.rescale_size
-        stiles, tmap = self._device_stack(tile_stack, dev)
+        wire = self.mesh is None and isinstance(tile_stack, SymTileStack)
+        stiles, tmap = self._device_stack(
+            tile_stack, dev, f16_mode=self._tile_f16_mode() if wire else False)
 
         def upload(a, dtype=torch.int64):
             return torch.from_numpy(np.asarray(a)).to(self.device, dtype)
@@ -1753,7 +2016,8 @@ class PileUpper:
             pos = np.cumsum(roi) - 1
             items_roi = [it[roi[it]] for it in dev_items]
             hv = session.run_stripes([arr["r1"][it] for it in items_roi],
-                                     [arr["r2"][it] for it in items_roi])
+                                     [arr["r2"][it] for it in items_roi],
+                                     f16=self._fetch_f16())
             n_roi = int(roi.sum())
             h = np.full((n_roi, W), np.nan, np.float32)
             v = np.full((n_roi, W), np.nan, np.float32)
@@ -2580,8 +2844,8 @@ class PileUpper:
             "backend": "torch",
             "device": device_name,
             "accumulate": ",".join(sorted(self._routes)) or "none",
-            "ignored": f"tile_f16={self.tile_f16}, "
-                       f"stripe_f16={self.stripe_f16} (float32 wire)",
+            "ignored": f"chunk_size={self.chunk_size}, "
+                       f"tile_size={self.tile_size}",
         }
         return {
             k: (str(v) if isinstance(v, list) else v) for k, v in annot.items()
@@ -2949,7 +3213,14 @@ def pileup(
     the hand-written kernel on the card, raising without one; ``"cpu"``:
     the plain PyTorch version). ``mesh``: None, ``"auto"`` or a
     ``parallel.LociMesh`` of ``device``'s type (``PileUpper``). ``clr`` is
-    a ``coolpuppy_tpu_torch.Cooler``."""
+    a ``coolpuppy_tpu_torch.Cooler``. ``tile_f16`` and ``stripe_f16`` are
+    the reference's transfer wires, taken on ``cuda`` as the JAX package
+    takes them on an accelerator: ``tile_f16`` uploads the raw tiles as
+    pow2-scaled float16 (``"lossy"`` on balanced maps, ``"exact"`` on raw
+    counts), ``stripe_f16`` fetches stripe planes and by-window
+    accumulators as float16 on balanced or OOE-divided values
+    (``PileUpper``); ``False`` turns a wire off. On ``cpu`` every transfer
+    is float32 whatever the flags."""
     groupby = groupby or []
     distance_edges = "default"
     if by_distance is not False:

@@ -511,9 +511,12 @@ class QuadPileupSession:
 
     ``cfg_kw`` holds ``W`` and ``capacity`` (C, the accumulator rows) and
     the normalization keys ``ooe``, ``cis``, ``ignore_diags`` and
-    ``frame_shift``. The reference's ``tile_f16`` (its f16/int8 wire) is
-    accepted and ignored: the port always ships float32.
-    ``fold_weights=True`` raises NotImplementedError."""
+    ``frame_shift``, and the upload wire as the reference's
+    ``PallasPileupSession`` takes it: ``tile_f16`` in {False, "exact",
+    "lossy", "int8"} (``ops/tiles.upload_tiles``) for an upper-triangle or
+    dense stack (a COO wire carries its own cast), and ``fold_weights``
+    (the int8 wire's raw counts, ``valid1``/``valid2`` then the balancing
+    weights) for an upper-triangle stack only."""
 
     def __init__(self, tile_stack, valid1, valid2, evec, cfg_kw, device):
         from .tiles import normalized_stack
@@ -527,8 +530,8 @@ class QuadPileupSession:
             ignore_diags=int(cfg_kw.pop("ignore_diags", 2)),
             frame_shift=int(cfg_kw.pop("frame_shift", 0)),
             fold_weights=bool(cfg_kw.pop("fold_weights", False)),
+            f16_mode=cfg_kw.pop("tile_f16", False),
         )
-        cfg_kw.pop("tile_f16", None)
         if cfg_kw:
             raise TypeError(
                 f"QuadPileupSession: unknown cfg_kw {sorted(cfg_kw)}"
@@ -597,25 +600,29 @@ class QuadPileupSession:
         """One snip batch (dd0 unused: distance banding is encoded in cid)."""
         return self.run_many(r1, r2, cid, fetch=fetch)
 
-    def run_stripes(self, r1, r2, chunk=STRIPE_CHUNK):
+    def run_stripes(self, r1, r2, chunk=STRIPE_CHUNK, f16=False):
         """Per-snip stripe planes in stream order (counterpart of
         ``PallasPileupSession.run_stripes(hv=True)``, reference
         coolpup.py:1164–1188): float32 numpy [n, 2W], the centre row
         ``M[a+mid, b:b+W]`` then the centre column ``M[a:a+W, b+mid]``
         (unreversed; callers reverse it), for the window starting at
         (a, b), ``chunk`` snips at a time (``stripes_device``) to bound the
-        index tensors."""
+        index tensors. ``f16`` fetches the planes as float16 (the
+        reference's stripe wire) and upcasts them on the host."""
         out = np.empty((len(r1), 2 * self.W), np.float32)
         for lo in range(0, len(r1), chunk):
             hi = min(lo + chunk, len(r1))
-            out[lo:hi] = self.stripes_device(r1[lo:hi], r2[lo:hi]).cpu().numpy()
+            out[lo:hi] = self.stripes_device(r1[lo:hi], r2[lo:hi],
+                                             f16=f16).cpu().numpy()
         return out
 
-    def stripes_device(self, r1, r2):
+    def stripes_device(self, r1, r2, f16=False):
         """The stripe planes of ``run_stripes`` for one chunk of snips, as a
         float32 [n, 2W] tensor on the session's device: gathered as torch
         ops from the normalized NaN-encoded stack through the tile map, so
-        masked pixels are NaN and poison stays +inf."""
+        masked pixels are NaN and poison stays +inf. ``f16`` casts them to
+        float16 on the device, with no scale (reference
+        ``make_stripe_gather_hv(W, B, True)``)."""
         W, B = self.W, B_TILE
         mid = W // 2
         if not hasattr(self, "_tmap_dev"):
@@ -632,7 +639,8 @@ class QuadPileupSession:
         row = a[:, None] + ar[None, :]  # vertical: W rows, one column
         col = (b + mid)[:, None]
         v = self.stiles[tmap[row // B, col // B], row % B, col % B]
-        return torch.cat([h, v], dim=1)
+        hv = torch.cat([h, v], dim=1)
+        return hv.to(torch.float16) if f16 else hv
 
     @staticmethod
     def finalize(outs, compact=None):

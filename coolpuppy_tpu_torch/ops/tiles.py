@@ -13,10 +13,19 @@ at call time. Their numpy branches stay as the plain versions
 float64 where the C++ folds them in float32), which the tests hold the
 native entries against.
 
+The upload wire is copied too: ``f16_wire_plan``, ``cast_slab_f16``,
+``cast_tiles_f16`` and ``cast_tiles_int8`` pick a power-of-two scale and
+cast the raw tiles to float16 (``"exact"``: only where the round trip is
+exact; ``"lossy"``: at most 2^-11 relative error a value) or ship raw
+integer counts as int8. ``upload_tiles`` runs that cast per slab of
+``UPLOAD_SLAB`` tiles into a pinned buffer and starts each slab's copy as
+soon as it is cast, so the cast overlaps the transfer.
+
 The device half ports the reference's jnp functions as torch ops:
 ``expand_sym`` (upper tiles -> full raw stack), ``coo_tiles`` (the COO wire
 scatter-added into the raw stack), ``normalize_tiles`` (raw stack -> one
-NaN-encoded observed-over-expected stack), ``normalized_stack`` (a host tile
+NaN-encoded observed-over-expected stack; ``fold_weights`` folds the
+balancing weights of the int8 wire), ``normalized_stack`` (a host tile
 stack of any of the three kinds uploaded, expanded and normalized) and
 ``cut_windows`` (windows of any size cut from that stack through its tile
 map: the generic and rescale paths, in place of the reference's bucket
@@ -112,6 +121,142 @@ def from_reference(ts):
         f"from_reference: {type(ts).__name__} is neither a TileStack nor a "
         "SymTileStack"
     )
+
+
+# -- the upload wire (reference ops/tiles.py:85-169) ------------------------
+
+# tiles a slab of the f16/int8 upload (``upload_tiles``): 8 MB of float16
+UPLOAD_SLAB = 256
+
+
+def f16_wire_plan(tiles, mode):
+    """Scan-only half of ``cast_tiles_f16``: pick the pow2 scale (or
+    refuse). Returns ``(scale, inv)`` or None. The multiply and f16 cast
+    then run per upload slab (``cast_slab_f16``), so they overlap the
+    copies instead of running in front of them."""
+    if not mode or tiles.size == 0:
+        return None
+    with np.errstate(invalid="ignore"):
+        amax = float(np.nanmax(np.abs(tiles)))
+    if np.isinf(amax):
+        return None
+    if not np.isfinite(amax) or amax == 0.0:  # all-zero / all-NaN
+        return np.float32(1.0), np.float32(1.0)
+    scale = np.float32(2.0 ** (13 - int(np.ceil(np.log2(amax) + 1e-12))))
+    return scale, np.float32(1.0 / scale)
+
+
+def cast_slab_f16(arr, scale, mode):
+    """Cast one slab with a pre-planned scale (``f16_wire_plan``). For
+    ``mode == "exact"`` verifies the round trip and returns None on any
+    mismatch (the caller then ships the whole payload float32)."""
+    wire = (arr * scale).astype(np.float16)
+    if mode == "exact":
+        rt = wire.astype(np.float32) * np.float32(1.0 / float(scale))
+        if not np.array_equal(rt, arr, equal_nan=True):
+            return None
+    return wire
+
+
+def cast_tiles_f16(tiles, mode):
+    """The float16 wire of a raw tile payload, with a power-of-2 scale that
+    puts the largest |value| near 2^13 (pow2 scaling is exact both ways).
+
+    ``mode``: falsy -> None (ship float32); ``"exact"`` -> float16 only when
+    the scaled round trip is bit-exact (always true for integer counts <=
+    2048), else None; ``"lossy"`` -> float16 with at most 2^-11 relative
+    error a value (balanced or OOE-divided values). Returns ``(wire,
+    inv_scale)`` or None; the device multiplies by ``inv_scale`` after
+    upconverting."""
+    if not mode:
+        return None
+    if tiles.size == 0:
+        return tiles.astype(np.float16), np.float32(1.0)
+    plan = f16_wire_plan(tiles, mode)
+    if plan is None:
+        return None
+    scale, inv = plan
+    wire = cast_slab_f16(tiles, scale, mode)
+    if wire is None:
+        return None
+    return wire, inv
+
+
+def cast_tiles_int8(tiles):
+    """The int8 wire of RAW integer count tiles (weights not folded): exact
+    when every value is an integer in [-127, 127]. A quarter of the float32
+    payload; the device folds the balancing weights while normalizing
+    (``fold_weights``). Returns the int8 array or None."""
+    if tiles.size == 0:
+        return tiles.astype(np.int8)
+    amax = float(tiles.max())
+    amin = float(tiles.min())
+    if not (np.isfinite(amax) and np.isfinite(amin)):
+        return None
+    if amin < -127 or amax > 127:
+        return None
+    wire = tiles.astype(np.int8)
+    if not np.array_equal(wire.astype(np.float32), tiles):
+        return None
+    return wire
+
+
+def _upload_slabs(tiles, device, cast, dtype):
+    """``tiles`` cast slab by slab (``cast(slab)`` -> numpy of ``dtype``, or
+    None to refuse) and copied to ``device``: on a CUDA device into one
+    pinned buffer, each slab's copy started as soon as it is cast. Returns
+    the device tensor, or None where ``cast`` refused a slab."""
+    K = tiles.shape[0]
+    cuda = torch.device(device).type == "cuda"
+    tdtype = torch.from_numpy(np.zeros(0, dtype)).dtype
+    host = torch.empty(tiles.shape, dtype=tdtype, pin_memory=cuda)
+    out = torch.empty(tiles.shape, dtype=tdtype, device=device) if cuda \
+        else host
+    hn = host.numpy()
+    for lo in range(0, K, UPLOAD_SLAB):
+        hi = min(lo + UPLOAD_SLAB, K)
+        wire = cast(tiles[lo:hi])
+        if wire is None:
+            return None
+        hn[lo:hi] = wire
+        if cuda:
+            out[lo:hi].copy_(host[lo:hi], non_blocking=True)
+    return out
+
+
+def upload_tiles(tiles, f16_mode, device):
+    """Raw tiles [K, B, B] (float32 numpy) on ``device`` through the upload
+    wire of ``f16_mode`` (the reference's ``tile_f16`` values): False ships
+    float32; ``"exact"``/``"lossy"`` ship scaled float16 where
+    ``cast_tiles_f16`` allows it; ``"int8"`` ships int8 where
+    ``cast_tiles_int8`` allows it, else ``"exact"`` float16 (raw integer
+    counts). A refused cast ships float32. Returns ``(tensor in the wire's
+    dtype, inv)``: the device multiplies by ``inv`` after upconverting."""
+    one = np.float32(1.0)
+    if f16_mode == "int8":
+        out = _upload_slabs(tiles, device, cast_tiles_int8, np.int8)
+        if out is not None:
+            return out, one
+        f16_mode = "exact"  # misjudged: raw integer counts still f16-exact
+    if f16_mode:
+        plan = (one, one) if tiles.size == 0 else f16_wire_plan(tiles,
+                                                                 f16_mode)
+        if plan is not None:
+            scale, inv = plan
+            out = _upload_slabs(
+                tiles, device,
+                lambda a: cast_slab_f16(a, scale, f16_mode), np.float16)
+            if out is not None:
+                return out, inv
+    t = torch.from_numpy(np.ascontiguousarray(tiles, np.float32))
+    return t.to(device), one
+
+
+def _upconvert(t, inv):
+    """A wire payload as float32 times ``inv`` (skipped at 1, where it is
+    the identity)."""
+    t = t.to(torch.float32)
+    return t if float(inv) == 1.0 else t * float(inv)
 
 
 def _sym_maps(want, nr, nc):
@@ -367,15 +512,17 @@ class CooTileStack:
     (``coo_tiles``). Chosen over the dense host scatter when the pixels
     undercut the dense tile payload: trans feature products touch nearly
     every tile of a mostly empty rectangle. Balancing weights are folded on
-    the host; values ride float32 (the reference's f16 wire and its
-    ``inv_scale`` are not ported)."""
+    the host; values ride float32, or scaled float16 under the dense
+    wire's rules (``cast_tiles_f16``), which the device multiplies by
+    ``inv_scale`` after upconverting."""
 
     idx: np.ndarray  # [nnz] int32 flat index into the raveled [K+1, B, B]
-    vals: np.ndarray  # [nnz] float32
+    vals: np.ndarray  # [nnz] float32, or scaled float16
     tile_map: np.ndarray  # [nr+1, nc+1] -> stack index (0 = empty)
     B: int
     shape: tuple
     k1: int  # dense stack depth K+1 (slot 0 = the shared zero tile)
+    inv_scale: np.float32 = np.float32(1.0)
 
     @property
     def n_tiles(self):
@@ -389,7 +536,8 @@ class CooTileStack:
         """The dense [K+1, B, B] float32 stack on the host (sums in
         float64)."""
         flat = np.zeros(self.k1 * self.B * self.B, np.float64)
-        np.add.at(flat, self.idx, self.vals.astype(np.float64))
+        np.add.at(flat, self.idx,
+                  self.vals.astype(np.float64) * float(self.inv_scale))
         return flat.reshape(self.k1, self.B, self.B).astype(np.float32)
 
     def to_tile_stack(self):
@@ -399,12 +547,13 @@ class CooTileStack:
         )
 
 
-def build_tile_stack_coo(slab, B, want):
+def build_tile_stack_coo(slab, B, want, f16_mode=False):
     """The COO wire of the tiles in ``want`` (raveled tile ids) from a
     ``PixelSlab``: O(nnz) host work (tile lookup, weight fold in float64
     then one float32 cast, flat index), no host scatter and no dense host
     stack. The mirrored twin of off-diagonal pixels is emitted when
-    ``slab.mirror``."""
+    ``slab.mirror``. ``f16_mode`` casts the values as the dense wire does
+    (``cast_tiles_f16``; float32 where it refuses)."""
     n1, n2 = slab.shape
     nr, nc = -(-n1 // B), -(-n2 // B)
     want = np.asarray(want, np.int64)
@@ -430,8 +579,13 @@ def build_tile_stack_coo(slab, B, want):
         rows[keep], cols[keep], vals[keep], pix_tile[keep],
     )
     idx = (pix_tile * (B * B) + (rows % B) * B + (cols % B)).astype(np.int32)
+    inv = np.float32(1.0)
+    if f16_mode and len(vals):
+        cast = cast_tiles_f16(vals, f16_mode)
+        if cast is not None:
+            vals, inv = cast
     return CooTileStack(idx=idx, vals=vals, tile_map=tile_map, B=B,
-                        shape=(n1, n2), k1=len(want) + 1)
+                        shape=(n1, n2), k1=len(want) + 1, inv_scale=inv)
 
 
 def rect_tiles(lo1, hi1, lo2, hi2, B, shape):
@@ -590,16 +744,19 @@ def normalize_tile_stack(
 # --------------------------------------------------------------------------
 
 
-def expand_sym(sym: SymTileStack, device):
+def expand_sym(sym: SymTileStack, device, f16_mode=False):
     """Upload the upper tiles and materialize the FULL raw stack on
     ``device``: ``full[k] = upper[src[k]]``, transposed where ``flip[k]``,
     and ``g + gᵀ − g·I`` on diagonal tiles when the scatter held only the
-    upper half (``diag_full`` false). Returns float32 [K+1, B, B]."""
-    up = torch.from_numpy(np.ascontiguousarray(sym.upper, np.float32))
-    up = up.to(device)
+    upper half (``diag_full`` false). ``f16_mode`` is the upload wire
+    (``upload_tiles``): a float16 or int8 payload is upconverted and
+    multiplied by its inverse scale before the mirroring (reference
+    ``_make_expand_sym_fn``, ``expand_sym_device``). Returns float32
+    [K+1, B, B]."""
+    up, inv = upload_tiles(sym.upper, f16_mode, device)
     src = torch.from_numpy(np.asarray(sym.src, np.int64)).to(device)
     flip = torch.from_numpy(np.asarray(sym.flip, bool)).to(device)
-    g = up[src]
+    g = _upconvert(up[src], inv)
     gt = g.transpose(1, 2)
     full = torch.where(flip[:, None, None], gt, g)
     if not sym.diag_full:
@@ -629,6 +786,7 @@ def normalize_tiles(
     frame_shift=0,
     slab=1024,
     fold_weights=False,
+    inv=None,
 ):
     """Raw stack -> ONE NaN-encoded stack on ``tiles.device``: the per-pixel
     semantics of ``normalize_tile_stack`` (bad-bin mask, |diag| <
@@ -639,12 +797,11 @@ def normalize_tiles(
     ``valid1``/``valid2`` may be padded past the tiled extent (they are
     clipped). The toeplitz is a direct gather ``epad[min(|diag|, L-1)]``;
     ``epad`` is NaN past ``evec``. Slabs of ``slab`` tiles bound the
-    intermediates. ``fold_weights`` exists only for the reference's int8
-    raw-count wire, which is not ported."""
-    if fold_weights:
-        raise NotImplementedError(
-            "fold_weights (the int8 raw-count wire) is not ported"
-        )
+    intermediates. ``tiles`` may be a wire payload (float16 or int8), which
+    is upconverted and multiplied by ``inv`` first. ``fold_weights`` is the
+    int8 wire's: ``valid1``/``valid2`` then carry the cleaned balancing
+    weights (0 at bad bins), whose product both gates a pixel (> 0) and
+    multiplies its raw count (reference ``_make_normalize_slab_fn``)."""
     K = int(tiles.shape[0])
     tr = np.zeros(K, np.int64)
     tc = np.zeros(K, np.int64)
@@ -666,20 +823,22 @@ def normalize_tiles(
 
     out = normalize_slots(tiles, tr, tc, B, v1, v2, epad, ooe=ooe, cis=cis,
                           ignore_diags=ignore_diags, frame_shift=frame_shift,
-                          slab=slab)
+                          slab=slab, inv=inv, fold_weights=fold_weights)
     out[0] = torch.nan
     return out
 
 
 def normalize_slots(tiles, tr, tc, B, v1, v2, epad, ooe=False, cis=True,
-                    ignore_diags=2, frame_shift=0, slab=1024):
+                    ignore_diags=2, frame_shift=0, slab=1024, inv=None,
+                    fold_weights=False):
     """The per-pixel normalization of ``normalize_tiles`` for slots whose
     tile coordinates are given: slot k of ``tiles`` [K, B, B] lies at tile
     row ``tr[k]`` and column ``tc[k]`` (int numpy [K]); ``v1``/``v2`` are
-    the 0/1 valid-bin vectors padded to the grid and ``epad`` the expected
-    vector padded with NaN (float32 numpy). Returns the NaN-encoded float32
-    [K, B, B] stack on ``tiles.device``, slot 0 untouched by any rule of
-    its own (callers set it)."""
+    the 0/1 valid-bin vectors padded to the grid (the balancing weights
+    with ``fold_weights``) and ``epad`` the expected vector padded with NaN
+    (float32 numpy); ``inv`` the inverse scale of a wire payload. Returns
+    the NaN-encoded float32 [K, B, B] stack on ``tiles.device``, slot 0
+    untouched by any rule of its own (callers set it)."""
     device = tiles.device
     K = int(tiles.shape[0])
     L = len(epad)
@@ -694,10 +853,12 @@ def normalize_slots(tiles, tr, tc, B, v1, v2, epad, ooe=False, cis=True,
         rows = trd[lo:hi, None] * B + ar[None, :]  # [k, B]
         cols = tcd[lo:hi, None] * B + ar[None, :]
         mask = v1d[rows][:, :, None] * v2d[cols][:, None, :]
+        val = _upconvert(tiles[lo:hi], 1.0 if inv is None else inv)
+        if fold_weights:
+            val = val * mask
         diag = rows[:, :, None] - cols[:, None, :] + int(frame_shift)
         if cis and ignore_diags > 0:
             mask = mask * (diag.abs() >= ignore_diags)
-        val = tiles[lo:hi].to(torch.float32)
         if ooe:
             val = val / ed[diag.abs().clamp_(max=L - 1)]
         out[lo:hi] = torch.where(mask > 0, val, torch.nan)
@@ -714,54 +875,64 @@ def normalize_tile_stack_device(
     ignore_diags=2,
     frame_shift=0,
     slab=1024,
+    f16_mode=False,
+    fold_weights=False,
     device="cuda",
 ):
     """``normalize_tile_stack`` on ``device`` for a dense TileStack: upload
-    the raw tiles, then ``normalize_tiles``. Runs on the card and raises
+    the raw tiles through the wire of ``f16_mode`` (``upload_tiles``), then
+    ``normalize_tiles`` (with ``fold_weights``, ``valid1``/``valid2`` are
+    the balancing weights of raw counts). Runs on the card and raises
     without one; ``device="cpu"`` runs it there."""
-    tiles = torch.from_numpy(np.ascontiguousarray(ts.tiles, np.float32))
-    tiles = tiles.to(resolve_device(device))
+    tiles, inv = upload_tiles(ts.tiles, f16_mode, resolve_device(device))
     return normalize_tiles(
         tiles, ts.tile_map, ts.B, valid1, valid2, evec=evec, ooe=ooe,
         cis=cis, ignore_diags=ignore_diags, frame_shift=frame_shift,
-        slab=slab,
+        slab=slab, fold_weights=fold_weights, inv=inv,
     )
 
 
 def coo_tiles(cts: CooTileStack, device):
     """The COO wire on ``device``: upload ``(idx, vals)`` and scatter-add
-    them into a zeroed float32 [K+1, B, B] raw stack with ``index_add_``
-    (the torch-op port of the reference's jnp ``_make_coo_scatter``,
+    ``vals`` upconverted to float32 times ``inv_scale`` into a zeroed
+    float32 [K+1, B, B] raw stack with ``index_add_`` (the torch-op port of
+    the reference's jnp ``_make_coo_scatter``,
     ``ops/pallas_gather.py:229-242``; float32 sums, in an order the device
     picks)."""
     B = cts.B
     idx = torch.from_numpy(np.ascontiguousarray(cts.idx, np.int32))
-    vals = torch.from_numpy(np.ascontiguousarray(cts.vals, np.float32))
+    vals = torch.from_numpy(np.ascontiguousarray(cts.vals))
+    vals = _upconvert(vals.to(device), cts.inv_scale)
     flat = torch.zeros(cts.k1 * B * B, dtype=torch.float32, device=device)
-    flat.index_add_(0, idx.to(device), vals.to(device))
+    flat.index_add_(0, idx.to(device), vals)
     return flat.view(cts.k1, B, B)
 
 
-def normalized_stack(tile_stack, valid1, valid2, evec, device, **norm):
+def normalized_stack(tile_stack, valid1, valid2, evec, device,
+                     f16_mode=False, fold_weights=False, **norm):
     """A host ``TileStack``, ``SymTileStack`` or ``CooTileStack`` uploaded
     to ``device``, expanded (``expand_sym``) or scattered (``coo_tiles``)
     and normalized into ONE NaN-encoded float32 stack [K+1, B, B]
-    (``normalize_tiles`` with the keywords ``norm``)."""
+    (``normalize_tiles`` with the keywords ``norm``). ``f16_mode`` is the
+    upload wire of a dense or upper-triangle stack (a COO wire carries its
+    own); ``fold_weights`` applies to an upper-triangle stack of raw counts
+    only, as in the reference's session."""
+    inv = None
     if isinstance(tile_stack, SymTileStack):
-        tiles = expand_sym(tile_stack, device)
+        tiles = expand_sym(tile_stack, device, f16_mode)
     elif isinstance(tile_stack, CooTileStack):
         tiles = coo_tiles(tile_stack, device)
+        fold_weights = False
     elif isinstance(tile_stack, TileStack):
-        tiles = torch.from_numpy(
-            np.ascontiguousarray(tile_stack.tiles, np.float32)
-        ).to(device)
+        tiles, inv = upload_tiles(tile_stack.tiles, f16_mode, device)
+        fold_weights = False
     else:
         raise TypeError(
             f"normalized_stack: unsupported {type(tile_stack).__name__}"
         )
     return normalize_tiles(
         tiles, tile_stack.tile_map, tile_stack.B, valid1, valid2, evec=evec,
-        **norm,
+        fold_weights=fold_weights, inv=inv, **norm,
     )
 
 

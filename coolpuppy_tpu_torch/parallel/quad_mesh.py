@@ -217,15 +217,16 @@ class QuadMeshSession:
                      for k in ("sum", "num")}
         return total
 
-    def run_stripes(self, r1_rows, r2_rows):
+    def run_stripes(self, r1_rows, r2_rows, f16=False):
         """Per-snip stripe planes on the mesh: each device gathers the rows
         of its routed snips from its own (banded + halo, or replicated)
         stack through its own tile map. Returns one float32 numpy [len(
         r1_rows[d]), 2W] array per device, rows in the order of
-        ``r1_rows[d]``: the centre row then the unreversed centre column."""
+        ``r1_rows[d]``: the centre row then the unreversed centre column.
+        ``f16`` fetches them as float16 and upcasts on the host."""
         out = []
         for d, sess in enumerate(self.sessions):
             with on_device(sess.device):
                 out.append(sess.run_stripes(np.asarray(r1_rows[d]),
-                                            np.asarray(r2_rows[d])))
+                                            np.asarray(r2_rows[d]), f16=f16))
         return out

@@ -1,6 +1,6 @@
 """CPU rehearsals of ``chip_smoke.py``'s phases at a tiny size (5b, 6b,
-7b-7d, 3, 4, 8a-8c, 9a/9b, 10, 11a-11d, 12a-12c): the same control flow, checks and
-timing lines,
+7b-7d, 3, 4, 8a-8c, 9a/9b, 10, 11a-11d, 12a-12c, 13a-13c): the same control
+flow, checks and timing lines,
 with ``quad_accumulate`` swapped for a plain version that counts its calls
 as launches (the CUDA kernel cannot run here)."""
 
@@ -293,13 +293,15 @@ def test_extension_phase_rehearsal(monkeypatch, capsys):
 
 
 def test_phases_option():
-    assert chip_smoke.parse_phases([]) == {3, 4, 5, 6, 7, 8, 9, 10, 11, 12}
+    assert chip_smoke.parse_phases([]) == {3, 4, 5, 6, 7, 8, 9, 10, 11, 12,
+                                           13}
     assert chip_smoke.parse_phases(["--phases", "1,2,8"]) == {1, 2, 8}
     assert chip_smoke.parse_phases(["--phases", "9"]) == {9}
     assert chip_smoke.parse_phases(["--phases", "10"]) == {10}
     assert chip_smoke.parse_phases(["--phases", "11"]) == {11}
     assert chip_smoke.parse_phases(["--phases", "12"]) == {12}
-    for bad in ("13", "x", "", "1,2", ","):
+    assert chip_smoke.parse_phases(["--phases", "13"]) == {13}
+    for bad in ("14", "x", "", "1,2", ","):
         try:
             chip_smoke.parse_phases(["--phases", bad])
         except SystemExit as e:
@@ -536,3 +538,33 @@ def test_reader_phase_rehearsal(monkeypatch, capsys):
     assert "by_distance snips/s:" in out
     assert f"summed over the checked run's {n} launches" in out
 
+
+
+def test_wires_phase_rehearsal(monkeypatch, capsys):
+    """Phase 13 at a tiny size with every wire forced on the CPU: 13a's
+    four toy cases (the plan's mode on both sides, the COO wire) and 13b/13c
+    on a 1,500-bin map (200 sites; the reference's bank lowered to 8 groups
+    so by_window's blocks take the float16 fetch)."""
+    _counted_plain(monkeypatch)
+    dev = torch.device("cpu")
+    chip_smoke.check_wires_toy(dev)
+    out = capsys.readouterr().out
+    for name, spec in chip_smoke.WIRE_TOY.items():
+        assert f"wire toy {name}: " in out
+        assert f"card plans ['{spec['mode']}']" in out
+    assert "coo ['lossy']" in out and "uploads ['int8']" in out
+    engine = importlib.import_module("coolpuppy_tpu_torch.engine.pileup")
+    monkeypatch.setattr(engine, "_bank_groups", lambda W: 8)
+    launches = chip_smoke.check_wires(
+        dev, lambda: None, "cpu rehearsal",
+        workload=lambda: chip_smoke.engine_workload(
+            n_sites=200, n_bins=1_500, n_contacts=150_000))
+    assert launches == {cell: 1 for cell in chip_smoke.WIRE_CELLS}
+    out = capsys.readouterr().out
+    for cell in chip_smoke.WIRE_CELLS:
+        assert f"wire {cell} on vs off: " in out
+        assert f"wire {cell} run 2 (off): " in out
+    for cell in chip_smoke.WIRE_TIMED:
+        assert f"wire {cell} run 4 (on): " in out
+    assert "uploads ['int8']" in out
+    assert "f16 fetches 1 of 1" in out and "stripes ['float16']" in out

@@ -176,8 +176,8 @@ def test_trans_stream_coo_wire(tmp_path, monkeypatch, runs):
     built = []
     inner = engine.build_tile_stack_coo
 
-    def recording(slab, B, want):
-        built.append((slab, want, inner(slab, B, want)))
+    def recording(slab, B, want, **kw):
+        built.append((slab, want, inner(slab, B, want, **kw)))
         return built[-1][2]
 
     monkeypatch.setattr(engine, "build_tile_stack_coo", recording)

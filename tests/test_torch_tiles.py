@@ -129,24 +129,47 @@ def test_normalize_matches_reference(case):
 
 
 def test_normalize_options_of_the_wire():
-    """The session accepts and ignores tile_f16 (float32 always ships);
-    the int8 raw-count wire's fold_weights is not ported and raises."""
+    """The session's wire options against the reference's device
+    normalization: ``tile_f16="lossy"`` on a dense stack equals
+    ``normalize_tile_stack_device(f16_mode="lossy")``, and
+    ``fold_weights`` with an int8 payload of raw counts on an
+    upper-triangle stack equals ``normalize_tiles_device(fold_weights=
+    True)`` over ``expand_sym_device(f16_mode="int8")`` (NaN masks equal,
+    rtol 2e-6, the reference's own bound for the int8 fold); unknown keys
+    still raise."""
     from coolpuppy_tpu_torch.ops.quad_gather import QuadPileupSession
 
     coo, r1, r2, valid, evec = _region(300, 4)
     ts = port.build_tile_stack(coo, B, r1=r1, r2=r2, window1=11, window2=11)
+    ts_ref = ref.build_tile_stack(coo, B, r1=r1, r2=r2, window1=11,
+                                  window2=11)
     kw = dict(W=11, capacity=8, ooe=True)
-    a = QuadPileupSession(ts, valid, valid, evec, kw, "cpu").stiles
-    b = QuadPileupSession(ts, valid, valid, evec, dict(kw, tile_f16="lossy"),
-                          "cpu").stiles
-    np.testing.assert_array_equal(a.numpy(), b.numpy())
-    assert a.dtype == torch.float32
-    with pytest.raises(NotImplementedError):
-        port.normalize_tiles(torch.from_numpy(ts.tiles), ts.tile_map, B,
-                             valid, valid, fold_weights=True)
-    with pytest.raises(NotImplementedError):
-        QuadPileupSession(ts, valid, valid, evec,
-                          dict(kw, fold_weights=True), "cpu")
+    got = QuadPileupSession(ts, valid, valid, evec,
+                            dict(kw, tile_f16="lossy"), "cpu").stiles
+    assert got.dtype == torch.float32
+    want = np.asarray(ref.normalize_tile_stack_device(
+        ts_ref, valid, valid, evec=evec, ooe=True, f16_mode="lossy"))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+    rng = np.random.default_rng(4)
+    ints = sp.coo_matrix(np.triu(rng.poisson(3.0, (300, 300))
+                                 * (rng.random((300, 300)) < 0.3)))
+    sym = port.build_tile_stack_sym(ints, B, r1=r1, r2=r2, window1=11,
+                                    window2=11)
+    sym_ref = ref.build_tile_stack_sym(ints, B, r1=r1, r2=r2, window1=11,
+                                       window2=11)
+    w = rng.uniform(0.5, 1.5, 300).astype(np.float32) * valid
+    got = QuadPileupSession(sym, w, w, evec,
+                            dict(kw, tile_f16="int8", fold_weights=True),
+                            "cpu").stiles.numpy()
+    k1 = sym.n_tiles + 1
+    full = ref.expand_sym_device(sym_ref, f16_mode="int8")
+    want = np.asarray(ref.normalize_tiles_device(
+        full, sym_ref.tile_map, B, w, w, evec=evec, ooe=True,
+        fold_weights=True))[:k1]
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    fin = ~np.isnan(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=2e-6, atol=1e-7)
     with pytest.raises(TypeError):
         QuadPileupSession(ts, valid, valid, evec, dict(kw, interpret=True),
                           "cpu")
