@@ -83,33 +83,46 @@ measured). Phases, each printing its lines and, as it ends, its seconds:
    run and the kernel's time beside its bound. The stripes cell also holds
    20,000 of the card's stripe rows against ``quad_gather.stripes_host`` on
    the fetched stack.
-7. rescale and wide windows (no kernel of their own: torch ops).
+7. rescale (torch ops) and wide windows (the wide kernel,
+   ``csrc/wide_accumulate.cu``).
    (a) The rescale modes (``RESCALE_MODES``: local, with controls, with
    stripes, OOE, expected emission, coverage_norm, BEDPE, trans) and the
    W = 123 modes (``WIDE_MODES``: OOE, controls by strand, stripes,
    by-window, trans, expected emission, coverage_norm) on the toy map, card
-   against CPU as in 6a, with routes ``rescale_torch`` / ``generic_torch``.
-   (b) ``bench.py --rescale`` (``rescale_workload``: the engine map, 2,000
-   TADs 20-200 bins wide; ``pileup(local=True, rescale=True,
+   against CPU as in 6a, with routes ``rescale_torch`` and ``generic_cuda``
+   on the card (the wide kernel launched) against ``generic_torch`` on the
+   CPU. (b) ``bench.py --rescale`` (``rescale_workload``: the engine map,
+   2,000 TADs 20-200 bins wide; ``pileup(local=True, rescale=True,
    rescale_flank=1, rescale_size=99)``), without and with the map's
    ``expected_cis`` table: a warm-up, a checked run (TF32 off), the first
    200 TADs against ``rescale_host_oracle`` (count and mean rtol 1e-4), two
    timed runs with the phase breakdown, the rescale step's device time
    (CUDA events) and the busy share of one run. (c) 201-bin windows
    (+-1 Mb at 10 kb) over 2,000 stranded sites of the engine map with one
-   shifted control: a checked run (route ``generic_torch``), 300 sites
-   card against CPU (counts exact, ``data`` rtol 1e-4), and the timings of
-   (b). (d) 119-bin windows (+-590 kb at 10 kb: loop or CTCF-site pileups
-   with +-0.6 Mb flanks, or the default 100 kb flank on 2 kb Micro-C maps)
-   over the engine cell's 20,000 stranded sites with ``maxdist=3_000_000``,
-   the automatic ``mindist`` (1.2 Mb) and one shifted control, where the
-   staged kernel runs two bands an item: a warm-up, a checked run that must
-   launch the staged kernel only (route ``cuda_kernel``), the same run with
-   the direct kernel in its place (``direct_swapped``: counts exact,
-   ``data`` rtol 1e-4), the plain-swapped run (the same), 300 sites card
-   against CPU, two timed runs with the phases, a profiled run (busy
-   share), and each kernel's device time over its run's launches (CUDA
-   events around each launch) beside the bound and the plain version's.
+   shifted control: a checked run that must launch the wide kernel (route
+   ``generic_cuda``), each of its step calls held against the plain
+   version on the same inputs (counts exact, ``sum`` rtol 1e-4), the
+   plain-swapped run (counts exact, ``data`` rtol 1e-4), 300 sites card
+   against CPU (the same), two timed runs with the phases, the step's
+   device span, the busy share of a profiled run, and the kernel's device
+   time over the checked run's launches beside its bound and the plain
+   version's. (d) 119-bin windows (+-590 kb at 10 kb: loop or CTCF-site
+   pileups with +-0.6 Mb flanks, or the default 100 kb flank on 2 kb
+   Micro-C maps) over the engine cell's 20,000 stranded sites with
+   ``maxdist=3_000_000``, the automatic ``mindist`` (1.2 Mb) and one
+   shifted control, where the staged kernel runs two bands an item: a
+   warm-up, a checked run that must launch the staged kernel only (route
+   ``cuda_kernel``), the same run with the direct kernel in its place
+   (``direct_swapped``: counts exact, ``data`` rtol 1e-4), the
+   plain-swapped run (the same), 300 sites card against CPU, two timed
+   runs with the phases, a profiled run (busy share), and each kernel's
+   device time over its run's launches (CUDA events around each launch)
+   beside the bound and the plain version's. (e) The wide kernel against
+   ``generic_accumulate_plain`` at W = 121, 129, 130, 201, 257, 258 and 401
+   (``wide_kernel_cases``: missing tiles, +inf poison, NaN-masked pixels,
+   several groups in one tile, a run cut at ``ITEM_MAX``, stripes): one
+   launch each, ``num`` and ``poison`` exact, ``sum`` rtol 1e-5, stripe
+   planes equal; each timed beside its bound and the plain version.
 8. the extension hooks. (a) Every route of the hooks and every by-window
    case that groups through the frame hook (``HOOK_MODES``: the frame func,
    frame-column extras by strand and with controls, the batch hook, snip
@@ -178,11 +191,14 @@ measured). Phases, each printing its lines and, as it ends, its seconds:
 11. the mesh (``coolpuppy_tpu_torch.parallel``), on ``LociMesh``es that
    repeat the one card. (a) Every mode of ``MESH_MODES`` (cis by strand
    with controls banded and replicated, OOE expected, coverage, trans,
-   rescale, W = 123 banded, stripes banded and replicated, by-window with a
-   block of 8 groups, BEDPE) on meshes of 2 and 4, held against the card's
-   single-device run and the ``LociMesh(["cpu"] * n)`` run as in 5a, the
-   ``_rowshard_*`` counters equal to the CPU's, a launch on every device
-   that holds snips, and the current CUDA device unchanged. (b) The genome
+   rescale, W = 123 banded and on whole chromosomes, stripes banded and
+   replicated, by-window with a block of 8 groups, BEDPE) on meshes of 2
+   and 4, held against the card's single-device run and the
+   ``LociMesh(["cpu"] * n)`` run as in 5a, the ``_rowshard_*`` counters
+   equal to the CPU's, a quad launch on every device that holds snips, the
+   wide kernel launched in the W = 123 modes (the row-sharded step, and
+   the loci-sharded one where a region replicates), and the current CUDA
+   device unchanged. (b) The genome
    cell (phase 10's map and table) on meshes of 1, 2 and 4: each held
    against phase 10's table (counts exact, ``data`` rtol 1e-4), with its
    wall, phases, launches per device, regions banded and replicated, the
@@ -271,6 +287,14 @@ KERNEL = {
     "source": "coolpuppy_tpu_torch/csrc/quad_accumulate.cu",
     "replaces": "coolpuppy_tpu/ops/pallas_gather.py:80",
 }
+WIDE_KERNEL = {
+    "name": "wide_accumulate",
+    "route": "cuda",
+    "source": "coolpuppy_tpu_torch/csrc/wide_accumulate.cu",
+    "replaces": "coolpuppy_tpu/ops/gather.py:111",
+}
+# the wide kernel's launch entry (quad_kernel_events times it)
+WIDE_ENTRIES = ("wide_accumulate_launch",)
 B = 128
 SMALL_TOL = dict(rtol=1e-5, atol=1e-5)
 HEADLINE_RTOL = 1e-4
@@ -405,6 +429,11 @@ WIDE_CELL_KW = dict(features_format="bed", flank=1_000_000,
                     maxdist=5_000_000, nshifts=1, seed=0, by_strand=True)
 WIDE_CELL_SITES = 2_000
 WIDE_SUBSET_SITES = 300
+# phase 7e: the wide kernel against its plain version at these W, on
+# WIDE_CASE_SNIPS snips each; sums within WIDE_RTOL, counts exact
+WIDE_KERNEL_W = (121, 129, 130, 201, 257, 258, 401)
+WIDE_CASE_SNIPS = 600
+WIDE_RTOL = 1e-5
 CELL_REPEATS = 2
 # phase 7d: 119-bin windows (+-590 kb at 10 kb) over the engine cell's sites,
 # the staged kernel in two bands; mindist automatic (2 * flank + 2 bins)
@@ -739,27 +768,32 @@ def kernel_bound(calls):
     return 1e3 * max(t_bytes, t_ops), by, nbytes, ops
 
 
-def covered_pixels(k, qstart, qcount, snips, W, block=2048):
-    """The stack pixels the windows of a ``quad_accumulate`` call cover,
-    each counted once: per work item its window starts marked in a B x B
-    grid and spread by a W x W max-pool over the (B + W - 1)^2 corner they
-    reach, then added into a bitmap of the stack through the item's four
-    tile slots."""
+def covered_pixels(slots, start, count, snips, W, block=None):
+    """The stack pixels the windows of a kernel call cover, each counted
+    once: per work item its window starts marked in a B x B grid and spread
+    by a W x W max-pool over the (B + W - 1)^2 corner they reach, then added
+    into a bitmap of the stack through the item's R x R tile slots
+    (``slots`` [items, R * R], row u and column v at u * R + v: a quad
+    call's ``k`` [nq, 4] in its order 00, 01, 10, 11, or a wide call's
+    slots), ``block`` items at a time (default: as many as keep the padded
+    grids near 2^26 pixels)."""
     import torch
     import torch.nn.functional as F
 
-    dev = k.device
-    if k.shape[0] == 0:
+    dev = slots.device
+    if slots.shape[0] == 0:
         return 0
-    flag = torch.zeros((int(k.max()) + 1, B, B), device=dev)
-    qstart, qcount = qstart.long(), qcount.long()
+    R = int(round(slots.shape[1] ** 0.5))
+    flag = torch.zeros((int(slots.max()) + 1, B, B), device=dev)
+    start, count = start.long(), count.long()
     S = B + W - 1
-    for lo in range(0, k.shape[0], block):
-        hi = min(lo + block, k.shape[0])
-        cnt = qcount[lo:hi]
+    block = block or max(1, (1 << 26) // (B + 2 * (W - 1)) ** 2)
+    for lo in range(0, slots.shape[0], block):
+        hi = min(lo + block, slots.shape[0])
+        cnt = count[lo:hi]
         item = torch.repeat_interleave(torch.arange(hi - lo, device=dev), cnt)
         first = torch.cumsum(cnt, 0) - cnt
-        pos = qstart[lo:hi][item] + torch.arange(len(item), device=dev) \
+        pos = start[lo:hi][item] + torch.arange(len(item), device=dev) \
             - first[item]
         w = snips[pos].long()
         marks = torch.zeros((hi - lo, B, B), device=dev)
@@ -769,11 +803,13 @@ def covered_pixels(k, qstart, qcount, snips, W, block=2048):
         cov = F.max_pool2d(F.pad(marks[:, None], (W - 1,) * 4), (W, 1),
                            stride=1)
         cov = F.max_pool2d(cov, (1, W), stride=1)
-        quad = torch.zeros((hi - lo, 2 * B, 2 * B), device=dev)
-        quad[:, :S, :S] = cov[:, 0]
-        for j, (r, c) in enumerate(((0, 0), (0, B), (B, 0), (B, B))):
-            flag.index_add_(0, k[lo:hi, j].long(),
-                            quad[:, r:r + B, c:c + B].contiguous())
+        canvas = torch.zeros((hi - lo, R * B, R * B), device=dev)
+        canvas[:, :S, :S] = cov[:, 0]
+        for u in range(R):
+            for v in range(R):
+                flag.index_add_(0, slots[lo:hi, u * R + v].long(),
+                                canvas[:, u * B:(u + 1) * B,
+                                       v * B:(v + 1) * B].contiguous())
     return int((flag > 0).sum())
 
 
@@ -859,11 +895,13 @@ def host_oracle(ts, r1, r2, cid, valid, evec, W, C):
     return stiles, s, m
 
 
-def profile_run(fn, sync):
+def profile_run(fn, sync, kernel="quad_accumulate"):
     """One ``torch.profiler`` run of ``fn``: ``text``, the device time of
     the CUDA kernels and copies that ``fn`` launched over its wall time and
-    the quad kernels' own share of the wall, and ``kernel_ms``, the quad
-    kernels' device time (None where the profiler saw no device time).
+    the port's kernels' own share of the wall (those whose name holds
+    ``kernel``: the quad kernels, or ``wide_accumulate``), and
+    ``kernel_ms``, their device time (None where the profiler saw no device
+    time).
     Only device-side events count (a host op's device time would count its
     kernels twice), less the profiler's own buffer requests."""
     from torch.autograd import DeviceType
@@ -886,17 +924,18 @@ def profile_run(fn, sync):
     names = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms"
                       for e in dev[:4])
     kern_us = sum(e.self_device_time_total for e in dev
-                  if "quad_accumulate" in e.key)
+                  if kernel in e.key)
+    label = "quad" if kernel == "quad_accumulate" else kernel
     text = (f"{dev_us / 1e6 / wall:.4f} (device {dev_us / 1e3:.3f} ms of "
-            f"{wall * 1e3:.1f} ms wall, profiled; quad kernel "
+            f"{wall * 1e3:.1f} ms wall, profiled; {label} kernel "
             f"{kern_us / 1e3:.3f} ms = {kern_us / 1e6 / wall:.5f} of the "
             f"wall; top: {names})")
     return dict(text=text, kernel_ms=kern_us / 1e3)
 
 
-def busy_share(fn, sync):
+def busy_share(fn, sync, kernel="quad_accumulate"):
     """``profile_run``'s text."""
-    return profile_run(fn, sync)["text"]
+    return profile_run(fn, sync, kernel)["text"]
 
 
 def event_ms(fn, sync):
@@ -922,22 +961,24 @@ SLEEP_CYCLES = 100_000
 class quad_kernel_events:
     """The device time of every quad kernel launched during a block, in
     launch order (``ms``): for the block the library's two launch entries
-    are wrapped so that each launch sits between two CUDA events on its
-    stream, behind a short sleep kernel (``cycles``, SLEEP_CYCLES unless
-    given: a launch whose host side takes longer than the sleep, as on a
-    thread that shares the GIL with the coordinate loop, adds that wait)."""
+    (or ``entries``: ``WIDE_ENTRIES`` for the wide kernel) are wrapped so
+    that each launch sits between two CUDA events on its stream, behind a
+    short sleep kernel (``cycles``, SLEEP_CYCLES unless given: a launch
+    whose host side takes longer than the sleep, as on a thread that shares
+    the GIL with the coordinate loop, adds that wait)."""
 
     ENTRIES = ("quad_accumulate_launch", "quad_accumulate_staged_launch")
 
-    def __init__(self, cycles=SLEEP_CYCLES):
+    def __init__(self, cycles=SLEEP_CYCLES, entries=None):
         self.cycles = cycles
+        self.entries = entries or self.ENTRIES
 
     def __enter__(self):
         import torch
         from coolpuppy_tpu_torch.kernels.build import load_kernels
 
         self.lib = load_kernels()
-        self.saved = {name: getattr(self.lib, name) for name in self.ENTRIES}
+        self.saved = {name: getattr(self.lib, name) for name in self.entries}
         self.events = []
 
         def bracket(entry):
@@ -1984,24 +2025,33 @@ def check_rescale_wide_toy(dev):
     rtol 1e-5)."""
     from coolpuppy_tpu_torch import pileup
 
+    import coolpuppy_tpu_torch.ops.gather as ga
+
     clr, dense, weights = toy_cooler()
-    for group, modes, route in (("rescale", RESCALE_MODES, "rescale_torch"),
-                                ("wide", WIDE_MODES, "generic_torch")):
+    wide = "generic_cuda" if dev.type == "cuda" else "generic_torch"
+    for group, modes, route, cpu_route in (
+            ("rescale", RESCALE_MODES, "rescale_torch", "rescale_torch"),
+            ("wide", WIDE_MODES, wide, "generic_torch")):
         for name in modes:
             features, view, kw = phase7_inputs(group, name, clr, dense,
                                                weights)
+            ga.LAUNCHES = 0
             got = pileup(clr, features, view_df=view, device=dev, **kw,
                          **F32_WIRE)
+            launches = ga.LAUNCHES
             want = pileup(clr, features, view_df=view, device="cpu", **kw)
             err = compare_tables(got, want, what=f"{group} mode {name}",
                                  **ENGINE_MODES_TOL)
             routes = (got["accumulate"].iloc[0], want["accumulate"].iloc[0])
-            if routes != (route, route):
-                raise AssertionError(f"{group} mode {name}: routes {routes}")
+            if routes != (route, cpu_route) or (
+                    route == "generic_cuda") != (launches > 0):
+                raise AssertionError(f"{group} mode {name}: routes {routes}"
+                                     f", {launches} wide kernel launches")
             shape = np.asarray(got["data"].iloc[0]).shape
             print(f"{group} mode {name}: {len(got)} rows, n "
                   f"{list(got['n'])}, data {shape}, route {route}, "
-                  f"max_abs_err {err:.3g} ok")
+                  f"wide kernel launches {launches}, max_abs_err {err:.3g} "
+                  "ok")
 
 
 def rescale_workload(n_tads=2_000, n_bins=20_000, n_contacts=12_000_000,
@@ -2247,12 +2297,234 @@ def check_rescale_cell(dev, sync, card, workload=None):
     return ms
 
 
+class wide_calls:
+    """Record the arguments of every call of the engine's generic step
+    (``generic_accumulate``, looked up in the engine module at call time)
+    during a block (``calls``: ``(args, kwargs)``), for the kernel's bound
+    on that run's inputs and for holding the kernel against its plain
+    version on the same inputs after the block."""
+
+    MODULE = "coolpuppy_tpu_torch.engine.pileup"
+
+    def __enter__(self):
+        engine = importlib.import_module(self.MODULE)
+        self.inner = inner = engine.generic_accumulate
+        self.calls = calls = []
+
+        def recording(*args, **kw):
+            calls.append((args, kw))
+            return inner(*args, **kw)
+
+        engine.generic_accumulate = recording
+        return self
+
+    def __exit__(self, *exc):
+        importlib.import_module(self.MODULE).generic_accumulate = self.inner
+
+
+def wide_call_shape(stiles, tile_map, r1, r2, cid, W, C, **_):
+    """The bound's record of one ``generic_accumulate`` call: its work
+    items (``wide_items``), the stack pixels its windows cover, the groups
+    it adds to, its snips, W and C."""
+    import torch
+
+    from coolpuppy_tpu_torch.ops.gather import wide_items, wide_slots
+
+    slots, istart, icount, snips = wide_items(tile_map, r1, r2, cid, W, C)
+    return dict(pixels=covered_pixels(slots, istart, icount, snips, W),
+                groups=int(torch.unique(cid).numel()),
+                items=int(istart.shape[0]), slots=wide_slots(W) ** 2,
+                snips=int(snips.shape[0]), W=int(W), C=int(C))
+
+
+def wide_bound(calls):
+    """The least time the card could take for the generic step's ``calls``
+    (``wide_call_shape`` records): the bytes it must move (the stack pixels
+    its windows cover, the snip words and each item's span and R x R slots
+    read once; float32 ``sum``, ``num`` and ``poison`` of the groups it adds
+    to written once) over the card's memory rate, against one float add
+    per window pixel over its float32 rate. Returns ``(ms, "bytes" or
+    "operations", bytes, operations)``."""
+    nbytes = sum(4 * c["pixels"] + 4 * c["snips"]
+                 + c["items"] * (8 + 4 * c["slots"])
+                 + 12 * c["groups"] * c["W"] ** 2 for c in calls)
+    ops = sum(c["snips"] * c["W"] ** 2 for c in calls)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_FLOPS
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return 1e3 * max(t_bytes, t_ops), by, nbytes, ops
+
+
+def wide_shape_record(what, shapes, kernel_ms, launches, plain_ms, card):
+    """Print and return one shape's row of the wide kernel's table (as
+    ``shape_record`` does for the quad kernel's)."""
+    ms, by, nbytes, ops = wide_bound(shapes)
+    rec = dict(launches=launches, bound_ms=ms, bound_by=by, ms=kernel_ms,
+               plain_ms=plain_ms,
+               **{key: sum(c[key] for c in shapes)
+                  for key in ("pixels", "groups", "items", "snips")},
+               W=max(c["W"] for c in shapes),
+               C=max(c["C"] for c in shapes))
+    share = ("not measured" if not kernel_ms
+             else f"{kernel_ms:.3f} ms, bound/kernel {ms / kernel_ms:.4f}")
+    print(f"{what} wide kernel bound: {ms:.5f} ms by {by} ({nbytes} bytes, "
+          f"{ops} adds; W {rec['W']}, pixels {rec['pixels']}, groups "
+          f"{rec['groups']}, items {rec['items']}, snips {rec['snips']}, C "
+          f"{rec['C']}, launches {launches}); kernel {share}; plain version "
+          f"{'not measured' if plain_ms is None else f'{plain_ms:.3f} ms'} "
+          f"on {card}")
+    return rec
+
+
+def compare_wide(got, want, what, rtol=WIDE_RTOL, atol=1e-6):
+    """The wide kernel's accumulators (and stripes) against the plain
+    version's: ``num`` and ``poison`` exact, ``sum`` within tolerance,
+    stripe planes bit for bit with NaN positions equal. Returns the largest
+    absolute difference of the sums."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: keys {sorted(got)} vs {sorted(want)}")
+    for k in ("num", "poison"):
+        g, w = got[k].cpu().numpy(), want[k].cpu().numpy()
+        if not np.array_equal(g, w):
+            raise AssertionError(f"{what}: {k} differs at "
+                                 f"{int((g != w).sum())} entries")
+    gs, ws = got["sum"].cpu().numpy(), want["sum"].cpu().numpy()
+    if not np.isfinite(gs).all() or not np.isfinite(ws).all():
+        raise AssertionError(f"{what}: a sum is not finite")
+    np.testing.assert_allclose(gs, ws, rtol=rtol, atol=atol, err_msg=what)
+    for k in ("horizontal_stripe", "vertical_stripe"):
+        if k in got:
+            np.testing.assert_array_equal(got[k].cpu().numpy(),
+                                          want[k].cpu().numpy(),
+                                          err_msg=f"{what} {k}")
+    return float(np.abs(gs - ws).max(initial=0.0))
+
+
+def wide_case(W, seed, n_snips=60, groups=4, missing=2, long_run=0):
+    """A wide-kernel input on the CPU: a normalized cis stack of W + 330
+    bins with +inf poison (zero ``evec`` entries) and NaN-masked bins, a
+    snip stream whose windows cross tile edges, a tile that holds snips of
+    every group, ``long_run`` more snips in the first tile and the last
+    group (a run cut into items at ``ITEM_MAX``), and ``missing`` tiles the
+    windows touch removed from the map (slot 0, all NaN). Returns
+    ``(stiles, tile_map, r1, r2, cid)`` as CPU tensors (int64 map and
+    snips)."""
+    import torch
+    from scipy import sparse as sp
+
+    from coolpuppy_tpu_torch.ops.tiles import build_tile_stack, normalized_stack
+
+    rng = np.random.default_rng(seed)
+    n = W + 330
+    dense = rng.gamma(1.0, 1.0, (n, n)) * (rng.random((n, n)) < 0.3)
+    dense = np.triu(dense) + np.triu(dense, 1).T
+    r1 = rng.integers(0, n - W + 1, n_snips)
+    r2 = rng.integers(0, n - W + 1, n_snips)
+    r1[:8], r2[:8] = 3 + np.arange(8), 5 + np.arange(8)  # one tile
+    r1[8:12] = (0, 127, 128, n - W)
+    cid = rng.integers(0, groups, n_snips)
+    cid[:8] = np.arange(8) % groups
+    # the long run's windows at offsets drawn in the first tile: one window
+    # repeated a thousand times would add one value to itself in float32,
+    # whose rounding error grows with the count in any order of adds
+    r1 = np.r_[r1, rng.integers(0, B, long_run)]
+    r2 = np.r_[r2, rng.integers(0, B, long_run)]
+    cid = np.r_[cid, np.full(long_run, groups - 1)]
+    ts = build_tile_stack(sp.coo_matrix(dense), B, r1=r1, r2=r2, window1=W,
+                          window2=W)
+    valid = np.zeros(n + 512, np.float32)
+    valid[:n] = rng.random(n) > 0.05
+    evec = np.full(n + 512, np.nan, np.float32)
+    evec[:n] = 4.0 / (1.0 + np.arange(n))
+    evec[rng.integers(3, n, 3)] = 0.0
+    stiles = normalized_stack(ts, valid, valid, evec, "cpu", ooe=True,
+                              cis=True, ignore_diags=2)
+    tmap = np.asarray(ts.tile_map, np.int64).copy()
+    used = np.flatnonzero(tmap.ravel())
+    tmap.ravel()[rng.choice(used, missing, replace=False)] = 0
+    return (stiles, *(torch.from_numpy(np.asarray(a, np.int64))
+                      for a in (tmap, r1, r2, cid)))
+
+
+def wide_kernel_cases():
+    """Phase 7e's inputs: ``(name, W, C, case)`` per WIDE_KERNEL_W, with
+    ``case`` a ``wide_case`` of WIDE_CASE_SNIPS snips in 5 groups and 3
+    missing tiles; at W = 201 and 401 a run of ``ITEM_MAX + 77`` more snips
+    in one tile and group."""
+    from coolpuppy_tpu_torch.ops.gather import ITEM_MAX
+
+    for i, W in enumerate(WIDE_KERNEL_W):
+        long_run = ITEM_MAX + 77 if W in (201, 401) else 0
+        yield (f"W={W}", W, 8, wide_case(W, 300 + i, n_snips=WIDE_CASE_SNIPS,
+                                          groups=5, missing=3,
+                                          long_run=long_run))
+
+
+def check_wide_case(name, W, C, case, dev, sync):
+    """One phase-7e case on ``dev``: ``generic_accumulate`` with stripes
+    (the wide kernel on a card: it must launch once) against
+    ``generic_accumulate_plain`` on the same tensors (``compare_wide``),
+    then each timed once: the kernel between CUDA events around its launch,
+    the plain version between CUDA events. Returns ``(max_abs_err,
+    launches, kernel ms, plain ms, want)``."""
+    import coolpuppy_tpu_torch.ops.gather as ga
+
+    args = tuple(x.to(dev) for x in case)
+    want = ga.generic_accumulate_plain(*args, W, C, stripes=True)
+    before = ga.LAUNCHES
+    got = ga.generic_accumulate(*args, W, C, stripes=True)
+    sync()
+    launches = ga.LAUNCHES - before
+    if launches != 1:
+        raise AssertionError(f"wide kernel {name}: {launches} launches; "
+                             "the kernel did not run")
+    err = compare_wide(got, want, what=f"wide kernel vs plain {name}")
+    with quad_kernel_events(entries=WIDE_ENTRIES) as ev:
+        ga.generic_accumulate(*args, W, C)
+        sync()
+    plain_ms = event_ms(lambda: ga.generic_accumulate_plain(*args, W, C),
+                        sync)
+    return err, launches, sum(ev.ms), plain_ms, want
+
+
+def check_wide_kernels(dev, sync, card):
+    """Phase 7e: the wide kernel against its plain version at every W of
+    WIDE_KERNEL_W (``wide_kernel_cases``: missing tiles, +inf poison,
+    NaN-masked pixels, several groups in one tile, a run cut at
+    ``ITEM_MAX``, stripes), each with its bound. Returns ``(max_abs_err,
+    {name: shape record})``."""
+    from coolpuppy_tpu_torch.ops.gather import wide_bands, wide_slots
+
+    errs, shapes = [], {}
+    for name, W, C, case in wide_kernel_cases():
+        err, launches, ms, plain_ms, want = check_wide_case(
+            name, W, C, case, dev, sync)
+        errs.append(err)
+        shape = wide_call_shape(*(x.to(dev) for x in case), W, C)
+        print(f"wide kernel vs plain {name}: R {wide_slots(W)}, bands "
+              f"{wide_bands(W)}, items {shape['items']}, snips "
+              f"{shape['snips']}, C {C}, launches {launches}, num "
+              f"{int(want['num'].sum())}, poison {int(want['poison'].sum())}"
+              f", stripes equal, max_abs_err {err:.3g} ok")
+        shapes[f"7e {name}"] = wide_shape_record(
+            f"7e {name}", [shape], ms, launches, plain_ms, card)
+    return max(errs), shapes
+
+
 def check_wide_cell(dev, sync, card, workload=None):
     """Phase 7c: 201-bin windows on the engine map (``engine_workload``
-    with WIDE_CELL_SITES sites): a checked run (route ``generic_torch``),
-    the same call on WIDE_SUBSET_SITES sites on the card against the CPU
-    (counts exact, ``data`` rtol 1e-4) and timed runs. Returns the generic
-    step's device ms of one run."""
+    with WIDE_CELL_SITES sites): a checked run whose generic step must
+    launch the wide kernel (route ``generic_cuda`` on a card), each of its
+    calls held against the plain version on the same inputs (counts exact,
+    ``sum`` rtol 1e-4), the same run with the plain version in the engine's
+    step (``data`` rtol 1e-4, counts exact), the same call on
+    WIDE_SUBSET_SITES sites on the card against the CPU, timed runs, and
+    the kernel's time over its launches beside its bound and the plain
+    version's. Returns the wide kernel's record (launches, ms, plain_ms,
+    bound, max_abs_err, ``shapes``), with the generic step's device span of
+    one run as ``step_ms``."""
+    import torch
+
+    import coolpuppy_tpu_torch.ops.gather as ga
     from coolpuppy_tpu_torch import CoordCreator, PileUpper, pileup
 
     t, (clr, feats) = timed(
@@ -2266,16 +2538,73 @@ def check_wide_cell(dev, sync, card, workload=None):
         return pileup(clr, f, device=device, **WIDE_CELL_KW)
 
     W = 2 * (WIDE_CELL_KW["flank"] // clr.binsize) + 1
-    t, checked = timed(lambda: run(feats), sync)
+    expect = "generic_cuda" if dev.type == "cuda" else "generic_torch"
+    ga.LAUNCHES = 0
+    with wide_calls() as called, \
+            quad_kernel_events(entries=WIDE_ENTRIES) as ev:
+        t, checked = timed(lambda: run(feats), sync)
+    launches = ga.LAUNCHES
     route = checked["accumulate"].iloc[0]
     n_snips = engine_snips(checked)
     data = np.stack(checked["data"].to_list())
-    if route != "generic_torch" or data.shape[1:] != (W, W) or \
+    if launches < 1 or route != expect or data.shape[1:] != (W, W) or \
             not np.isfinite(data).any():
-        raise AssertionError(f"wide checked run: route {route!r}, data "
-                             f"{data.shape}")
+        raise AssertionError(f"wide checked run: {launches} launches, route "
+                             f"{route!r}, data {data.shape}")
+    kernel_ms = sum(ev.ms)
     print(f"wide checked run: {n_snips} snips, {len(checked)} rows, W {W}, "
-          f"route {route} on {checked['device'].iloc[0]}, {t:.2f} s")
+          f"route {route} on {checked['device'].iloc[0]}, launches "
+          f"{launches} in {len(called.calls)} step calls, {t:.2f} s")
+
+    errs, shapes = [], []
+    for args, kw in called.calls:
+        got = ga.generic_accumulate(*args, **kw)
+        want = ga.generic_accumulate_plain(*args, **kw)
+        errs.append(compare_wide(got, want, rtol=HEADLINE_RTOL,
+                                 what="wide step call vs plain"))
+        shapes.append(wide_call_shape(*args))
+        del got, want
+    print(f"wide step calls vs plain on the same inputs ({len(errs)} "
+          f"calls): counts exact, sum max_abs_err {max(errs):.3g} (rtol "
+          f"{HEADLINE_RTOL}) ok")
+    del called
+
+    spans = []
+    engine = importlib.import_module(wide_calls.MODULE)
+    routed = engine.generic_accumulate
+
+    def plain(*a, **k):
+        if dev.type != "cuda":
+            t0 = time.perf_counter()
+            out = ga.generic_accumulate_plain(*a, **k)
+            spans.append(1e3 * (time.perf_counter() - t0))
+            return out
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = ga.generic_accumulate_plain(*a, **k)
+        t1.record()
+        spans.append((t0, t1))
+        return out
+
+    engine.generic_accumulate = plain
+    try:
+        ga.LAUNCHES = 0
+        swapped = run(feats)
+        if ga.LAUNCHES != 0:
+            raise AssertionError("wide plain-swapped run launched the kernel")
+    finally:
+        engine.generic_accumulate = routed
+    sync()
+    PLAIN_MS["wide"] = sum(x if isinstance(x, float) else
+                           x[0].elapsed_time(x[1]) for x in spans)
+    err = compare_tables(checked, swapped, rtol=ENGINE_RTOL, atol=1e-7,
+                         what="wide kernel vs plain")
+    print(f"wide kernel vs plain (whole run, plain version "
+          f"{PLAIN_MS['wide']:.1f} ms): counts exact, data max_abs_err "
+          f"{err:.3g} (rtol {ENGINE_RTOL}) ok")
+    del swapped
+
     sub = feats.iloc[:WIDE_SUBSET_SITES]
     got = run(sub)
     t, want = timed(lambda: run(sub, device="cpu"), lambda: None)
@@ -2293,9 +2622,25 @@ def check_wide_cell(dev, sync, card, workload=None):
         pu = PileUpper(clr, cc, control=True, device=dev)
         return pu, pu.pileupsByStrandWithControl()
 
-    return time_cell("wide", run_timed, engine_snips, n_snips,
-                     "generic_accumulate", dev, sync, card,
-                     lambda: run(feats))
+    timed_runs("wide", run_timed, CELL_REPEATS, n_snips, sync, card,
+               engine_snips)
+    with step_timer("generic_accumulate", dev) as st:
+        run_timed()
+    print(f"wide generic_accumulate: device span {st.ms:.3f} ms (CUDA "
+          f"events around each of {st.calls} calls, idle gaps included) in "
+          "one run")
+    print("wide device busy share of one run: "
+          + busy_share(lambda: run(feats), sync, "wide_accumulate"))
+    rec = wide_shape_record("7c", shapes, kernel_ms, launches,
+                            PLAIN_MS["wide"], card)
+    print(f"wide kernel (summed over the checked run's launches, CUDA "
+          f"events): {kernel_ms:.3f} ms in {launches} launches; plain "
+          f"version {PLAIN_MS['wide']:.3f} ms; bound {rec['bound_ms']:.5f} ms"
+          f" by {rec['bound_by']} on {card}")
+    return dict(launches=launches, max_abs_err=max(errs), ms=kernel_ms,
+                plain_ms=PLAIN_MS["wide"], bound_ms=rec["bound_ms"],
+                bound_by=rec["bound_by"], step_ms=st.ms,
+                shapes={"wide": rec})
 
 
 def direct_swapped(what, run):
@@ -3531,7 +3876,10 @@ MESH_MODES = {
                     route="rescale_torch"),
     "wide_banded": dict(map="dry", kw=dict(
         flank=61_000_000, mindist=0, maxdist=200_000_000, nshifts=1, seed=0,
-        by_strand=True), banded=True, route="generic_torch"),
+        by_strand=True), banded=True, route="generic"),
+    "wide_replicated": dict(map="toy_whole", kw=dict(WIDE_KW, nshifts=1,
+                                                      seed=0, by_strand=True),
+                            route="generic"),
     "stripes_banded": dict(map="dry", kw=dict(
         flank=3_000_000, mindist=0, maxdist=60_000_000, store_stripes=True),
         banded=True),
@@ -3588,6 +3936,7 @@ def mesh_maps():
     return {
         "toy": (clr, toy_features(), toy_regions(),
                 toy_expected(clr, dense, weights, toy_regions())),
+        "toy_whole": (clr, toy_features(), toy_chrom_view(clr), None),
         "dry": (toy_map(), toy_sites(), None, None),
     }
 
@@ -3615,10 +3964,15 @@ def check_mesh_modes(dev):
     n in MESH_SIZES, held against the single-device run on ``dev`` and the
     ``LociMesh(["cpu"] * n)`` run as in 5a; the ``_rowshard_*`` counters
     equal to the CPU run's; on the quad route a launch on every device that
-    holds snips; the current CUDA device unchanged after the runs. Returns
-    ``{mode: launches per device}`` of the largest mesh."""
+    holds snips; on the generic route (``generic_cuda`` on the card) the
+    wide kernel launched, through the row-sharded step where the mode bands
+    and the loci-sharded one where it replicates; the current CUDA device
+    unchanged after the runs. Returns ``{mode: launches per device}`` of
+    the largest mesh (the quad kernel's; the wide kernel's launches of
+    each mesh are printed)."""
     import torch
 
+    import coolpuppy_tpu_torch.ops.gather as ga
     import coolpuppy_tpu_torch.ops.quad_gather as qg
     from coolpuppy_tpu_torch.parallel import LociMesh
 
@@ -3629,15 +3983,21 @@ def check_mesh_modes(dev):
     for name, spec in MESH_MODES.items():
         _, single = mesh_mode_run(name, maps, dev)
         for n in MESH_SIZES:
-            qg.LAUNCHES = 0
+            qg.LAUNCHES = ga.LAUNCHES = 0
             pu, got = mesh_mode_run(name, maps, dev, LociMesh([dev] * n))
-            launched = qg.LAUNCHES
+            launched, wide = qg.LAUNCHES, ga.LAUNCHES
             cpu_pu, want = mesh_mode_run(name, maps, "cpu",
                                          LociMesh(["cpu"] * n))
             # the quad route must launch on the card (and where a CPU
-            # rehearsal counts its plain version as launches)
+            # rehearsal counts its plain version as launches); the generic
+            # route on the card must launch the wide kernel
             route = spec.get("route") or (
                 "cuda_kernel" if cuda or launched else "plain")
+            if route == "generic":
+                route = "generic_cuda" if cuda else "generic_torch"
+                if cuda and wide < 1:
+                    raise AssertionError(f"mesh mode {name} n={n}: the wide "
+                                         "kernel did not launch")
             what = f"mesh mode {name} n={n}"
             err = compare_tables(got, single, what=what + " vs one device",
                                  **ENGINE_MODES_TOL)
@@ -3664,6 +4024,7 @@ def check_mesh_modes(dev):
             launches[name] = st["launches"]
             print(f"{what}: {len(got)} rows, n {list(got['n'])}, route "
                   f"{route}, banded {counters[0]}, fallbacks {counters[1]}, "
+                  f"wide kernel launches {wide}, "
                   f"replicated {st['replicated']}, snips per device "
                   f"{st['snips']}, launches per device {st['launches']}, "
                   f"stack bytes per device {st['stack_bytes']}, halo bytes "
@@ -4867,6 +5228,7 @@ def main(argv=None):
     # jax or of the JAX package comes in with it
     from bench import make_workload
     from coolpuppy_tpu_torch.kernels.build import build, load_kernels
+    from coolpuppy_tpu_torch.ops import gather as ga
     from coolpuppy_tpu_torch.ops import quad_gather as qg
 
     dev = torch.device("cuda", 0)
@@ -4903,6 +5265,15 @@ def main(argv=None):
               f"{qg.staged_occupancy(W, dev)}")
     print(f"staged kernel: largest one-band W {last_single}, first banded W "
           f"{first_banded} ({qg.SMEM_MAX} bytes of shared memory a block)")
+    for W in WIDE_KERNEL_W:
+        bands = load_kernels().wide_accumulate_bands(W)
+        if bands != ga.wide_bands(W):
+            raise AssertionError(f"wide kernel W={W}: the library cuts "
+                                 f"{bands} bands, the wrapper "
+                                 f"{ga.wide_bands(W)}")
+        print(f"wide kernel W={W}: slots {ga.wide_slots(W)} x "
+              f"{ga.wide_slots(W)}, {bands} blocks an item of "
+              f"{ga.WIDE_BAND} pixels, 256 threads")
 
     # the kernel's record: phase 4 fills it; a run without phase 4 lists
     # the kernel with the shapes of the phases it did run, and null for
@@ -4910,6 +5281,11 @@ def main(argv=None):
     record = dict(KERNEL, launches=None, max_abs_err=None, ms=None,
                   plain_ms=None, bound_ms=None, bound_by=None,
                   library_ms=None, shapes={})
+    # the wide kernel's record: phase 7 fills it (7c the main path, 7e the
+    # kernel at every W); no single PyTorch call computes its function
+    wide_record = dict(WIDE_KERNEL, launches=None, max_abs_err=None, ms=None,
+                       plain_ms=None, bound_ms=None, bound_by=None,
+                       library_ms=None, shapes={})
     # each phase's seconds, printed as it ends: the script must stay well
     # inside the time limit as phases are added
     mark = [time.perf_counter()]
@@ -4951,13 +5327,17 @@ def main(argv=None):
                                                record["shapes"])
         phase_done(6)
 
-    # -- 7. rescale and W > 120: toy map, the two cells; the W = 119 cell -
+    # -- 7. rescale and W > 120: toy map, the two cells; the W = 119 cell;
+    # the wide kernel against its plain version ---------------------------
     if 7 in phases:
         check_rescale_wide_toy(dev)
         check_rescale_cell(dev, sync, card)
-        check_wide_cell(dev, sync, card)
+        wide_record.update(check_wide_cell(dev, sync, card))
         record["w119_launches"] = check_w119_cell(dev, sync, card,
                                                   record["shapes"])
+        err, shapes = check_wide_kernels(dev, sync, card)
+        wide_record["max_abs_err"] = max(wide_record["max_abs_err"], err)
+        wide_record["shapes"].update(shapes)
         phase_done(7)
 
     # -- 8. the extension hooks: toy map, bench_extension, BEDPE windows --
@@ -5014,7 +5394,7 @@ def main(argv=None):
 
     # -- result -----------------------------------------------------------
     print(card)
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [record, wide_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

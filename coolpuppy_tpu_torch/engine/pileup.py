@@ -11,9 +11,11 @@ stack. Three routes accumulate the windows:
   ``quad_gather.quad_accumulate`` adds every window into per-group sums and
   finite counts (the hand-written CUDA kernel on a CUDA device, the plain
   PyTorch version on the CPU);
-- ``generic_torch`` (W > 120, the reference's cutoff): windows cut from the
-  stack by one index gather per block, summed by ``index_add_``
-  (``ops/gather.generic_accumulate``);
+- ``generic_cuda`` / ``generic_torch`` (W > 120, the reference's cutoff):
+  ``ops/gather.generic_accumulate`` adds every window into per-group sums,
+  finite counts and poison counts (the hand-written wide kernel on a CUDA
+  device, the plain PyTorch version on the CPU: windows cut by one index
+  gather per block, summed by ``index_add_``);
 - ``rescale_torch`` (``rescale=True``): variable-size windows in pow2 extent
   buckets (at least 128), each resized to R×R by float32 area-overlap
   matmuls (``ops/rescale.rescale_accumulate``).
@@ -431,6 +433,12 @@ def _take(bufs, n):
 
 def _next_pow2(x):
     return 1 << max(0, int(np.ceil(np.log2(max(1, int(x))))))
+
+
+def _generic_route(stiles):
+    """The generic step's route on the device of ``stiles``: the wide
+    kernel on a card, its plain version on the CPU."""
+    return "generic_cuda" if stiles.device.type == "cuda" else "generic_torch"
 
 
 def _block_half(W):
@@ -1779,7 +1787,7 @@ class PileUpper:
 
         half = min(_next_pow2(G), _block_half(W))
         out = self._torch_blocks(arr, G, half, step)
-        self._routes.add("generic_torch")
+        self._routes.add(_generic_route(stiles))
         self._side_outputs(dev, arr, W, G, out)
         for k in _STRIPE_KEYS:
             if k in out:
@@ -2082,7 +2090,7 @@ class PileUpper:
                 for k, v in acc.items()
             }
             _put_block(out, merge_flip_banks(banks, span), base, G)
-        self._routes.add("generic_torch")
+        self._routes.add(_generic_route(stacks[0]))
         self._side_outputs(dev, arr, W, G, out)
         for k, v in planes.items():
             out[k] = v[arr["roi"]]
@@ -2803,7 +2811,8 @@ class PileUpper:
         """Run-parameter provenance columns (reference coolpup.py:1628–1654),
         plus the port's own: the backend, the device, the accumulate routes
         the regions took (``cuda_kernel`` or ``plain`` for the quad kernel,
-        ``generic_torch``, ``rescale_torch``, and ``batch_hook`` or
+        ``generic_cuda`` or ``generic_torch`` for the wide one,
+        ``rescale_torch``, and ``batch_hook`` or
         ``host_stream`` for the hook routes that fold on the host) and the
         reference keywords the port accepts and ignores."""
         fname = self.clr.filename

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 Every ``coolpuppy_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, at first
-use, and loaded with ``ctypes``. The library lands in
+(``sm_90a``), one compiler process a source, all at once, and linked into
+one shared library with a plain C interface, at first use, and loaded with
+``ctypes``. The library lands in
 ``build/kernels/<hash>/libcoolpuppy_kernels.so`` at the root of the
 checkout, where ``<hash>`` covers the sources and the compiler flags, so an
 edited source is rebuilt and an unchanged one is reused. Delete
@@ -30,8 +31,9 @@ BUILD_ROOT = PKG.parent / "build" / "kernels"
 LIB_NAME = "libcoolpuppy_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
+LINK_FLAGS = ["-shared"]
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -65,12 +67,27 @@ def source_hash():
     for f in sources():
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run the commands at once, one process each; raise with the first
+    failure's output. Returns their joined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build(verbose=False):
-    """Compile the sources unless a library for their hash exists. Returns
+    """Compile the sources unless a library for their hash exists: one
+    ``nvcc -c`` a source, all started together, then one link. Returns
     the library's path. With ``verbose``, asks ptxas for register and
     shared-memory use and prints the compiler's output."""
     out_dir = BUILD_ROOT / source_hash()
@@ -82,27 +99,22 @@ def build(verbose=False):
         raise KernelBuildError(f"no CUDA sources in {CSRC}")
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    # compile to a temporary name and rename, so a concurrent or cut build
-    # never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, *map(str, srcs)]
+    # build in a temporary directory and rename the library, so a
+    # concurrent or cut build never leaves a half-written one under the
+    # final name
+    tmp = tempfile.mkdtemp(dir=out_dir)
+    flags = [*NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else [])]
+    objs = [os.path.join(tmp, f"{src.stem}.o") for src in srcs]
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise KernelBuildError(
-                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                f"{res.stdout}{res.stderr}"
-            )
+        out = _run_all([[nvcc, *flags, "-c", "-o", obj, str(src)]
+                        for src, obj in zip(srcs, objs)])
+        link = os.path.join(tmp, LIB_NAME)
+        out += _run_all([[nvcc, *LINK_FLAGS, "-o", link, *objs]])
         if verbose:
-            print(res.stdout + res.stderr, end="")
-        os.replace(tmp, lib)
+            print(out, end="")
+        os.replace(link, lib)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(tmp, ignore_errors=True)
     return lib
 
 
@@ -124,8 +136,17 @@ def load_kernels():
             f = lib.quad_accumulate_staged_occupancy
             f.argtypes = [ci, ci, ci, ci, ci]
             f.restype = ci
-            e = lib.quad_accumulate_error_string
-            e.argtypes = [ci]
-            e.restype = ctypes.c_char_p
+            f = lib.wide_accumulate_launch
+            f.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp,
+                          ci]
+            f.restype = ci
+            f = lib.wide_accumulate_bands
+            f.argtypes = [ci]
+            f.restype = ci
+            for name in ("quad_accumulate_error_string",
+                         "wide_accumulate_error_string"):
+                e = getattr(lib, name)
+                e.argtypes = [ci]
+                e.restype = ctypes.c_char_p
             _LIB = lib
         return _LIB

@@ -623,23 +623,14 @@ class QuadPileupSession:
         masked pixels are NaN and poison stays +inf. ``f16`` casts them to
         float16 on the device, with no scale (reference
         ``make_stripe_gather_hv(W, B, True)``)."""
-        W, B = self.W, B_TILE
-        mid = W // 2
         if not hasattr(self, "_tmap_dev"):
             self._tmap_dev = torch.from_numpy(
                 np.asarray(self.tile_map, np.int64)
             ).to(self.device)
-        tmap = self._tmap_dev
-        ar = torch.arange(W, device=self.device)
         a = torch.from_numpy(np.asarray(r1, np.int64)).to(self.device)
         b = torch.from_numpy(np.asarray(r2, np.int64)).to(self.device)
-        row = (a + mid)[:, None]  # horizontal: one row, W columns
-        col = b[:, None] + ar[None, :]
-        h = self.stiles[tmap[row // B, col // B], row % B, col % B]
-        row = a[:, None] + ar[None, :]  # vertical: W rows, one column
-        col = (b + mid)[:, None]
-        v = self.stiles[tmap[row // B, col // B], row % B, col % B]
-        hv = torch.cat([h, v], dim=1)
+        hv = torch.cat(centre_lines(self.stiles, self._tmap_dev, a, b,
+                                    self.W), dim=1)
         return hv.to(torch.float16) if f16 else hv
 
     @staticmethod
@@ -660,6 +651,22 @@ class QuadPileupSession:
         res = {k: v.to(torch.float64).cpu().numpy() for k, v in total.items()}
         res["poison"] = np.isinf(res["sum"]).astype(np.float64)
         return res
+
+
+def centre_lines(stiles, tmap, a, b, W):
+    """The centre row and the centre column of the W x W windows starting
+    at ``(a, b)`` (int64 tensors on the device of ``stiles``), gathered
+    through the device tile map ``tmap``: two [n, W] tensors, the column
+    top to bottom, values as the stack holds them."""
+    B, mid = B_TILE, W // 2
+    ar = torch.arange(W, device=stiles.device)
+    row = (a + mid)[:, None]  # horizontal: one row, W columns
+    col = b[:, None] + ar[None, :]
+    h = stiles[tmap[row // B, col // B], row % B, col % B]
+    row = a[:, None] + ar[None, :]  # vertical: W rows, one column
+    col = (b + mid)[:, None]
+    v = stiles[tmap[row // B, col // B], row % B, col % B]
+    return h, v
 
 
 def stripes_host(stiles, tile_map, r1, r2, W):

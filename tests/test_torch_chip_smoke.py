@@ -1,15 +1,17 @@
 """CPU rehearsals of ``chip_smoke.py``'s phases at a tiny size (5b, 6b,
-7b-7d, 3, 4, 8a-8c, 9a/9b, 10, 11a-11d, 12a-12c, 13a-13c): the same control
+7b-7e, 3, 4, 8a-8c, 9a/9b, 10, 11a-11d, 12a-12c, 13a-13c): the same control
 flow, checks and timing lines,
-with ``quad_accumulate`` swapped for a plain version that counts its calls
-as launches (the CUDA kernel cannot run here)."""
+with the kernels' wrappers swapped for plain versions that count their
+calls as launches (the CUDA kernels cannot run here)."""
 
 import importlib
 import sys
 from pathlib import Path
 
+import pytest
 import torch
 
+import coolpuppy_tpu_torch.ops.gather as ga
 import coolpuppy_tpu_torch.ops.quad_gather as qg
 
 REPO = Path(__file__).resolve().parent.parent
@@ -43,10 +45,48 @@ def test_modes_phase_rehearsal(monkeypatch, capsys):
     assert "stripe rows equal stripes_host" in out
 
 
+def _fake_wide_kernel(monkeypatch):
+    """The wide kernel's stand-in: ``generic_accumulate``, in the gather
+    module and where the engine looked it up, runs the plain version on the
+    CPU and counts a launch where the kernel's wrapper would; the CUDA
+    events around each launch read one millisecond."""
+    engine = importlib.import_module("coolpuppy_tpu_torch.engine.pileup")
+    plain = ga.generic_accumulate_plain
+    fired = []  # one entry a launch, never reset
+
+    def launched(stiles, tile_map, r1, r2, cid, W, C, stripes=False,
+                 block=None):
+        if len(r1):
+            ga.LAUNCHES += 1
+            fired.append(W)
+        return plain(stiles, tile_map, r1, r2, cid, W, C, stripes=stripes,
+                     block=block)
+
+    class trace:
+        def __init__(self, cycles=None, entries=None):
+            assert entries == chip_smoke.WIDE_ENTRIES
+
+        def __enter__(self):
+            self.before = len(fired)
+            return self
+
+        def __exit__(self, *exc):
+            self.ms = [1.0] * (len(fired) - self.before)
+
+    monkeypatch.setattr(ga, "generic_accumulate", launched)
+    monkeypatch.setattr(engine, "generic_accumulate", launched)
+    monkeypatch.setattr(chip_smoke, "quad_kernel_events", trace)
+    monkeypatch.setattr(chip_smoke, "event_ms",
+                        lambda fn, sync: chip_smoke.timed(fn, sync)[0] * 1e3)
+    return fired
+
+
 def test_rescale_and_wide_phase_rehearsal(monkeypatch, capsys):
-    """Phase 7b and 7c at a tiny size: 50 TADs (widths cut to a quarter so
-    the extents stay within two 128-bin buckets) held against the host
-    loop, and 200 sites at W = 123."""
+    """Phase 7b, 7c and 7e at a tiny size: 50 TADs (widths cut to a quarter
+    so the extents stay within two 128-bin buckets) held against the host
+    loop, 200 sites at W = 123 through the wide kernel's stand-in (its
+    calls, the plain-swapped run, the bound), and the wide kernel's cases
+    at every W on 40 snips, with runs cut at 30."""
     full_rescale = chip_smoke.rescale_workload
 
     def rescale_workload():
@@ -58,9 +98,10 @@ def test_rescale_and_wide_phase_rehearsal(monkeypatch, capsys):
                                        "cpu rehearsal",
                                        workload=rescale_workload)
     assert sorted(ms) == ["local", "local_ooe"]
+    fired = _fake_wide_kernel(monkeypatch)
     monkeypatch.setattr(chip_smoke, "WIDE_CELL_KW", dict(
         chip_smoke.WIDE_CELL_KW, flank=610_000, maxdist=1_500_000))
-    chip_smoke.check_wide_cell(
+    rec = chip_smoke.check_wide_cell(
         torch.device("cpu"), lambda: None, "cpu rehearsal",
         workload=lambda: chip_smoke.engine_workload(
             n_sites=200, n_bins=1_500, n_contacts=150_000),
@@ -74,6 +115,30 @@ def test_rescale_and_wide_phase_rehearsal(monkeypatch, capsys):
     assert "W 123, route generic_torch" in out
     assert "wide generic_accumulate: device span" in out
     assert "wide snips/s:" in out
+    assert "wide step calls vs plain on the same inputs" in out
+    assert "wide kernel vs plain (whole run, plain version" in out
+    assert rec["launches"] >= 1 and rec["ms"] == float(rec["launches"])
+    assert rec["plain_ms"] == chip_smoke.PLAIN_MS["wide"] > 0
+    assert rec["bound_by"] in ("bytes", "operations") and rec["bound_ms"] > 0
+    shape = rec["shapes"]["wide"]
+    assert shape["W"] == 123 and shape["snips"] > 200
+    assert shape["snips"] * 123 < shape["pixels"] < shape["snips"] * 123 ** 2
+
+    monkeypatch.setattr(chip_smoke, "WIDE_CASE_SNIPS", 40)
+    monkeypatch.setattr(ga, "ITEM_MAX", 30)
+    before = len(fired)
+    err, shapes = chip_smoke.check_wide_kernels(
+        torch.device("cpu"), lambda: None, "cpu rehearsal")
+    assert fired[before:] == [W for W in chip_smoke.WIDE_KERNEL_W
+                              for _ in range(2)]
+    assert err == 0.0
+    out = capsys.readouterr().out
+    for W in chip_smoke.WIDE_KERNEL_W:
+        rec = shapes[f"7e W={W}"]
+        assert rec["launches"] == 1 and rec["W"] == W and rec["ms"] == 1.0
+        assert rec["snips"] == 40 + (107 if W in (201, 401) else 0)
+        assert f"wide kernel vs plain W={W}: R " in out
+        assert f"7e W={W} wide kernel bound:" in out
 
 
 
@@ -411,25 +476,32 @@ def test_genome_phase_rehearsal(monkeypatch, capsys):
         assert line in out, line
 
 
-def test_covered_pixels_counts_each_stack_pixel_once():
+@pytest.mark.parametrize("W,n", [(21, 400), (201, 20)],
+                         ids=["quad W21", "wide W201"])
+def test_covered_pixels_counts_each_stack_pixel_once(W, n):
     """The kernel bound's bytes read: the union of the pixels every window
-    covers, through each work item's four tile slots, against a brute-force
-    count over the cut windows."""
+    covers, through each work item's tile slots (a quad item's four, a wide
+    item's R x R), against a brute-force count over the cut windows."""
     import numpy as np
 
     rng = np.random.default_rng(3)
-    W, n = 21, 400
     nt = 5
     tmap = np.zeros((nt + 1, nt + 1), np.int32)
     tmap[:nt, :nt] = rng.permutation(nt * nt).reshape(nt, nt) + 1
     tmap[2, 3] = 0  # a missing tile reads slot 0
     r1 = rng.integers(0, nt * 128 - W, n)
     r2 = rng.integers(0, nt * 128 - W, n)
-    snips, k, qs, qc = qg.sort_quads(r1, r2, rng.integers(0, 5, n), tmap,
-                                     128)
-    k, qs, qc = qg.split_items(k, qs, qc, item_max=7)
-    got = chip_smoke.covered_pixels(*(torch.from_numpy(a) for a in
-                                      (k, qs, qc, snips)), W, block=5)
+    cid = rng.integers(0, 5, n)
+    if W <= qg.W_MAX:
+        snips, k, qs, qc = qg.sort_quads(r1, r2, cid, tmap, 128)
+        items = (*qg.split_items(k, qs, qc, item_max=7), snips)
+        items = [torch.from_numpy(a) for a in items]
+    else:
+        items = ga.wide_items(*(torch.from_numpy(np.asarray(a, np.int64))
+                                for a in (tmap, r1, r2, cid)), W, 5,
+                              item_max=7)
+        assert items[0].shape[1] == 9
+    got = chip_smoke.covered_pixels(*items, W, block=5)
     cells = set()
     for a, b in zip(r1, r2):
         for i in range(a, a + W):
