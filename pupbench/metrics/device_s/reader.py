@@ -1,0 +1,7 @@
+"""``device_s``: the engine's ``device`` phase, seconds a job."""
+
+from pupbench.readers import phase_per_job
+
+
+def read(ctx):
+    return phase_per_job(ctx, "device")

@@ -1,0 +1,7 @@
+"""``finalize_s``: the engine's ``finalize`` phase, seconds a job."""
+
+from pupbench.readers import phase_per_job
+
+
+def read(ctx):
+    return phase_per_job(ctx, "finalize")

@@ -1,0 +1,7 @@
+"""``ingest_s``: the engine's ``ingest`` phase, seconds a job."""
+
+from pupbench.readers import phase_per_job
+
+
+def read(ctx):
+    return phase_per_job(ctx, "ingest")
