@@ -21,6 +21,7 @@ center (rescaled pileups) in place of the fixed ``flank``.
 
 from __future__ import annotations
 
+import contextlib
 import warnings
 import zlib
 
@@ -143,7 +144,10 @@ def swap_paired_columns_for_flipped(intervals, exclude_bases=()):
 
 class CoordCreator:
     """Same constructor surface as the reference CoordCreator
-    (reference coolpup.py:151–257)."""
+    (reference coolpup.py:151–257), plus ``timers``: the job's
+    ``PhaseTimers``, whose span log then holds the detail spans
+    ``coords/sweep`` (the cis pair enumeration) and ``coords/frames``
+    (``_finalize``: controls, the modify function, groups)."""
 
     def __init__(
         self,
@@ -164,7 +168,9 @@ class CoordCreator:
         trans=False,
         seed=None,
         chunk_size=262_144,
+        timers=None,
     ):
+        self.timers = timers
         self.intervals = features.copy()
         self.resolution = int(resolution)
         self.features_format = features_format
@@ -614,12 +620,17 @@ class CoordCreator:
         base |= {"stBin", "endBin"}
         return [c for c in self.intervals.columns if c in base]
 
+    def _detail(self, name):
+        timers = self.timers
+        return timers.detail(name) if timers else contextlib.nullcontext()
+
     def _finalize(self, frame, control, groupby, modify_func, rng):
-        frame = self.control_regions(frame, self.nshifts if control else 0, rng=rng)
-        if modify_func is not None:
-            frame = modify_func(frame)
-        frame = assign_groups(frame, groupby)
-        return frame
+        with self._detail("coords/frames"):
+            frame = self.control_regions(frame, self.nshifts if control else 0,
+                                         rng=rng)
+            if modify_func is not None:
+                frame = modify_func(frame)
+            return assign_groups(frame, groupby)
 
     def _batches_bedpe(self, region1, region2, control, groupby,
                        modify_func, use=None):
@@ -797,7 +808,13 @@ class CoordCreator:
             )
             for c in cols
         }
-        for ls, rs in self._iter_cis_pair_chunks(centers):
+        pairs = self._iter_cis_pair_chunks(centers)
+        while True:
+            with self._detail("coords/sweep"):
+                got = next(pairs, None)
+            if got is None:
+                return
+            ls, rs = got
             data = {c + "1": arrs[c].take(ls) for c in cols}
             data.update({c + "2": arrs[c].take(rs) for c in cols})
             data["distance"] = centers[rs] - centers[ls]

@@ -80,7 +80,6 @@ import os
 import pickle
 import re
 import threading
-import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 from functools import partial, reduce
@@ -299,8 +298,9 @@ class _QuadStream:
     ``stripe_planes`` waits on."""
 
     def __init__(self, future, half, chunk, device, stripes=False,
-                 timers=None, stripe_f16=False):
+                 timers=None, stripe_f16=False, region=None):
         self._fut = future
+        self.region = region
         self.session = None
         self.half = half
         self.chunk = chunk
@@ -322,7 +322,7 @@ class _QuadStream:
         if not self._fut.done():
             if not block:
                 return False
-            ctx = (self.timers.phase("wait") if self.timers
+            ctx = (self.timers.phase("wait", self.region) if self.timers
                    else contextlib.nullcontext())
             with ctx:
                 self._fut.result()
@@ -584,7 +584,10 @@ class PileUpper:
     balanced or OOE-divided values only. ``False`` turns a wire off. On
     ``cpu`` every transfer is float32 whatever the flags.
     ``chunk_size`` and ``tile_size`` are accepted and unused, as in the
-    JAX package, and recorded in the output's ``ignored`` column."""
+    JAX package, and recorded in the output's ``ignored`` column.
+    ``timers``: a ``PhaseTimers`` that every ``pileupsWithControl`` run
+    records into, kept by the caller; without one each run makes its own
+    (``self.timers``), its span log on where ``trace_dir`` is set."""
 
     def __init__(
         self,
@@ -612,6 +615,7 @@ class PileUpper:
         trace_dir=None,
         device="cuda",
         mesh=None,
+        timers=None,
     ):
         self.device = resolve_device(device)
         if isinstance(mesh, str):
@@ -679,8 +683,9 @@ class PileUpper:
         self.nproc = nproc
         self.checkpoint_dir = checkpoint_dir
         self.trace_dir = trace_dir
-        # the last pileupsWithControl run's PhaseTimers (its breakdown)
-        self.timers = None
+        # the last pileupsWithControl run's PhaseTimers (its breakdown):
+        # ``timers`` where one was given, which every run then adds to
+        self._given_timers = self.timers = timers
         self._routes = set()
 
         if view_df is None:
@@ -824,7 +829,9 @@ class PileUpper:
         min1, max1 = self.view_df_extents[region1]
         min2, max2 = self.view_df_extents[region2]
 
-        slab = self.clr.fetch_slab(r1c, r2c, balance=self.clr_weight_name)
+        with self._detail("ingest/fetch"):
+            slab = self.clr.fetch_slab(r1c, r2c,
+                                       balance=self.clr_weight_name)
 
         def padded(vec, fill=0.0):
             out = np.full(
@@ -944,20 +951,26 @@ class PileUpper:
                 return "int8", dev["w1"], dev["w2"]
         return mode, dev["valid1"], dev["valid2"]
 
-    def _phase(self, name):
+    def _phase(self, name, region=None):
         timers = self.timers
-        return timers.phase(name) if timers else contextlib.nullcontext()
+        return (timers.phase(name, region) if timers
+                else contextlib.nullcontext())
+
+    def _detail(self, name):
+        timers = self.timers
+        return timers.detail(name) if timers else contextlib.nullcontext()
 
     def _count(self, name, n=1):
         if self.timers:
             self.timers.count(name, n)
 
-    def _stage_region(self, region1, region2):
-        """Fetch + stage one region pair's inputs. Under rescale the per-bin
+    def _stage_region(self, region1, region2, region=None):
+        """Fetch + stage one region pair's inputs (``region``: its index
+        in the region loop, for the span log). Under rescale the per-bin
         vectors are padded past the largest extent bucket, whose coverage
         slices read ``Hmax`` bins from every window start (reference
         :1002-1016)."""
-        with self._phase("ingest"):
+        with self._phase("ingest", region):
             if self.rescale:
                 hmax = max(_RESCALE_MIN_BUCKET,
                            _next_pow2(self.max_extent_bins))
@@ -1486,23 +1499,28 @@ class PileUpper:
             return (rt[:, None] * -(-n2 // B) + ct[None, :]).ravel()
         return None
 
-    def _maybe_open_stream(self, region1, region2, dev, prefetch=False):
+    def _maybe_open_stream(self, region1, region2, dev, prefetch=False,
+                           region=None):
         """The stream of a region pair where one applies (no rescale, no
         mesh, W within the quad kernel's reach): called in the region loop,
         or from the region prefetch, whose stricter tile cap keeps several
-        prefetched stacks from filling the device. None otherwise."""
+        prefetched stacks from filling the device (``region``: the loop's
+        index, for the span log). None otherwise."""
         W = self._window_bins()
         if self.rescale or W > quad_gather.W_MAX or self.mesh is not None:
             return None
         max_tiles = _PREFETCH_TILES if prefetch else _STREAM_TILES
         if region2 == region1 and self.CC.kind == "bed" and not self.trans:
-            return self._open_quad_stream(dev, W, max_tiles=max_tiles)
+            return self._open_quad_stream(dev, W, max_tiles=max_tiles,
+                                          region=region)
         want = self._stream_tile_want(region1, region2, dev)
         if want is None:
             return None
-        return self._open_quad_stream(dev, W, want=want, max_tiles=max_tiles)
+        return self._open_quad_stream(dev, W, want=want, max_tiles=max_tiles,
+                                      region=region)
 
-    def _open_quad_stream(self, dev, W, want=None, max_tiles=_STREAM_TILES):
+    def _open_quad_stream(self, dev, W, want=None, max_tiles=_STREAM_TILES,
+                          region=None):
         """A ``_QuadStream`` whose stack holds every tile a window can
         touch, staged before any coordinate exists: the |row - col| band of
         ``maxdist`` plus W for cis BED (``want`` None), or the explicit tile
@@ -1551,10 +1569,10 @@ class PileUpper:
 
         def build():
             kw = dict(want=want) if want is not None else dict(band=band_bins)
-            with self._phase("tiles"):
+            with self._phase("tiles", region):
                 tile_stack = self._build_quad_stack(
                     dev, raw_counts=wire_mode == "int8", **kw)
-            with self._phase("stage"):
+            with self._phase("stage", region):
                 session = quad_gather.QuadPileupSession(
                     tile_stack, wv1, wv2, dev["evec"],
                     dict(W=W, capacity=2 * half, cis=dev["cis"],
@@ -1573,7 +1591,7 @@ class PileUpper:
         stream = _QuadStream(_stage_pool().submit(build), half, _STREAM_CHUNK,
                              self.device, stripes=bool(self.store_stripes),
                              timers=self.timers,
-                             stripe_f16=self._fetch_f16())
+                             stripe_f16=self._fetch_f16(), region=region)
         stream.covers = covers
         return stream
 
@@ -2563,43 +2581,36 @@ class PileUpper:
             buf.clear()
             buffered = 0
 
-        # the stream's own phases (coords, tiles, device) are timed inside
-        # it; the rest of this loop is the per-snip host work
-        timers = self.timers
-        inner = ("coords", "tiles", "device")
-        t0 = time.perf_counter()
-        before = sum(timers.seconds[k] for k in inner) if timers else 0.0
-        for snip in stream:
-            if snip.get("flip"):
-                # rot90(flipud(x)) == anti-transpose (reference coolpup.py:131)
-                snip["data"] = np.flip(snip["data"], axis=(0, 1)).T
-            out = (
-                postprocess_snip_func(snip)
-                if postprocess_snip_func is not None
-                else snip
-            )
-            for s in collapse_snips(out):
-                key = (
-                    s["group"]
-                    if isinstance(s["group"], str)
-                    else tuple(s["group"])
+        # the stream's own phases (coords, tiles, device) pause this one:
+        # the rest of this loop is the per-snip host work
+        with self._phase("snips_host"):
+            for snip in stream:
+                if snip.get("flip"):
+                    # rot90(flipud(x)) == anti-transpose (reference
+                    # coolpup.py:131)
+                    snip["data"] = np.flip(snip["data"], axis=(0, 1)).T
+                out = (
+                    postprocess_snip_func(snip)
+                    if postprocess_snip_func is not None
+                    else snip
                 )
-                if not batchable:
-                    _add_snip(
-                        outdict[s["kind"]], key, s,
-                        extra_funcs=extra_sum_funcs,
+                for s in collapse_snips(out):
+                    key = (
+                        s["group"]
+                        if isinstance(s["group"], str)
+                        else tuple(s["group"])
                     )
-                    continue
-                buf.setdefault((s["kind"], key), []).append(dict(s))
-                buffered += 1
-            if buffered >= _FOLD_FLUSH:
-                _flush()
-        _flush()
-        if timers:
-            timers.seconds["snips_host"] += (
-                time.perf_counter() - t0
-                - (sum(timers.seconds[k] for k in inner) - before)
-            )
+                    if not batchable:
+                        _add_snip(
+                            outdict[s["kind"]], key, s,
+                            extra_funcs=extra_sum_funcs,
+                        )
+                        continue
+                    buf.setdefault((s["kind"], key), []).append(dict(s))
+                    buffered += 1
+                if buffered >= _FOLD_FLUSH:
+                    _flush()
+            _flush()
 
         self._routes.add("host_stream")
         self._all_rows(outdict, extra_sum_funcs,
@@ -2932,7 +2943,10 @@ class PileUpper:
             if flipby:
                 column_hint |= {flipby + "1", flipby + "2"}
 
-        self.timers = timers = PhaseTimers()
+        timers = self._given_timers
+        if timers is None:
+            timers = PhaseTimers(spans=bool(self.trace_dir))
+        self.timers = timers
         self._routes = set()
         self.mesh_stats = self._new_mesh_stats()
 
@@ -2983,12 +2997,13 @@ class PileUpper:
             and not self.rescale
         )
 
-        def _stage_with_stream(r1, r2):
+        def _stage_with_stream(i, r1, r2):
             if self.checkpoint_dir and os.path.exists(_ckpt_path(r1, r2)):
                 return None  # resumed from its checkpoint: nothing to stage
-            dev = self._stage_region(r1, r2)
+            dev = self._stage_region(r1, r2, region=i)
             if can_prestream:
-                stream = self._maybe_open_stream(r1, r2, dev, prefetch=True)
+                stream = self._maybe_open_stream(r1, r2, dev, prefetch=True,
+                                                 region=i)
                 if stream is not None:
                     dev = dict(dev, _stream=stream)
             return dev
@@ -3007,21 +3022,23 @@ class PileUpper:
         n_prefetch = max(1, min(_PREFETCH_MAX, nproc if nproc > 0 else
                                 _PREFETCH_MAX))
         pileups = []
-        with device_trace(self.trace_dir), ThreadPoolExecutor(
+        with device_trace(self.trace_dir, timers), ThreadPoolExecutor(
             max_workers=n_prefetch, thread_name_prefix="region-stage"
         ) as pool:
-            futures = {i: pool.submit(_stage_with_stream, *pair)
+            futures = {i: pool.submit(_stage_with_stream, i, *pair)
                        for i, pair in enumerate(pairs[:n_prefetch])}
             for i, (r1, r2) in enumerate(pairs):
                 fut = futures.pop(i)
                 if not fut.done():
-                    with timers.phase("wait"):
+                    with timers.phase("wait", region=i):
                         fut.result()
                 dev = fut.result()
                 if i + n_prefetch < len(pairs):
-                    futures[i + n_prefetch] = pool.submit(
-                        _stage_with_stream, *pairs[i + n_prefetch])
-                pileups.append(_run_one(r1, r2, dev))
+                    j = i + n_prefetch
+                    futures[j] = pool.submit(_stage_with_stream, j,
+                                             *pairs[j])
+                with timers.phase("region", region=i):
+                    pileups.append(_run_one(r1, r2, dev))
         if multiprocess:
             with timers.phase("exchange"):
                 timers.count("exchange_bytes", len(pickle.dumps(pileups)))
@@ -3216,6 +3233,7 @@ def pileup(
     seed=None,
     device="cuda",
     mesh=None,
+    timers=None,
 ):
     """One-shot pileup API (reference coolpup.py:1922–2279): the JAX
     package's parameters minus ``backend``, plus ``device`` (``"cuda"``:
@@ -3229,141 +3247,156 @@ def pileup(
     counts), ``stripe_f16`` fetches stripe planes and by-window
     accumulators as float16 on balanced or OOE-divided values
     (``PileUpper``); ``False`` turns a wire off. On ``cpu`` every transfer
-    is float32 whatever the flags."""
-    groupby = groupby or []
-    distance_edges = "default"
-    if by_distance is not False:
-        if local:
-            raise ValueError(
-                "Can't do local pileups by distance, please specify only one "
-                "of those arguments"
+    is float32 whatever the flags. ``timers``: a ``PhaseTimers`` that
+    records the call, kept by the caller: its root phase ``job``,
+    ``prepare`` (the ``CoordCreator`` and ``PileUpper`` built) and the
+    engine's phases, and with ``PhaseTimers(spans=True)`` their spans and
+    the detail spans (``observability``)."""
+    job = timers.job() if timers is not None else contextlib.nullcontext()
+    with job:
+        with (timers.phase("prepare") if timers is not None
+              else contextlib.nullcontext()):
+            groupby = groupby or []
+            distance_edges = "default"
+            if by_distance is not False:
+                if local:
+                    raise ValueError(
+                        "Can't do local pileups by distance, please specify "
+                        "only one of those arguments"
+                    )
+                if isinstance(by_distance, (list, np.ndarray)):
+                    try:
+                        distance_edges = [int(i) for i in by_distance]
+                    except (TypeError, ValueError) as e:
+                        raise ValueError(
+                            "Distance bin edges have to be an iterable of "
+                            "integers"
+                        ) from e
+                    by_distance = True
+                elif by_distance is True or by_distance == "default":
+                    by_distance = True
+                else:
+                    raise ValueError(
+                        "Invalid by_distance value: True, 'default' or a "
+                        "list of integers"
+                    )
+
+            if not rescale:
+                rescale_flank = None
+
+            if view_df is None:
+                view_df = make_cooler_view(clr)
+            else:
+                is_compatible_viewframe(
+                    view_df, clr, check_sorting=True, raise_errors=True
+                )
+
+            control = nshifts > 0
+            if expected_df is None:
+                expected = None
+                expected_value_col = None
+            else:
+                expected = True
+                is_valid_expected(
+                    expected_df,
+                    "trans" if trans else "cis",
+                    view_df,
+                    verify_cooler=clr,
+                    expected_value_cols=[expected_value_col],
+                    raise_errors=True,
+                )
+            if mindist is None:
+                mindist = "auto"
+            if maxdist is None:
+                maxdist = np.inf
+            if rescale and rescale_size % 2 == 0:
+                raise ValueError("Please provide an odd rescale_size")
+            if by_window:
+                if features_format != "bed":
+                    raise ValueError(
+                        "Can't make by-window pileups without making "
+                        "combinations"
+                    )
+                if local:
+                    raise ValueError("Can't make local by-window pileups")
+
+            CC = CoordCreator(
+                features=features,
+                resolution=clr.binsize,
+                features_format=features_format,
+                flank=flank,
+                rescale_flank=rescale_flank,
+                chroms=list(view_df["chrom"].unique()),
+                minshift=minshift,
+                maxshift=maxshift,
+                nshifts=nshifts,
+                mindist=mindist,
+                maxdist=maxdist,
+                local=local,
+                subset=subset,
+                seed=seed,
+                trans=trans,
+                timers=timers,
             )
-        if isinstance(by_distance, (list, np.ndarray)):
-            try:
-                distance_edges = [int(i) for i in by_distance]
-            except (TypeError, ValueError) as e:
-                raise ValueError(
-                    "Distance bin edges have to be an iterable of integers"
-                ) from e
-            by_distance = True
-        elif by_distance is True or by_distance == "default":
-            by_distance = True
+            PU = PileUpper(
+                clr=clr,
+                CC=CC,
+                view_df=view_df,
+                clr_weight_name=clr_weight_name,
+                expected=expected_df if expected else False,
+                expected_value_col=expected_value_col,
+                ooe=ooe,
+                control=control,
+                coverage_norm=coverage_norm,
+                rescale=rescale,
+                rescale_size=rescale_size,
+                flip_negative_strand=flip_negative_strand,
+                ignore_diags=min_diag,
+                store_stripes=store_stripes,
+                stripe_f16=stripe_f16,
+                tile_f16=tile_f16,
+                nproc=nproc,
+                device=device,
+                mesh=mesh,
+                timers=timers,
+            )
+
+        if by_window:
+            if groupby:
+                warnings.warn(
+                    "by-window not compatible with additional groupby")
+            pups = PU.pileupsByWindowWithControl(nproc=nproc)
+        elif by_strand and by_distance:
+            pups = PU.pileupsByStrandByDistanceWithControl(
+                nproc=nproc,
+                distance_edges=distance_edges,
+                groupby=groupby,
+                ignore_group_order=ignore_group_order,
+            )
+        elif by_strand:
+            pups = PU.pileupsByStrandWithControl(
+                nproc=nproc, groupby=groupby,
+                ignore_group_order=ignore_group_order,
+            )
+        elif by_distance:
+            pups = PU.pileupsByDistanceWithControl(
+                nproc=nproc,
+                distance_edges=distance_edges,
+                groupby=groupby,
+                ignore_group_order=ignore_group_order,
+            )
         else:
-            raise ValueError(
-                "Invalid by_distance value: True, 'default' or a list of "
-                "integers"
+            pups = PU.pileupsWithControl(
+                nproc=nproc, groupby=groupby,
+                ignore_group_order=ignore_group_order,
             )
-
-    if not rescale:
-        rescale_flank = None
-
-    if view_df is None:
-        view_df = make_cooler_view(clr)
-    else:
-        is_compatible_viewframe(
-            view_df, clr, check_sorting=True, raise_errors=True
+        pups["by_window"] = bool(by_window)
+        pups["by_strand"] = bool(by_strand) and not by_window
+        pups["by_distance"] = bool(by_distance) and not by_window
+        pups["groupby"] = [groupby] * len(pups)
+        pups["expected"] = pups["expected"].fillna(False)
+        pups["cooler"] = (
+            os.path.splitext(os.path.basename(clr.filename))[0]
+            if clr.filename else None
         )
-
-    control = nshifts > 0
-    if expected_df is None:
-        expected = None
-        expected_value_col = None
-    else:
-        expected = True
-        is_valid_expected(
-            expected_df,
-            "trans" if trans else "cis",
-            view_df,
-            verify_cooler=clr,
-            expected_value_cols=[expected_value_col],
-            raise_errors=True,
-        )
-    if mindist is None:
-        mindist = "auto"
-    if maxdist is None:
-        maxdist = np.inf
-    if rescale and rescale_size % 2 == 0:
-        raise ValueError("Please provide an odd rescale_size")
-    if by_window:
-        if features_format != "bed":
-            raise ValueError(
-                "Can't make by-window pileups without making combinations"
-            )
-        if local:
-            raise ValueError("Can't make local by-window pileups")
-
-    CC = CoordCreator(
-        features=features,
-        resolution=clr.binsize,
-        features_format=features_format,
-        flank=flank,
-        rescale_flank=rescale_flank,
-        chroms=list(view_df["chrom"].unique()),
-        minshift=minshift,
-        maxshift=maxshift,
-        nshifts=nshifts,
-        mindist=mindist,
-        maxdist=maxdist,
-        local=local,
-        subset=subset,
-        seed=seed,
-        trans=trans,
-    )
-    PU = PileUpper(
-        clr=clr,
-        CC=CC,
-        view_df=view_df,
-        clr_weight_name=clr_weight_name,
-        expected=expected_df if expected else False,
-        expected_value_col=expected_value_col,
-        ooe=ooe,
-        control=control,
-        coverage_norm=coverage_norm,
-        rescale=rescale,
-        rescale_size=rescale_size,
-        flip_negative_strand=flip_negative_strand,
-        ignore_diags=min_diag,
-        store_stripes=store_stripes,
-        stripe_f16=stripe_f16,
-        tile_f16=tile_f16,
-        nproc=nproc,
-        device=device,
-        mesh=mesh,
-    )
-
-    if by_window:
-        if groupby:
-            warnings.warn("by-window not compatible with additional groupby")
-        pups = PU.pileupsByWindowWithControl(nproc=nproc)
-    elif by_strand and by_distance:
-        pups = PU.pileupsByStrandByDistanceWithControl(
-            nproc=nproc,
-            distance_edges=distance_edges,
-            groupby=groupby,
-            ignore_group_order=ignore_group_order,
-        )
-    elif by_strand:
-        pups = PU.pileupsByStrandWithControl(
-            nproc=nproc, groupby=groupby, ignore_group_order=ignore_group_order
-        )
-    elif by_distance:
-        pups = PU.pileupsByDistanceWithControl(
-            nproc=nproc,
-            distance_edges=distance_edges,
-            groupby=groupby,
-            ignore_group_order=ignore_group_order,
-        )
-    else:
-        pups = PU.pileupsWithControl(
-            nproc=nproc, groupby=groupby, ignore_group_order=ignore_group_order
-        )
-    pups["by_window"] = bool(by_window)
-    pups["by_strand"] = bool(by_strand) and not by_window
-    pups["by_distance"] = bool(by_distance) and not by_window
-    pups["groupby"] = [groupby] * len(pups)
-    pups["expected"] = pups["expected"].fillna(False)
-    pups["cooler"] = (
-        os.path.splitext(os.path.basename(clr.filename))[0]
-        if clr.filename else None
-    )
     return pups

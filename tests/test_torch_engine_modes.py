@@ -250,7 +250,8 @@ def test_cuda_without_a_card_raises(property_toy, monkeypatch):
 
 
 def test_trace_and_checkpoint_resume(property_toy, tmp_path):
-    """trace_dir writes a chrome trace; a second run with the same
+    """trace_dir writes a chrome trace, with the run's phases as
+    ``program_span`` events on their threads; a second run with the same
     checkpoint_dir reads the region pickles and gives the same table."""
     cc = port.CoordCreator(toy_features(), 1_000_000, features_format="bed",
                            flank=2_000_000, mindist=0, nshifts=1, seed=3)
@@ -260,7 +261,15 @@ def test_trace_and_checkpoint_resume(property_toy, tmp_path):
                            **kw).pileupsWithControl()
     traces = list((tmp_path / "tr").glob("trace_*.json"))
     assert len(traces) == 1
-    assert json.loads(traces[0].read_text())["traceEvents"]
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert events
+    spans = [e for e in events if e.get("cat") == "program_span"]
+    assert {"ingest", "ingest/fetch", "coords", "tiles", "device"} <= {
+        e["name"] for e in spans}
+    assert all(e["ph"] == "X" and e["dur"] >= 0 and isinstance(e["tid"], int)
+               for e in spans)
+    regions = {e["args"]["region"] for e in spans if e["name"] == "ingest"}
+    assert regions == {0, 1}
     assert len(list((tmp_path / "ckpt").glob("*.pkl"))) == 2
     again = port.PileUpper(property_toy, cc, **kw).pileupsWithControl()
     row1, row2 = first.iloc[0], again.iloc[0]

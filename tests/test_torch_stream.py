@@ -299,9 +299,9 @@ def test_checkpoint_resume_under_prefetch(genome, tmp_path, monkeypatch,
     staged = []
     inner = engine.PileUpper._stage_region
 
-    def recording(self, r1, r2):
+    def recording(self, r1, r2, **kw):
         staged.append(r1)
-        return inner(self, r1, r2)
+        return inner(self, r1, r2, **kw)
 
     monkeypatch.setattr(engine.PileUpper, "_stage_region", recording)
 
