@@ -823,7 +823,10 @@ class PileUpper:
         expected vector, padded to ``next_pow2(len + minpad)`` (``evec``
         NaN-filled; the region pair's scalar under trans; ``[nan]`` without
         an expected table). ``cis`` marks a region with itself outside
-        trans mode: only there are diagonals masked."""
+        trans mode: only there are diagonals masked. The timers count the
+        path the fetch's column filter took: ``fetch_views`` +1 where it
+        dropped no pixel of its row spans (the slab holds views of the
+        store's columns), and ``fetch_dropped_pixels``."""
         r1c = self.view_df.loc[region1]
         r2c = self.view_df.loc[region2] if region2 != region1 else r1c
         min1, max1 = self.view_df_extents[region1]
@@ -832,6 +835,8 @@ class PileUpper:
         with self._detail("ingest/fetch"):
             slab = self.clr.fetch_slab(r1c, r2c,
                                        balance=self.clr_weight_name)
+        self._count("fetch_views", int(slab.dropped == 0))
+        self._count("fetch_dropped_pixels", slab.dropped)
 
         def padded(vec, fill=0.0):
             out = np.full(

@@ -34,6 +34,8 @@ from dataclasses import dataclass
 import numpy as np
 import pandas as pd
 
+from .. import native
+
 PIXEL_COLUMNS = ("bin1_id", "bin2_id", "count")
 
 
@@ -45,7 +47,10 @@ class PixelSlab:
     symmetric transpose of every off-diagonal pixel also belongs to the
     rectangle (cis same-extent fetches; the consumer applies it).
     ``weights`` is the GLOBAL per-bin balancing vector with NaNs cleaned to
-    0, or None for unbalanced."""
+    0, or None for unbalanced. ``dropped``: the pixels of the fetched row
+    spans whose column lies outside the rectangle. ``rows``/``cols`` may
+    be read-only views of the store's own columns (a fetch that dropped
+    none): readers never write into a slab's arrays."""
 
     rows: np.ndarray
     cols: np.ndarray
@@ -55,6 +60,7 @@ class PixelSlab:
     shape: tuple
     mirror: bool
     weights: np.ndarray | None
+    dropped: int = 0
 
     @property
     def nnz(self):
@@ -186,6 +192,19 @@ def _sorted_pairs(bin1, bin2):
     """Whether pixels are already in (bin1, bin2) order."""
     d1 = np.diff(bin1)
     return bool((d1 >= 0).all() and ((d1 > 0) | (np.diff(bin2) >= 0)).all())
+
+
+def _empty_rect(dtype):
+    """``_fetch_rect_raw``'s answer for an empty row span."""
+    empty = np.array([], dtype=np.int64)
+    return empty, empty, np.array([], dtype=dtype), 0
+
+
+def _read_only(a):
+    """A read-only view of ``a`` (the store's own array stays as it is)."""
+    view = a.view()
+    view.flags.writeable = False
+    return view
 
 
 def _names(values):
@@ -412,51 +431,85 @@ class Cooler:
             return tuple(grp["pixels/" + c][start:stop]
                          for c in PIXEL_COLUMNS)
 
-    def _fetch_rect_raw(self, lo1, hi1, lo2, hi2, dtype=np.float32):
-        """Stored (upper-triangle) pixels with bin1 in [lo1,hi1), bin2 in
-        [lo2,hi2), counts as ``dtype``: one read of the row span
-        [bin1_offset[lo1], bin1_offset[hi1]). float32 is the hot
-        tile-scatter path; the exact compat path (fetch_coo, expected)
-        reads float64 so that counts >= 2**24 stay exact."""
+    def _row_span(self, lo1, hi1):
+        """The pixels of bin rows [lo1, hi1), one read of the rows
+        [bin1_offset[lo1], bin1_offset[hi1]): bins as int64 (the stored
+        arrays where they are), counts as stored; None where it is
+        empty."""
         b1off = self.bin1_offset()
         p_lo, p_hi = int(b1off[lo1]), int(b1off[hi1])
         if p_hi <= p_lo:
-            empty = np.array([], dtype=np.int64)
-            return empty, empty, np.array([], dtype=dtype)
+            return None
         bin1, bin2, count = self._read_pixels(p_lo, p_hi)
-        bin1 = bin1.astype(np.int64, copy=False)
-        bin2 = bin2.astype(np.int64, copy=False)
+        return (bin1.astype(np.int64, copy=False),
+                bin2.astype(np.int64, copy=False), count)
+
+    def _fetch_rect_raw(self, lo1, hi1, lo2, hi2, dtype=np.float32):
+        """Stored (upper-triangle) pixels with bin1 in [lo1,hi1), bin2 in
+        [lo2,hi2), counts as ``dtype``, and the row span's pixels dropped
+        for a bin2 outside: ``(bin1, bin2, count, dropped)``. float32 is
+        the hot tile-scatter path; the exact compat path (fetch_coo,
+        expected) reads float64 so that counts >= 2**24 stay exact. One
+        native pass filters the row span (``native.slab_select``); where it
+        drops nothing, ``bin1``/``bin2`` are the store's arrays as read,
+        as read-only views, and only the counts are new. Equal, element
+        for element and in dtype, to ``_fetch_rect_raw_plain``."""
+        span = self._row_span(lo1, hi1)
+        if span is None:
+            return _empty_rect(dtype)
+        bin1, bin2, count = span
+        if lo2 <= 0 and hi2 >= self.n_bins:  # full column span
+            return _read_only(bin1), _read_only(bin2), count.astype(dtype), 0
+        rows, cols, vals, dropped = native.slab_select(bin1, bin2, count,
+                                                       lo2, hi2, dtype)
+        if not dropped:
+            rows, cols = _read_only(rows), _read_only(cols)
+        return rows, cols, vals, dropped
+
+    def _fetch_rect_raw_plain(self, lo1, hi1, lo2, hi2, dtype=np.float32):
+        """Plain numpy version of ``_fetch_rect_raw`` (the tests hold the
+        native filter against it): a mask and three boolean takes."""
+        span = self._row_span(lo1, hi1)
+        if span is None:
+            return _empty_rect(dtype)
+        bin1, bin2, count = span
         count = count.astype(dtype)
         if lo2 <= 0 and hi2 >= self.n_bins:
-            return bin1, bin2, count  # full column span: nothing to filter
+            return bin1, bin2, count, 0
         mask = (bin2 >= lo2) & (bin2 < hi2)
-        return bin1[mask], bin2[mask], count[mask]
+        return (bin1[mask], bin2[mask], count[mask],
+                len(mask) - int(np.count_nonzero(mask)))
 
     def fetch_slab(self, region1, region2=None, balance="weight",
                    dtype=np.float32):
         """Stored-triangle pixels of the query rectangle as a PixelSlab. A
         cis same-extent query is one read of its row span (``mirror``: the
-        consumer applies the transpose); distinct extents read both row
-        spans."""
+        consumer applies the transpose), whose ``rows``/``cols`` are
+        read-only views of the store's columns where no pixel of the span
+        lies outside the rectangle (``_fetch_rect_raw``); distinct extents
+        read both row spans into new arrays. ``dropped`` counts the row
+        spans' pixels outside the rectangle."""
         lo1, hi1 = self.extent(region1)
         lo2, hi2 = self.extent(region2 if region2 is not None else region1)
         weights = self._clean_weights(balance) if balance else None
         if (lo1, hi1) == (lo2, hi2):
-            rows, cols, vals = self._fetch_rect_raw(lo1, hi1, lo2, hi2, dtype)
+            rows, cols, vals, dropped = self._fetch_rect_raw(lo1, hi1, lo2,
+                                                             hi2, dtype)
             mirror = True
         else:
-            r1, c1, v1 = self._fetch_rect_raw(lo1, hi1, lo2, hi2, dtype)
+            r1, c1, v1, d1 = self._fetch_rect_raw(lo1, hi1, lo2, hi2, dtype)
             # transpose of stored pixels landing in the rectangle the other
             # way; the stored diagonal is excluded against double counting
-            r2, c2, v2 = self._fetch_rect_raw(lo2, hi2, lo1, hi1, dtype)
+            r2, c2, v2, d2 = self._fetch_rect_raw(lo2, hi2, lo1, hi1, dtype)
             keep = r2 != c2
             rows = np.concatenate([r1, c2[keep]])
             cols = np.concatenate([c1, r2[keep]])
             vals = np.concatenate([v1, v2[keep]])
-            mirror = False
+            mirror, dropped = False, d1 + d2
         return PixelSlab(
             rows=rows, cols=cols, vals=vals, lo1=lo1, lo2=lo2,
             shape=(hi1 - lo1, hi2 - lo2), mirror=mirror, weights=weights,
+            dropped=dropped,
         )
 
     def fetch_coo(self, region1, region2=None, balance="weight"):

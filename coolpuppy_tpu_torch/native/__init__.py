@@ -1,14 +1,15 @@
 """The host ingest in C++ (counterpart of ``coolpuppy_tpu/native``): the
-COO -> tile-stack scatters, the stable counting sort of snip words by tile
-quad, and the sorted-center pair sweep, bound with ``ctypes``.
+column filter of a region fetch, the COO -> tile-stack scatters, the
+stable counting sort of snip words by tile quad, and the sorted-center
+pair sweep, bound with ``ctypes``.
 
 The library is built from ``_ingest.cpp`` at the first call
 (``native/build.py``) and loaded once. A failed build or load raises: the
 port has no fallback. The numpy versions of these entries stay beside their
 callers as the plain versions the tests hold them against
-(``ops/tiles.scatter_plain`` and ``scatter_slab_plain``,
-``ops/quad_gather.sort_quads_plain``, ``coords.CoordCreator``'s numpy
-sweep).
+(``io/cool.Cooler._fetch_rect_raw_plain``, ``ops/tiles.scatter_plain`` and
+``scatter_slab_plain``, ``ops/quad_gather.sort_quads_plain``,
+``coords.CoordCreator``'s numpy sweep).
 
 Every entry but ``enumerate_pairs`` runs an OpenMP team. At load its size
 is set once to ``max(1, os.cpu_count() - 1)``, one core left for the
@@ -44,6 +45,12 @@ def _bind(lib):
     lib.tile_scatter_wtri.argtypes = [
         _i64, _i64, _f32, _c64, _c64, _c64, _c64, _c64, _f32, _i32, _c64,
         _c64, _c64, ctypes.c_int32, _f32,
+    ]
+    lib.slab_count.restype = ctypes.c_int64
+    lib.slab_count.argtypes = [_i64, _c64, _c64, _c64, _c64, _i64]
+    lib.slab_select.argtypes = [
+        _i64, _i64, ctypes.c_void_p, ctypes.c_int32, _c64, _c64, _c64, _c64,
+        _i64, _i64, _i64, ctypes.c_void_p, ctypes.c_int32,
     ]
     lib.quad_sort.argtypes = [_i32, _i32, _c64, _c64, _i32, _i64]
     lib.enumerate_pairs.restype = ctypes.c_int64
@@ -98,6 +105,51 @@ def _check_stack(tile_map, K, B, n1, n2):
             f"{tile_map.max(initial=0)} does not cover {n1} x {n2} bins in "
             f"{K} tiles of {B}"
         )
+
+
+# the count dtypes ``slab_select`` reads as they are (its ``count_kind``)
+_COUNT_KINDS = {np.dtype(np.int32): 0, np.dtype(np.float32): 1,
+                np.dtype(np.float64): 2}
+# pixels a chunk of the filter's passes holds at least
+_SLAB_CHUNK = 1 << 16
+
+
+def slab_select(bin1, bin2, count, lo2, hi2, dtype):
+    """The pixels of a row span whose ``bin2`` lies in [lo2, hi2), in input
+    order, counts cast to ``dtype`` (float32 or float64): ``(bin1, bin2,
+    vals, dropped)``, ``dropped`` the pixels left out. Where none is left
+    out, ``bin1`` and ``bin2`` come back as the int64 arrays they came in
+    as, and only the counts are cast; otherwise the three columns are
+    compacted into new arrays. int32, float32 and float64 counts are read
+    as they are; others are cast to ``dtype`` first."""
+    bin1 = np.ascontiguousarray(bin1, np.int64)
+    bin2 = np.ascontiguousarray(bin2, np.int64)
+    count = np.ascontiguousarray(count)
+    dtype = np.dtype(dtype)
+    if dtype not in (np.float32, np.float64):
+        raise ValueError(f"native.slab_select: counts cast to float32 or "
+                         f"float64, not {dtype}")
+    if not len(bin1) == len(bin2) == len(count):
+        raise ValueError("native.slab_select: bin1, bin2, count differ in "
+                         "length")
+    if count.dtype not in _COUNT_KINDS:
+        count = count.astype(dtype)
+    n = len(bin2)
+    L = lib()
+    kept = np.zeros(max(1, min(threads(), n // _SLAB_CHUNK)), np.int64)
+    total = L.slab_count(_ptr(bin2, _i64), n, int(lo2), int(hi2), len(kept),
+                         _ptr(kept, _i64))
+    vals = np.empty(total, dtype)
+    if total == n:
+        rows, cols, out1, out2 = bin1, bin2, _i64(), _i64()
+    else:
+        rows, cols = np.empty(total, np.int64), np.empty(total, np.int64)
+        out1, out2 = _ptr(rows, _i64), _ptr(cols, _i64)
+    L.slab_select(_ptr(bin1, _i64), _ptr(bin2, _i64), count.ctypes.data,
+                  _COUNT_KINDS[count.dtype], n, int(lo2), int(hi2),
+                  len(kept), _ptr(kept, _i64), out1, out2, vals.ctypes.data,
+                  int(dtype == np.float64))
+    return rows, cols, vals, n - total
 
 
 def tile_scatter(rows, cols, vals, tile_map, B, K):

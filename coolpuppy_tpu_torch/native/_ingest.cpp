@@ -1,12 +1,15 @@
 // Native host-side ingest for coolpuppy_tpu_torch (a copy of
-// coolpuppy_tpu/native/_ingest.cpp with one entry of its own).
+// coolpuppy_tpu/native/_ingest.cpp with entries of its own: the thread
+// setter and the region fetch's column filter).
 //
-// The hot host-side loops behind the device pipeline: scattering COO pixels
-// into the block-sparse tile stack (the plain version in ops/tiles.py is a
-// numpy bincount chain over ~3 temporary arrays), the stable counting sort
-// of snip words by tile quad, and enumerating all-vs-all feature pairs with
-// distance filtering. Compiled to a plain shared library at first use and
-// bound with ctypes (coolpuppy_tpu_torch/native/build.py, __init__.py).
+// The hot host-side loops behind the device pipeline: the column filter of
+// a region fetch (the plain version in io/cool.py is a numpy mask and three
+// boolean takes), scattering COO pixels into the block-sparse tile stack
+// (the plain version in ops/tiles.py is a numpy bincount chain over ~3
+// temporary arrays), the stable counting sort of snip words by tile quad,
+// and enumerating all-vs-all feature pairs with distance filtering.
+// Compiled to a plain shared library at first use and bound with ctypes
+// (coolpuppy_tpu_torch/native/build.py, __init__.py).
 //
 // ingest_set_threads(n) sets the OpenMP team size of every entry for every
 // calling thread (an OpenMP runtime keeps omp_set_num_threads per thread,
@@ -185,6 +188,66 @@ static void tile_scatter_impl(const I* rows, const I* cols, const V* vals,
 #endif
 }
 
+// team size of a pass over nchunks chunks: no more threads than chunks
+static inline int chunk_threads(int64_t nchunks) {
+  const int nt = ingest_threads();
+  return nchunks < nt ? (int)nchunks : nt;
+}
+
+// Column filter of a region fetch (io/cool.py, Cooler._fetch_rect_raw): of
+// a bin1 row span's pixels, those whose bin2 lies in [lo2, hi2), counts cast
+// to D. out1 == NULL: every pixel is kept (slab_count said so) and only the
+// counts are cast. Otherwise chunk t of the input writes its kept pixels from
+// the sum of kept[] over the chunks before it, in input order: numpy's
+// boolean-take order.
+template <typename S, typename D>
+static void slab_select_impl(const int64_t* bin1, const int64_t* bin2,
+                             const S* count, int64_t n, int64_t lo2,
+                             int64_t hi2, int64_t nchunks,
+                             const int64_t* kept, int64_t* out1,
+                             int64_t* out2, D* outv) {
+  const int nt = chunk_threads(nchunks);
+  if (!out1) {
+#pragma omp parallel for schedule(static) num_threads(nt)
+    for (int64_t i = 0; i < n; i++) outv[i] = (D)count[i];
+    return;
+  }
+  std::vector<int64_t> start(nchunks);
+  int64_t run = 0;
+  for (int64_t t = 0; t < nchunks; t++) {
+    start[t] = run;
+    run += kept[t];
+  }
+#pragma omp parallel for schedule(static, 1) num_threads(nt)
+  for (int64_t t = 0; t < nchunks; t++) {
+    const int64_t lo = n * t / nchunks, hi = n * (t + 1) / nchunks;
+    int64_t p = start[t];
+    for (int64_t i = lo; i < hi; i++) {
+      if (bin2[i] >= lo2 && bin2[i] < hi2) {
+        out1[p] = bin1[i];
+        out2[p] = bin2[i];
+        outv[p] = (D)count[i];
+        p++;
+      }
+    }
+  }
+}
+
+template <typename S>
+static void slab_select_to(const int64_t* bin1, const int64_t* bin2,
+                           const S* count, int64_t n, int64_t lo2,
+                           int64_t hi2, int64_t nchunks, const int64_t* kept,
+                           int64_t* out1, int64_t* out2, void* outv,
+                           int32_t out_f64) {
+  if (out_f64) {
+    slab_select_impl(bin1, bin2, count, n, lo2, hi2, nchunks, kept, out1,
+                     out2, (double*)outv);
+  } else {
+    slab_select_impl(bin1, bin2, count, n, lo2, hi2, nchunks, kept, out1,
+                     out2, (float*)outv);
+  }
+}
+
 extern "C" {
 
 // Set the team size of every entry (n > 0; n <= 0 leaves it) and return
@@ -338,6 +401,45 @@ void tile_scatter_wtri(const int64_t* rows, const int64_t* cols,
         }
       }
     }
+  }
+}
+
+// Pass 1 of the column filter: kept[t] = the pixels of chunk t (of nchunks
+// equal contiguous chunks of the n) whose bin2 lies in [lo2, hi2); returns
+// their sum.
+int64_t slab_count(const int64_t* bin2, int64_t n, int64_t lo2, int64_t hi2,
+                   int64_t nchunks, int64_t* kept) {
+  const int nt = chunk_threads(nchunks);
+#pragma omp parallel for schedule(static, 1) num_threads(nt)
+  for (int64_t t = 0; t < nchunks; t++) {
+    const int64_t lo = n * t / nchunks, hi = n * (t + 1) / nchunks;
+    int64_t k = 0;
+    for (int64_t i = lo; i < hi; i++) k += (bin2[i] >= lo2) & (bin2[i] < hi2);
+    kept[t] = k;
+  }
+  int64_t total = 0;
+  for (int64_t t = 0; t < nchunks; t++) total += kept[t];
+  return total;
+}
+
+// Pass 2: count_kind 0 = int32, 1 = float32, 2 = float64 counts; out_f64
+// picks float64 over float32 outputs (slab_select_impl).
+void slab_select(const int64_t* bin1, const int64_t* bin2, const void* count,
+                 int32_t count_kind, int64_t n, int64_t lo2, int64_t hi2,
+                 int64_t nchunks, const int64_t* kept, int64_t* out1,
+                 int64_t* out2, void* outv, int32_t out_f64) {
+  switch (count_kind) {
+    case 0:
+      slab_select_to(bin1, bin2, (const int32_t*)count, n, lo2, hi2, nchunks,
+                     kept, out1, out2, outv, out_f64);
+      break;
+    case 1:
+      slab_select_to(bin1, bin2, (const float*)count, n, lo2, hi2, nchunks,
+                     kept, out1, out2, outv, out_f64);
+      break;
+    default:
+      slab_select_to(bin1, bin2, (const double*)count, n, lo2, hi2, nchunks,
+                     kept, out1, out2, outv, out_f64);
   }
 }
 

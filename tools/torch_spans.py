@@ -39,14 +39,15 @@ DETAILS = ("coords/sweep", "coords/frames", "ingest/fetch")
 
 
 def job_readings(timers, wall):
-    """One job's readings from its span log: the phases' sums, the self
-    times of ``prepare`` and the detail spans, the off-CPU seconds of
-    ``ingest``, the root's self time and its share of the wall."""
+    """One job's readings from its span log: the phases' sums, the
+    timers' counts, the self times of ``prepare`` and the detail spans, the
+    off-CPU seconds of ``ingest``, the root's self time and its share of
+    the wall."""
     from coolpuppy_tpu_torch.observability import span_seconds
 
     spans = timers.spans
     out = {"wall_s": wall, "spans": len(spans),
-           "seconds": dict(timers.seconds)}
+           "seconds": dict(timers.seconds), "counts": dict(timers.counts)}
     for name in ("prepare",) + DETAILS:
         out[name] = span_seconds(spans, name)
     out["ingest_offcpu"] = span_seconds(spans, "ingest", "offcpu_s")
