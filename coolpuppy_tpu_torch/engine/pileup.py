@@ -772,9 +772,10 @@ class PileUpper:
             and self.coverage_norm not in self.clr.bins().columns
         ):
             if self.coverage_norm in ("cov_cis_raw", "cov_tot_raw"):
-                coverage_mod.coverage(
-                    self.clr, store=True, ignore_diags=self.ignore_diags
-                )
+                with self._detail("prepare/coverage"):
+                    coverage_mod.coverage(
+                        self.clr, store=True, ignore_diags=self.ignore_diags
+                    )
             else:
                 raise ValueError(
                     f"coverage_norm {self.coverage_norm} not found in cooler bins"
@@ -826,7 +827,9 @@ class PileUpper:
         trans mode: only there are diagonals masked. The timers count the
         path the fetch's column filter took: ``fetch_views`` +1 where it
         dropped no pixel of its row spans (the slab holds views of the
-        store's columns), and ``fetch_dropped_pixels``."""
+        store's columns), and ``fetch_dropped_pixels``. Under
+        ``coverage_norm`` the coverage vectors' fetch is the phase
+        ``coverage``, counted in ``coverage_regions``."""
         r1c = self.view_df.loc[region1]
         r2c = self.view_df.loc[region2] if region2 != region1 else r1c
         min1, max1 = self.view_df_extents[region1]
@@ -862,12 +865,14 @@ class PileUpper:
             w1 = padded(wall[lo1g:hi1g])
             w2 = padded(wall[lo2g:hi2g])
         if self.coverage_norm:
-            cov1 = padded(
-                self.clr.bins()[self.coverage_norm].fetch(r1c).values
-            )
-            cov2 = padded(
-                self.clr.bins()[self.coverage_norm].fetch(r2c).values
-            )
+            with self._phase("coverage"):
+                cov1 = padded(
+                    self.clr.bins()[self.coverage_norm].fetch(r1c).values
+                )
+                cov2 = padded(
+                    self.clr.bins()[self.coverage_norm].fetch(r2c).values
+                )
+            self._count("coverage_regions")
         else:
             cov1 = np.zeros(8, np.float32)
             cov2 = np.zeros(8, np.float32)
@@ -968,6 +973,17 @@ class PileUpper:
     def _count(self, name, n=1):
         if self.timers:
             self.timers.count(name, n)
+
+    def _count_wire(self, mode, wire):
+        """Count a region's raw tiles on the ``"exact"`` float16 wire
+        (``_tile_f16_mode`` of integer counts): ``tile_wire_f32_regions``
+        where a payload fell back to float32 (a count the float16 cast
+        does not hand back bit for bit), else
+        ``tile_wire_exact_f16_regions``. ``wire``: the dtype names of the
+        region's uploads (``QuadPileupSession.wire``)."""
+        if mode == "exact" and wire:
+            self._count("tile_wire_f32_regions" if "float32" in wire
+                        else "tile_wire_exact_f16_regions")
 
     def _stage_region(self, region1, region2, region=None):
         """Fetch + stage one region pair's inputs (``region``: its index
@@ -1587,6 +1603,7 @@ class PileUpper:
                          fold_weights=wire_mode == "int8"),
                     self.device,
                 )
+                self._count_wire(wire_mode, session.wire)
                 ready = None
                 if self.device.type == "cuda":
                     ready = torch.cuda.Event()
@@ -1643,6 +1660,7 @@ class PileUpper:
             ),
             self.device,
         )
+        self._count_wire(wire_mode, session.wire)
         launches = quad_gather.LAUNCHES
         out = {}
         if G > _bank_groups(W):
@@ -1734,12 +1752,14 @@ class PileUpper:
         (``ops/tiles.normalized_stack``, uploaded through the wire of
         ``f16_mode``: masked pixels NaN, OOE-divided values) and its tile
         map as an int64 device tensor."""
+        wire = []
         stiles = normalized_stack(
             tile_stack, dev["valid1"], dev["valid2"], dev["evec"],
-            self.device, f16_mode=f16_mode,
+            self.device, f16_mode=f16_mode, wire=wire,
             ooe=bool(self.expected and self.ooe),
             cis=dev["cis"], ignore_diags=int(self.ignore_diags),
         )
+        self._count_wire(f16_mode, wire)
         tmap = torch.from_numpy(
             np.asarray(tile_stack.tile_map, np.int64)
         ).to(self.device)
@@ -2125,18 +2145,25 @@ class PileUpper:
         ``_pallas_side_outputs``): coverage from the exact (group,
         start-bin) histogram, or by device scatter-add where its [G, n]
         table would pass ``_COV_HIST_MAX`` entries; expected emission from
-        the (group, dd0) histogram."""
+        the (group, dd0) histogram. The coverage sums are the phase
+        ``coverage``, counted in ``coverage_hist_regions`` or
+        ``coverage_scatter_regions`` by the path they took."""
         cidl = arr["cidl"]
         if self.coverage_norm:
             n_cov = max(len(dev["cov1"]), len(dev["cov2"]))
+            hist = G * n_cov <= _COV_HIST_MAX
             cov_sums = (
                 coverage_histogram_sums
-                if G * n_cov <= _COV_HIST_MAX
+                if hist
                 else partial(coverage_scatter_sums, device=self.device)
             )
-            out["cov_start"], out["cov_end"] = cov_sums(
-                cidl, arr["r1"], arr["r2"], dev["cov1"], dev["cov2"], W, G
-            )
+            with self._phase("coverage"):
+                out["cov_start"], out["cov_end"] = cov_sums(
+                    cidl, arr["r1"], arr["r2"], dev["cov1"], dev["cov2"],
+                    W, G
+                )
+            self._count("coverage_hist_regions" if hist
+                        else "coverage_scatter_regions")
         if self.expected and not self.ooe:
             out["exp_sum"], out["exp_num"] = expected_toeplitz_sums(
                 cidl, arr["dd0"], dev["evec"], W, G

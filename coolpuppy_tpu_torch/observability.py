@@ -10,8 +10,10 @@ sums, stripe gather; the stream's chunk sorts and launches), ``wait`` (the
 main thread blocked on a prefetched region or a stream's session),
 ``stripes`` (stripe planes and coordinate strings split per group),
 ``region`` (the rest of one region on the main thread: its flat arrays
-joined, its accumulators packed, its checkpoint) and ``finalize`` (region
-merge and the output table). The hook routes add
+joined, its accumulators packed, its checkpoint), ``coverage`` (under
+``coverage_norm`` only: a region's coverage vectors fetched, inside
+``ingest``, and its coverage side sums, inside ``device``) and
+``finalize`` (region merge and the output table). The hook routes add
 ``hook`` (the user's batch hook), ``fold`` (the batch route's per-group
 numpy fold) and ``snips_host`` (the host stream's per-snip dicts, hooks and
 fold); their ``device`` is upload, normalize, window cut and fetch. Given
@@ -27,7 +29,13 @@ and ``stage`` on the staging worker, beside the main thread's ``coords``,
 ``device`` and ``wait``; the sum of the phases can then exceed the wall.
 Counts: ``snips``, ``stream_regions`` (regions accumulated by a stream),
 ``stream_aborts`` (streams given up for the collected path),
-``stream_chunks`` (a stream's launches of the quad accumulation).
+``stream_chunks`` (a stream's launches of the quad accumulation),
+``coverage_regions`` (regions that fetched coverage vectors),
+``coverage_hist_regions`` and ``coverage_scatter_regions`` (the path of a
+region's coverage side sums: the host histogram or the device
+scatter-add), ``tile_wire_exact_f16_regions`` and ``tile_wire_f32_regions``
+(regions whose raw integer tiles went over the exact float16 wire, and
+those that fell back to float32).
 
 ``PhaseTimers(spans=True)`` also keeps every phase as a ``Span``: an
 interval on the wall clock of ``time.time_ns()`` (the clock of the
@@ -36,7 +44,9 @@ thread, its thread's CPU time, its parent and the job id of its
 ``pileup()`` call. ``detail(name)`` records a span inside a phase that
 leaves ``seconds`` alone: ``coords/sweep`` (the cis pair enumeration),
 ``coords/frames`` (controls, groups, flips and the modify function of a
-frame) and ``ingest/fetch`` (the region's pixel slab). ``SpanIndex``
+frame), ``ingest/fetch`` (the region's pixel slab) and
+``prepare/coverage`` (the one-off whole-map coverage pass that stores the
+coverage columns in the cooler's bins). ``SpanIndex``
 finds the span open on a thread at a time, which attributes a trace's
 kernels and copies to the span that launched them and names an idle gap
 of the device by what the host was doing.

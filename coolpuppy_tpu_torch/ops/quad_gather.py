@@ -516,7 +516,8 @@ class QuadPileupSession:
     "lossy", "int8"} (``ops/tiles.upload_tiles``) for an upper-triangle or
     dense stack (a COO wire carries its own cast), and ``fold_weights``
     (the int8 wire's raw counts, ``valid1``/``valid2`` then the balancing
-    weights) for an upper-triangle stack only."""
+    weights) for an upper-triangle stack only. ``wire`` lists the dtype
+    names of the uploaded payload (``tiles.normalized_stack``)."""
 
     def __init__(self, tile_stack, valid1, valid2, evec, cfg_kw, device):
         from .tiles import normalized_stack
@@ -548,8 +549,10 @@ class QuadPileupSession:
         self.device = torch.device(device)
         self.tile_stack = tile_stack
         self.tile_map = tile_stack.tile_map
+        self.wire = []
         self.stiles = normalized_stack(
-            tile_stack, valid1, valid2, evec, self.device, **norm
+            tile_stack, valid1, valid2, evec, self.device, wire=self.wire,
+            **norm
         )
 
     @classmethod
@@ -562,6 +565,7 @@ class QuadPileupSession:
         self.W, self.C = int(W), int(capacity)
         self.device = stiles.device
         self.tile_stack = None
+        self.wire = []
         self.tile_map = np.asarray(tile_map)
         self.stiles = stiles
         return self

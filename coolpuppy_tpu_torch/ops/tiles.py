@@ -744,16 +744,19 @@ def normalize_tile_stack(
 # --------------------------------------------------------------------------
 
 
-def expand_sym(sym: SymTileStack, device, f16_mode=False):
+def expand_sym(sym: SymTileStack, device, f16_mode=False, wire=None):
     """Upload the upper tiles and materialize the FULL raw stack on
     ``device``: ``full[k] = upper[src[k]]``, transposed where ``flip[k]``,
     and ``g + gᵀ − g·I`` on diagonal tiles when the scatter held only the
     upper half (``diag_full`` false). ``f16_mode`` is the upload wire
     (``upload_tiles``): a float16 or int8 payload is upconverted and
     multiplied by its inverse scale before the mirroring (reference
-    ``_make_expand_sym_fn``, ``expand_sym_device``). Returns float32
-    [K+1, B, B]."""
+    ``_make_expand_sym_fn``, ``expand_sym_device``). A list ``wire``
+    gets the payload's dtype name appended. Returns float32 [K+1, B,
+    B]."""
     up, inv = upload_tiles(sym.upper, f16_mode, device)
+    if wire is not None:
+        wire.append(_dtype_name(up.dtype))
     src = torch.from_numpy(np.asarray(sym.src, np.int64)).to(device)
     flip = torch.from_numpy(np.asarray(sym.flip, bool)).to(device)
     g = _upconvert(up[src], inv)
@@ -764,6 +767,12 @@ def expand_sym(sym: SymTileStack, device, f16_mode=False):
         eye = torch.eye(sym.B, dtype=g.dtype, device=g.device)
         full = torch.where(diag[:, None, None], g + gt - g * eye, full)
     return full.contiguous()
+
+
+def _dtype_name(dtype):
+    """``torch.float16`` -> ``"float16"``; numpy dtypes pass through
+    ``str``."""
+    return str(dtype).replace("torch.", "")
 
 
 def _padded_vec(v, n):
@@ -909,23 +918,29 @@ def coo_tiles(cts: CooTileStack, device):
 
 
 def normalized_stack(tile_stack, valid1, valid2, evec, device,
-                     f16_mode=False, fold_weights=False, **norm):
+                     f16_mode=False, fold_weights=False, wire=None, **norm):
     """A host ``TileStack``, ``SymTileStack`` or ``CooTileStack`` uploaded
     to ``device``, expanded (``expand_sym``) or scattered (``coo_tiles``)
     and normalized into ONE NaN-encoded float32 stack [K+1, B, B]
     (``normalize_tiles`` with the keywords ``norm``). ``f16_mode`` is the
     upload wire of a dense or upper-triangle stack (a COO wire carries its
     own); ``fold_weights`` applies to an upper-triangle stack of raw counts
-    only, as in the reference's session."""
+    only, as in the reference's session. A list ``wire`` gets the dtype
+    name of what went over the wire appended: ``"float16"``, ``"int8"``,
+    or ``"float32"`` where the cast was refused or not asked for."""
     inv = None
     if isinstance(tile_stack, SymTileStack):
-        tiles = expand_sym(tile_stack, device, f16_mode)
+        tiles = expand_sym(tile_stack, device, f16_mode, wire=wire)
     elif isinstance(tile_stack, CooTileStack):
         tiles = coo_tiles(tile_stack, device)
         fold_weights = False
+        if wire is not None:
+            wire.append(_dtype_name(tile_stack.vals.dtype))
     elif isinstance(tile_stack, TileStack):
         tiles, inv = upload_tiles(tile_stack.tiles, f16_mode, device)
         fold_weights = False
+        if wire is not None:
+            wire.append(_dtype_name(tiles.dtype))
     else:
         raise TypeError(
             f"normalized_stack: unsupported {type(tile_stack).__name__}"

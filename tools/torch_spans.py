@@ -15,10 +15,13 @@ Two more jobs with the log on run under ``torch.profiler`` (kernels and
 copies, as ``pupbench/trace.py`` profiles): each kernel and copy goes to
 the span that launched it (``SpanIndex.launcher``), and the ten longest
 idle gaps of the device (as ``pupbench.trace.Trace.breakdown`` finds and
-names them) get the host spans open at their midpoint in front. Prints the
-card's name and power limit and one JSON line a cell, and writes it to
-``DIR/spans_<cell>.json``. Needs an NVIDIA card; imports neither JAX nor
-the JAX package."""
+names them) get the host spans open at their midpoint in front. The
+warm-up job runs with the log on too: its ``prepare/coverage`` span is the
+one-off coverage pass of a ``coverage_norm`` cell. Prints the card's name
+and power limit, one JSON line a cell, which it writes to
+``DIR/spans_<cell>.json``, and a line a cell of the means a job of the
+``coverage`` phase and of the counters in ``COUNTS``. Needs an NVIDIA
+card; imports neither JAX nor the JAX package."""
 
 from __future__ import annotations
 
@@ -35,7 +38,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-DETAILS = ("coords/sweep", "coords/frames", "ingest/fetch")
+DETAILS = ("coords/sweep", "coords/frames", "ingest/fetch",
+           "prepare/coverage")
+COUNTS = ("fetch_views", "fetch_dropped_pixels", "coverage_regions",
+          "coverage_hist_regions", "coverage_scatter_regions",
+          "tile_wire_exact_f16_regions", "tile_wire_f32_regions")
 
 
 def job_readings(timers, wall):
@@ -167,9 +174,11 @@ def gaps(trace, spans, window):
 def measure(cell, seconds, k, prof_jobs=2):
     """Every reading of one cell (a ``pupbench.harness.Cell``)."""
     from coolpuppy_tpu_torch.observability import (
-        SpanIndex, launched_seconds, span_seconds)
+        PhaseTimers, SpanIndex, launched_seconds, span_seconds)
 
-    run_job(cell, 0, None)  # warm-up
+    timers, j0 = PhaseTimers(spans=True), time.perf_counter()
+    run_job(cell, 0, timers)  # warm-up
+    warmup = job_readings(timers, time.perf_counter() - j0)
     rates, readings, job = windows(cell, seconds, k, job=1)
     trace, done, window = profiled(cell, range(job, job + prof_jobs))
     spans = [s for timers, _ in done for s in timers.spans]
@@ -187,11 +196,23 @@ def measure(cell, seconds, k, prof_jobs=2):
         "median_off": statistics.median(off),
         "median_on": statistics.median(on),
         "on_over_off": statistics.median(on) / statistics.median(off),
+        "warmup_job": warmup, "per_job": per_job(readings),
         "window_jobs": readings, "profiled_jobs": prof,
         "attribution": method, "idle_gaps": gaps(trace, spans, window),
         "runtime_events": sum(e.get("cat") == "cuda_runtime"
                               for e in trace["traceEvents"]),
     }
+
+
+def per_job(readings):
+    """Means over the jobs' readings: the ``coverage`` phase's seconds and
+    each counter of ``COUNTS`` (0 where a job did not count it)."""
+    n = max(len(readings), 1)
+    out = {"coverage_s": sum(r["seconds"].get("coverage", 0.0)
+                             for r in readings) / n}
+    for c in COUNTS:
+        out[c] = sum(r["counts"].get(c, 0) for r in readings) / n
+    return out
 
 
 def phase_cost(n=200_000):
@@ -241,6 +262,11 @@ def main(argv=None):
         with open(os.path.join(args.out, f"spans_{name}.json"), "w") as f:
             json.dump(got, f)
         print(json.dumps(got), flush=True)
+        warm = got["warmup_job"]
+        cov = warm["prepare/coverage"]
+        print(f"{name}: a job {json.dumps(got['per_job'])}; warm-up "
+              f"prepare/coverage {'none' if cov is None else f'{cov:.3f} s'}"
+              f" of {warm['wall_s']:.3f} s", flush=True)
         cell.free_program()
         del cell
     bad = harness.forbidden_modules()
