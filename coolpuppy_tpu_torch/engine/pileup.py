@@ -979,11 +979,17 @@ class PileUpper:
         (``_tile_f16_mode`` of integer counts): ``tile_wire_f32_regions``
         where a payload fell back to float32 (a count the float16 cast
         does not hand back bit for bit), else
-        ``tile_wire_exact_f16_regions``. ``wire``: the dtype names of the
-        region's uploads (``QuadPileupSession.wire``)."""
+        ``tile_wire_exact_f16_regions``. On any float16 wire, a region
+        whose payload went over as float16 counts
+        ``tile_cast_native_regions``: the native cast
+        (``ops/tiles.cast_slab_f16``) makes every such payload. ``wire``:
+        the dtype names of the region's uploads
+        (``QuadPileupSession.wire``)."""
         if mode == "exact" and wire:
             self._count("tile_wire_f32_regions" if "float32" in wire
                         else "tile_wire_exact_f16_regions")
+        if "float16" in wire:
+            self._count("tile_cast_native_regions")
 
     def _stage_region(self, region1, region2, region=None):
         """Fetch + stage one region pair's inputs (``region``: its index

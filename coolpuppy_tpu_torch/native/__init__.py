@@ -1,17 +1,20 @@
 """The host ingest in C++ (counterpart of ``coolpuppy_tpu/native``): the
 column filter of a region fetch, the COO -> tile-stack scatters, the
-stable counting sort of snip words by tile quad, and the sorted-center
-pair sweep, bound with ``ctypes``.
+float16 cast of the tile upload wire and its scan, the stable counting
+sort of snip words by tile quad, and the sorted-center pair sweep, bound
+with ``ctypes``.
 
 The library is built from ``_ingest.cpp`` at the first call
 (``native/build.py``) and loaded once. A failed build or load raises: the
 port has no fallback. The numpy versions of these entries stay beside their
 callers as the plain versions the tests hold them against
 (``io/cool.Cooler._fetch_rect_raw_plain``, ``ops/tiles.scatter_plain`` and
-``scatter_slab_plain``, ``ops/quad_gather.sort_quads_plain``,
-``coords.CoordCreator``'s numpy sweep).
+``scatter_slab_plain``, ``ops/tiles.cast_slab_f16_plain``,
+``ops/quad_gather.sort_quads_plain``, ``coords.CoordCreator``'s numpy
+sweep); ``abs_max`` is held against numpy's ``nanmax``.
 
-Every entry but ``enumerate_pairs`` runs an OpenMP team. At load its size
+Every entry but ``enumerate_pairs`` runs an OpenMP team (``cast_f16`` and
+``abs_max`` only on 2^20 values or more). At load its size
 is set once to ``max(1, os.cpu_count() - 1)``, one core left for the
 engine's main thread, unless ``OMP_NUM_THREADS`` is set, whose value the
 OpenMP runtime then takes; ``set_threads`` changes it. The process
@@ -52,6 +55,11 @@ def _bind(lib):
         _i64, _i64, ctypes.c_void_p, ctypes.c_int32, _c64, _c64, _c64, _c64,
         _i64, _i64, _i64, ctypes.c_void_p, ctypes.c_int32,
     ]
+    lib.cast_f16.restype = ctypes.c_int32
+    lib.cast_f16.argtypes = [_f32, _c64, ctypes.c_float, ctypes.c_float,
+                             ctypes.c_int32, ctypes.POINTER(ctypes.c_uint16)]
+    lib.abs_max.restype = ctypes.c_float
+    lib.abs_max.argtypes = [_f32, _c64]
     lib.quad_sort.argtypes = [_i32, _i32, _c64, _c64, _i32, _i64]
     lib.enumerate_pairs.restype = ctypes.c_int64
     lib.enumerate_pairs.argtypes = [_f64, _c64, ctypes.c_double,
@@ -215,6 +223,30 @@ def tile_scatter_wtri(rows, cols, vals, lo1, lo2, n1, n2, weights, tile_map,
         tm.shape[1], B, K, 1 if mirror else 0, _ptr(out, _f32),
     )
     return out
+
+
+def cast_f16(src, scale, inv, exact, out):
+    """The float16 wire of float32 ``src`` written into ``out`` (float16,
+    C-contiguous, ``src``'s size): ``f16(src * scale)``, rounded to nearest
+    even, numpy's bits. ``exact`` also checks that ``f32(out) * inv``
+    gives ``src`` back (NaN for NaN) and returns False at the first value
+    that does not (``out`` then holds part of the cast); True otherwise."""
+    src = np.ascontiguousarray(src, np.float32)
+    if out.dtype != np.float16 or not out.flags.c_contiguous \
+            or not out.flags.writeable or out.size != src.size:
+        raise ValueError(
+            f"native.cast_f16: out must be a writable C-contiguous float16 "
+            f"array of {src.size} values, not {out.dtype} {out.shape}")
+    return bool(lib().cast_f16(
+        _ptr(src, _f32), src.size, float(scale), float(inv),
+        1 if exact else 0, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16))))
+
+
+def abs_max(a):
+    """The largest ``|a|`` of float32 values, NaN skipped: inf where one is
+    infinite, 0.0 where none is a number or ``a`` is empty."""
+    a = np.ascontiguousarray(a, np.float32)
+    return float(lib().abs_max(_ptr(a, _f32), a.size))
 
 
 def quad_sort(keys, payload, nbuckets):

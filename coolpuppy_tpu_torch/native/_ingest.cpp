@@ -1,12 +1,15 @@
 // Native host-side ingest for coolpuppy_tpu_torch (a copy of
 // coolpuppy_tpu/native/_ingest.cpp with entries of its own: the thread
-// setter and the region fetch's column filter).
+// setter, the region fetch's column filter and the tile upload's float16
+// cast).
 //
 // The hot host-side loops behind the device pipeline: the column filter of
 // a region fetch (the plain version in io/cool.py is a numpy mask and three
 // boolean takes), scattering COO pixels into the block-sparse tile stack
 // (the plain version in ops/tiles.py is a numpy bincount chain over ~3
-// temporary arrays), the stable counting sort of snip words by tile quad,
+// temporary arrays), the float16 cast of the tile upload wire and its
+// scan (the plain versions in ops/tiles.py are numpy casts out and back and
+// a nanmax of a copy), the stable counting sort of snip words by tile quad,
 // and enumerating all-vs-all feature pairs with distance filtering.
 // Compiled to a plain shared library at first use and bound with ctypes
 // (coolpuppy_tpu_torch/native/build.py, __init__.py).
@@ -15,10 +18,15 @@
 // calling thread (an OpenMP runtime keeps omp_set_num_threads per thread,
 // and the engine calls these entries from worker threads too).
 
+#include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <memory>
 #include <vector>
+#if defined(__F16C__) && defined(__AVX__)
+#include <immintrin.h>
+#define INGEST_F16C 1
+#endif
 #ifdef _OPENMP
 // declared here rather than through <omp.h>: a compiler built without its
 // OpenMP runtime still compiles the pragmas, and build.py links the runtime
@@ -246,6 +254,97 @@ static void slab_select_to(const int64_t* bin1, const int64_t* bin2,
     slab_select_impl(bin1, bin2, count, n, lo2, hi2, nchunks, kept, out1,
                      out2, (float*)outv);
   }
+}
+
+// -- the float16 upload wire (ops/tiles.cast_slab_f16, f16_wire_plan) -----
+
+// values a chunk of the cast and the scan, and the payload from which they
+// run an OpenMP team (a region's 4.6M values: ~1.6 ms on one thread of an
+// H100 host, ~0.4 ms on a team of seven)
+static const int64_t kCastChunk = (int64_t)1 << 16;
+static const int64_t kCastTeamMin = (int64_t)1 << 20;
+
+// float32 -> float16 bits, rounded to nearest even: the bits of numpy's
+// float32 -> float16 cast (and of F16C's), NaN kept NaN with the top of its
+// payload, overflow to signed inf, float16 subnormals rounded once
+static inline uint16_t f16_bits(float x) {
+  uint32_t f;
+  std::memcpy(&f, &x, 4);
+  const uint16_t sign = (uint16_t)((f >> 16) & 0x8000u);
+  const uint32_t exp = f & 0x7f800000u;
+  uint32_t sig = f & 0x007fffffu;
+  if (exp == 0x7f800000u) {  // inf or NaN
+    uint16_t h = (uint16_t)(0x7c00u | (sig >> 13));
+    if (sig && h == 0x7c00u) h++;  // a NaN whose payload sits low
+    return sign | h;
+  }
+  if (exp >= 0x47800000u) return sign | 0x7c00u;  // |x| >= 2^16
+  if (exp <= 0x38000000u) {  // |x| < 2^-14: a float16 subnormal or zero
+    if (exp < 0x33000000u) return sign;  // below half the least subnormal
+    const uint32_t shift = 126 - (exp >> 23);  // 14..24
+    const uint32_t m = sig | 0x00800000u;
+    uint32_t h = m >> shift;
+    const uint32_t rest = m & ((1u << shift) - 1), half = 1u << (shift - 1);
+    if (rest > half || (rest == half && (h & 1u))) h++;
+    return sign | (uint16_t)h;  // a carry into the exponent is right
+  }
+  uint32_t h = ((exp - 0x38000000u) >> 13) | (sig >> 13);
+  const uint32_t rest = sig & 0x1fffu;
+  if (rest > 0x1000u || (rest == 0x1000u && (h & 1u))) h++;
+  return sign | (uint16_t)h;  // a carry past 0x7bff gives inf
+}
+
+// float16 bits -> float32, exact
+static inline float f16_value(uint16_t h) {
+  const uint32_t sign = (uint32_t)(h & 0x8000u) << 16;
+  const uint32_t exp = (h >> 10) & 0x1fu, man = h & 0x3ffu;
+  uint32_t f;
+  if (exp == 0x1fu) {
+    f = sign | 0x7f800000u | (man << 13);
+  } else if (exp) {
+    f = sign | ((exp + 112) << 23) | (man << 13);
+  } else {
+    const float v = std::ldexp((float)man, -24);
+    return sign ? -v : v;
+  }
+  float x;
+  std::memcpy(&x, &f, 4);
+  return x;
+}
+
+// One run of the cast: h[i] = f16(x[i] * scale). EXACT also converts back,
+// multiplies by inv and returns false at the first value that does not
+// come back equal (or NaN for NaN).
+template <bool EXACT>
+static bool cast_run(const float* x, int64_t n, float scale, float inv,
+                     uint16_t* h) {
+  int64_t i = 0;
+#ifdef INGEST_F16C
+  const __m256 vs = _mm256_set1_ps(scale), vi = _mm256_set1_ps(inv);
+  for (; i + 8 <= n; i += 8) {
+    const __m256 v = _mm256_loadu_ps(x + i);
+    const __m128i w =
+        _mm256_cvtps_ph(_mm256_mul_ps(v, vs), _MM_FROUND_TO_NEAREST_INT);
+    _mm_storeu_si128((__m128i*)(h + i), w);
+    if (EXACT) {
+      const __m256 rt = _mm256_mul_ps(_mm256_cvtph_ps(w), vi);
+      const __m256 same = _mm256_or_ps(
+          _mm256_cmp_ps(rt, v, _CMP_EQ_OQ),
+          _mm256_and_ps(_mm256_cmp_ps(rt, rt, _CMP_UNORD_Q),
+                        _mm256_cmp_ps(v, v, _CMP_UNORD_Q)));
+      if (_mm256_movemask_ps(same) != 0xff) return false;
+    }
+  }
+#endif
+  for (; i < n; i++) {
+    const uint16_t b = f16_bits(x[i] * scale);
+    h[i] = b;
+    if (EXACT) {
+      const float rt = f16_value(b) * inv;
+      if (!(rt == x[i] || (std::isnan(rt) && std::isnan(x[i])))) return false;
+    }
+  }
+  return true;
 }
 
 extern "C" {
@@ -503,6 +602,66 @@ void quad_sort(const int32_t* q, const int32_t* payload, int64_t n,
     int64_t* cur = hist.data() + (size_t)t * nbuckets;
     for (int64_t i = lo; i < hi; i++) out_payload[cur[q[i]]++] = payload[i];
   }
+}
+
+// The float16 wire of n float32 values: h[i] = f16(x[i] * scale), rounded to
+// nearest even. exact != 0 also checks that f32(h[i]) * inv gives x[i] back
+// (NaN for NaN) and returns 0 at the first that does not, the rest of h then
+// undefined; 1 otherwise. A team of ingest_threads() runs chunks of
+// kCastChunk values from kCastTeamMin values on.
+int32_t cast_f16(const float* x, int64_t n, float scale, float inv,
+                 int32_t exact, uint16_t* h) {
+  const int64_t nchunks = (n + kCastChunk - 1) / kCastChunk;
+  const int nt = n >= kCastTeamMin ? chunk_threads(nchunks) : 1;
+  int refused = 0;
+#pragma omp parallel for schedule(static) num_threads(nt)
+  for (int64_t c = 0; c < nchunks; c++) {
+    int stop;
+#pragma omp atomic read
+    stop = refused;
+    if (stop) continue;
+    const int64_t lo = c * kCastChunk;
+    const int64_t len = n - lo < kCastChunk ? n - lo : kCastChunk;
+    const bool ok = exact ? cast_run<true>(x + lo, len, scale, inv, h + lo)
+                          : cast_run<false>(x + lo, len, scale, inv, h + lo);
+    if (!ok) {
+#pragma omp atomic write
+      refused = 1;
+    }
+  }
+  return !refused;
+}
+
+// The largest |x[i]| of n float32 values, NaN skipped: +inf where one is
+// infinite, 0 where none is a number (the scan of f16_wire_plan).
+float abs_max(const float* x, int64_t n) {
+  const int64_t nchunks = (n + kCastChunk - 1) / kCastChunk;
+  const int nt = n >= kCastTeamMin ? chunk_threads(nchunks) : 1;
+  float m = 0.0f;
+#pragma omp parallel for schedule(static) num_threads(nt) reduction(max : m)
+  for (int64_t c = 0; c < nchunks; c++) {
+    const int64_t lo = c * kCastChunk;
+    const int64_t hi = n - lo < kCastChunk ? n : lo + kCastChunk;
+    int64_t i = lo;
+    float cm = 0.0f;
+#ifdef INGEST_F16C
+    const __m256 absmask = _mm256_castsi256_ps(_mm256_set1_epi32(0x7fffffff));
+    __m256 vm = _mm256_setzero_ps();
+    for (; i + 8 <= hi; i += 8) {
+      // max_ps(a, b) gives b where either is NaN: NaN is skipped
+      vm = _mm256_max_ps(_mm256_and_ps(_mm256_loadu_ps(x + i), absmask), vm);
+    }
+    float lanes[8];
+    _mm256_storeu_ps(lanes, vm);
+    for (int k = 0; k < 8; k++) cm = lanes[k] > cm ? lanes[k] : cm;
+#endif
+    for (; i < hi; i++) {
+      const float a = std::fabs(x[i]);
+      cm = a > cm ? a : cm;
+    }
+    m = cm > m ? cm : m;
+  }
+  return m;
 }
 
 int64_t enumerate_pairs(const double* centers, int64_t n, double mindist,

@@ -35,7 +35,9 @@ Counts: ``snips``, ``stream_regions`` (regions accumulated by a stream),
 region's coverage side sums: the host histogram or the device
 scatter-add), ``tile_wire_exact_f16_regions`` and ``tile_wire_f32_regions``
 (regions whose raw integer tiles went over the exact float16 wire, and
-those that fell back to float32).
+those that fell back to float32), ``tile_cast_native_regions`` (regions
+whose tiles went over a float16 wire, exact or lossy, cast by the native
+``cast_f16``).
 
 ``PhaseTimers(spans=True)`` also keeps every phase as a ``Span``: an
 interval on the wall clock of ``time.time_ns()`` (the clock of the

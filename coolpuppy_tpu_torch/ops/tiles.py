@@ -17,9 +17,13 @@ The upload wire is copied too: ``f16_wire_plan``, ``cast_slab_f16``,
 ``cast_tiles_f16`` and ``cast_tiles_int8`` pick a power-of-two scale and
 cast the raw tiles to float16 (``"exact"``: only where the round trip is
 exact; ``"lossy"``: at most 2^-11 relative error a value) or ship raw
-integer counts as int8. ``upload_tiles`` runs that cast per slab of
-``UPLOAD_SLAB`` tiles into a pinned buffer and starts each slab's copy as
-soon as it is cast, so the cast overlaps the transfer.
+integer counts as int8. The float16 scan and cast are native
+(``native.abs_max``, ``native.cast_f16``: one pass each, the cast's round
+trip checked in the same registers); the reference's numpy cast stays as
+``cast_slab_f16_plain``, which the tests hold the native cast against.
+``upload_tiles`` runs the cast per slab of ``UPLOAD_SLAB`` tiles straight
+into a pinned buffer and starts each slab's copy as soon as it is cast, so
+the cast overlaps the transfer.
 
 The device half ports the reference's jnp functions as torch ops:
 ``expand_sym`` (upper tiles -> full raw stack), ``coo_tiles`` (the COO wire
@@ -131,31 +135,50 @@ UPLOAD_SLAB = 256
 
 def f16_wire_plan(tiles, mode):
     """Scan-only half of ``cast_tiles_f16``: pick the pow2 scale (or
-    refuse). Returns ``(scale, inv)`` or None. The multiply and f16 cast
-    then run per upload slab (``cast_slab_f16``), so they overlap the
-    copies instead of running in front of them."""
+    refuse). Returns ``(scale, inv)`` or None. The scan is one native pass
+    over the float32 payload (``native.abs_max``: the largest |value|, NaN
+    skipped), in place of numpy's ``nanmax`` of a copy of ``|tiles|``. The
+    multiply and f16 cast then run per upload slab (``cast_slab_f16``), so
+    they overlap the copies instead of running in front of them."""
     if not mode or tiles.size == 0:
         return None
-    with np.errstate(invalid="ignore"):
-        amax = float(np.nanmax(np.abs(tiles)))
+    amax = native.abs_max(tiles)
     if np.isinf(amax):
         return None
-    if not np.isfinite(amax) or amax == 0.0:  # all-zero / all-NaN
+    if amax == 0.0:  # all-zero / all-NaN
         return np.float32(1.0), np.float32(1.0)
     scale = np.float32(2.0 ** (13 - int(np.ceil(np.log2(amax) + 1e-12))))
     return scale, np.float32(1.0 / scale)
 
 
-def cast_slab_f16(arr, scale, mode):
-    """Cast one slab with a pre-planned scale (``f16_wire_plan``). For
-    ``mode == "exact"`` verifies the round trip and returns None on any
-    mismatch (the caller then ships the whole payload float32)."""
+def cast_slab_f16_plain(arr, scale, mode):
+    """Plain numpy version of ``cast_slab_f16`` (the reference's): the
+    multiply and the float16 cast, and for ``"exact"`` the cast back, the
+    multiply by the inverse and the comparison, each a pass of its own;
+    None on any mismatch."""
     wire = (arr * scale).astype(np.float16)
     if mode == "exact":
         rt = wire.astype(np.float32) * np.float32(1.0 / float(scale))
         if not np.array_equal(rt, arr, equal_nan=True):
             return None
     return wire
+
+
+def cast_slab_f16(arr, scale, mode, out=None):
+    """Cast one float32 slab with a pre-planned scale (``f16_wire_plan``)
+    in one native pass (``native.cast_f16``, F16C where the host has it):
+    ``float16(arr * scale)`` rounded to nearest even, the bits of
+    ``cast_slab_f16_plain``, written into ``out`` (a float16 array of
+    ``arr``'s shape: the slab's part of the pinned upload buffer) or a new
+    array, which is returned. For ``mode == "exact"`` the same pass
+    verifies the round trip and returns None on any mismatch (the caller
+    then ships the whole payload float32)."""
+    if out is None:
+        out = np.empty(arr.shape, np.float16)
+    inv = np.float32(1.0 / float(scale))
+    if not native.cast_f16(arr, scale, inv, mode == "exact", out):
+        return None
+    return out
 
 
 def cast_tiles_f16(tiles, mode):
@@ -202,10 +225,11 @@ def cast_tiles_int8(tiles):
 
 
 def _upload_slabs(tiles, device, cast, dtype):
-    """``tiles`` cast slab by slab (``cast(slab)`` -> numpy of ``dtype``, or
-    None to refuse) and copied to ``device``: on a CUDA device into one
-    pinned buffer, each slab's copy started as soon as it is cast. Returns
-    the device tensor, or None where ``cast`` refused a slab."""
+    """``tiles`` cast slab by slab (``cast(slab, dst)`` writes the slab's
+    wire into ``dst``, its part of one host buffer of numpy ``dtype``, and
+    returns False to refuse) and copied to ``device``: on a CUDA device the
+    buffer is pinned and each slab's copy starts as soon as it is cast.
+    Returns the device tensor, or None where ``cast`` refused a slab."""
     K = tiles.shape[0]
     cuda = torch.device(device).type == "cuda"
     tdtype = torch.from_numpy(np.zeros(0, dtype)).dtype
@@ -215,26 +239,35 @@ def _upload_slabs(tiles, device, cast, dtype):
     hn = host.numpy()
     for lo in range(0, K, UPLOAD_SLAB):
         hi = min(lo + UPLOAD_SLAB, K)
-        wire = cast(tiles[lo:hi])
-        if wire is None:
+        if not cast(tiles[lo:hi], hn[lo:hi]):
             return None
-        hn[lo:hi] = wire
         if cuda:
             out[lo:hi].copy_(host[lo:hi], non_blocking=True)
     return out
+
+
+def _int8_into(slab, dst):
+    """``cast_tiles_int8`` of a slab copied into ``dst``; False where it
+    refuses."""
+    wire = cast_tiles_int8(slab)
+    if wire is None:
+        return False
+    dst[...] = wire
+    return True
 
 
 def upload_tiles(tiles, f16_mode, device):
     """Raw tiles [K, B, B] (float32 numpy) on ``device`` through the upload
     wire of ``f16_mode`` (the reference's ``tile_f16`` values): False ships
     float32; ``"exact"``/``"lossy"`` ship scaled float16 where
-    ``cast_tiles_f16`` allows it; ``"int8"`` ships int8 where
+    ``cast_tiles_f16`` allows it, cast natively straight into the pinned
+    buffer (``cast_slab_f16``); ``"int8"`` ships int8 where
     ``cast_tiles_int8`` allows it, else ``"exact"`` float16 (raw integer
     counts). A refused cast ships float32. Returns ``(tensor in the wire's
     dtype, inv)``: the device multiplies by ``inv`` after upconverting."""
     one = np.float32(1.0)
     if f16_mode == "int8":
-        out = _upload_slabs(tiles, device, cast_tiles_int8, np.int8)
+        out = _upload_slabs(tiles, device, _int8_into, np.int8)
         if out is not None:
             return out, one
         f16_mode = "exact"  # misjudged: raw integer counts still f16-exact
@@ -245,7 +278,9 @@ def upload_tiles(tiles, f16_mode, device):
             scale, inv = plan
             out = _upload_slabs(
                 tiles, device,
-                lambda a: cast_slab_f16(a, scale, f16_mode), np.float16)
+                lambda a, dst: cast_slab_f16(a, scale, f16_mode,
+                                             out=dst) is not None,
+                np.float16)
             if out is not None:
                 return out, inv
     t = torch.from_numpy(np.ascontiguousarray(tiles, np.float32))

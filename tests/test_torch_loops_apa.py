@@ -41,7 +41,8 @@ NAME = "loops_10kb.apa_bedpe"
 SEED = 2**31 + 4_242
 COVERAGE_COUNTS = ("coverage_regions", "coverage_hist_regions",
                    "coverage_scatter_regions")
-WIRE_COUNTS = ("tile_wire_exact_f16_regions", "tile_wire_f32_regions")
+WIRE_COUNTS = ("tile_wire_exact_f16_regions", "tile_wire_f32_regions",
+               "tile_cast_native_regions")
 
 
 def small():
@@ -129,9 +130,11 @@ def test_loops_match_the_reference(loops, wire, monkeypatch):
     counts = {k: timers.counts.get(k, 0) for k in WIRE_COUNTS}
     want = {"float32": {k: 0 for k in WIRE_COUNTS},
             "exact_f16": {"tile_wire_exact_f16_regions": 3,
-                          "tile_wire_f32_regions": 0},
+                          "tile_wire_f32_regions": 0,
+                          "tile_cast_native_regions": 3},
             "f16_fallback": {"tile_wire_exact_f16_regions": 2,
-                             "tile_wire_f32_regions": 1}}[wire]
+                             "tile_wire_f32_regions": 1,
+                             "tile_cast_native_regions": 2}}[wire]
     assert counts == want
 
 

@@ -2,6 +2,12 @@
 
 - the host casts of the tile upload (``f16_wire_plan``, ``cast_slab_f16``,
   ``cast_tiles_f16``, ``cast_tiles_int8``) bit for bit;
+- the native float16 cast (``native.cast_f16`` through ``cast_slab_f16``)
+  bit for bit against numpy's, ``cast_slab_f16_plain``: NaN, +-0, +-inf,
+  ties, float16 subnormals, refusals on one thread and in a team, lengths
+  off the vector width, strided input, its own slab of a buffer only; the
+  scan ``native.abs_max`` against ``nanmax``; the engine's
+  ``tile_cast_native_regions`` counter with the wire forced on the CPU;
 - the device side of the upload: ``expand_sym`` of a float16 and an int8
   payload, the normalization with and without ``fold_weights``, the dense
   wire and the COO wire's scatter;
@@ -136,6 +142,95 @@ def test_upload_tiles_equals_the_whole_cast(case, mode, monkeypatch):
     want, want_inv = cast if cast is not None else (tiles, np.float32(1.0))
     _same(got.numpy(), want)
     _same(np.float32(inv), np.float32(want_inv))
+
+
+def _native_case(case):
+    """``(payload, scale)`` of one case of the native cast: float32, any
+    shape, the scale a power of two as ``f16_wire_plan`` picks it."""
+    rng = np.random.default_rng(7)
+    f16 = np.float16
+    if case == "specials":  # NaN, +-0, +-inf among counts
+        a = rng.poisson(30.0, 64).astype(np.float32)
+        a[[3, 17, 40]] = np.nan
+        a[[5, 33]] = [0.0, -0.0]
+        a[[9, 50]] = [np.inf, -np.inf]
+        return a, np.float32(8.0)
+    if case == "halfway":  # exactly between two float16 values, both parities
+        lo = rng.uniform(1, 60000, 96).astype(f16)
+        lo = lo[np.isfinite(lo) & (lo < f16(65504))]
+        hi = np.nextafter(lo, f16(np.inf))
+        mid = (lo.astype(np.float32) + hi.astype(np.float32)) / 2
+        return np.concatenate([mid, -mid, [2049.0, 2051.0, 1 + 2**-11]]) \
+            .astype(np.float32), np.float32(1.0)
+    if case == "subnormal":  # results below 2^-14, ties among them
+        k = np.arange(0, 1024, 3, dtype=np.float32)
+        a = np.concatenate([k * 2.0**-24, (k + 0.5) * 2.0**-24,
+                            rng.uniform(0, 2.0**-14, 64), [2.0**-25,
+                            3 * 2.0**-26, 2.0**-26, 2.0**-14 - 2.0**-25]])
+        a = np.concatenate([a, -a]).astype(np.float32)
+        return a * np.float32(2.0**-6), np.float32(2.0**6)
+    if case == "counts_above_2048":  # odd counts: the exact wire refuses
+        a = rng.poisson(40.0, (3, 16, 16)).astype(np.float32)
+        a[2, 9, 4] = 4097.0
+        return a, np.float32(2.0**0)
+    if case == "refused_in_a_team":  # a team's later chunk refuses
+        a = rng.poisson(3.0, (72, 128, 128)).astype(np.float32)
+        a[61, 100, 7] = 2049.0
+        return a, np.float32(2.0)
+    if case == "team":  # 2^20 values and more: an OpenMP team
+        a = rng.poisson(3.0, (72, 128, 128)).astype(np.float32)
+        a[rng.random(a.shape) < 0.5] = 0.0
+        return a, np.float32(2.0**10)
+    if case == "empty":
+        return np.zeros((0, 128, 128), np.float32), np.float32(1.0)
+    if case.startswith("len"):  # not a multiple of 8 or 16: the scalar tail
+        n = int(case[3:])
+        return (rng.gamma(1.0, 0.01, n) * (rng.random(n) < 0.7)) \
+            .astype(np.float32), np.float32(2.0**17)
+    if case == "strided":  # a non-contiguous float32 slice
+        a = rng.poisson(12.0, (6, 16, 40)).astype(np.float32)
+        return a[1::2, :, 3:37:3], np.float32(4.0)
+    raise ValueError(case)
+
+
+NATIVE_CASES = ("specials", "halfway", "subnormal", "counts_above_2048",
+                "refused_in_a_team", "team", "empty", "len1", "len7", "len9",
+                "len15", "len17", "len31", "len33", "strided")
+
+
+@pytest.mark.parametrize("mode", ["exact", "lossy"])
+@pytest.mark.parametrize("case", NATIVE_CASES)
+def test_native_cast_equals_the_plain_cast(case, mode):
+    """``cast_slab_f16`` (``native.cast_f16``) against
+    ``cast_slab_f16_plain``, numpy's cast: the same float16 bits, or None
+    for both; written into its part of a larger buffer, it leaves the rest
+    as it was. ``native.abs_max`` is numpy's ``nanmax`` of ``|a|`` (0
+    where no value is a number)."""
+    a, scale = _native_case(case)
+    with np.errstate(over="ignore", invalid="ignore"):
+        want = port_tiles.cast_slab_f16_plain(a, scale, mode)
+    got = port_tiles.cast_slab_f16(a, scale, mode)
+    assert (got is None) == (want is None)
+    if case in ("counts_above_2048", "refused_in_a_team"):
+        assert (got is None) == (mode == "exact")
+    if want is not None:
+        assert got.dtype == np.float16 and got.shape == a.shape
+        np.testing.assert_array_equal(got.view(np.uint16),
+                                      want.view(np.uint16))
+    pad = 13
+    buf = np.full(a.size + 2 * pad, np.float16(-7.0))
+    dst = buf[pad:pad + a.size].reshape(a.shape)
+    res = port_tiles.cast_slab_f16(a, scale, mode, out=dst)
+    assert (res is None) == (want is None)
+    if want is not None:
+        assert res is dst
+        np.testing.assert_array_equal(dst.view(np.uint16),
+                                      want.view(np.uint16))
+    assert (buf[:pad] == -7.0).all() and (buf[pad + a.size:] == -7.0).all()
+    with np.errstate(invalid="ignore"):
+        amax = np.nanmax(np.abs(a)) if a.size and not np.isnan(a).all() \
+            else 0.0
+    assert port_tiles.native.abs_max(a) == amax
 
 
 def _int_region(n, seed, W=11, S=64):
@@ -519,6 +614,57 @@ def test_cpu_defaults_are_float32(toy, monkeypatch):
             np.testing.assert_array_equal(np.asarray(a, float),
                                           np.asarray(b, float))
     assert on["ignored"].iloc[0] == "chunk_size=32768, tile_size=None"
+
+
+def _raw_count_map(big):
+    """Two 160-bin chromosomes at 1 Mb of raw integer counts near the
+    diagonal (the toy view's regions lie at bins 100-150); with ``big``,
+    chr2's pixel (105, 106) holds 4097, which float16 cannot carry."""
+    rng = np.random.default_rng(11)
+    n = 160
+    i, j = np.triu_indices(n)
+    keep = j - i < 30
+    i, j = i[keep], j[keep]
+    cnt = rng.poisson(60.0 / (1.0 + j - i) + 1.0)
+    bin1, bin2 = np.concatenate([i, i + n]), np.concatenate([j, j + n])
+    cnt = np.concatenate([cnt, cnt])
+    if big:
+        cnt[np.flatnonzero((bin1 == n + 105) & (bin2 == n + 106))] = 4097
+    return port.Cooler.from_arrays({"chr1": n * 1_000_000,
+                                    "chr2": n * 1_000_000}, 1_000_000,
+                                   (bin1, bin2, cnt))
+
+
+@pytest.mark.parametrize("big", [False, True])
+def test_native_cast_counter(big, monkeypatch):
+    """With the wire forced on the CPU, a raw-count map takes the exact
+    float16 wire: each region whose payload goes over as float16 counts
+    ``tile_cast_native_regions`` once and was cast by ``native.cast_f16``;
+    a region whose payload the cast refuses (a count of 4097 in chr2)
+    counts ``tile_wire_f32_regions`` and not the native cast."""
+    from coolpuppy_tpu_torch.observability import PhaseTimers
+
+    monkeypatch.setattr(port_engine.PileUpper, "_on_accelerator",
+                        lambda self: True)
+    calls = []
+    inner = port_tiles.native.cast_f16
+
+    def spy(src, scale, inv, exact, out):
+        calls.append(exact)
+        return inner(src, scale, inv, exact, out)
+
+    monkeypatch.setattr(port_tiles.native, "cast_f16", spy)
+    timers = PhaseTimers()
+    port.pileup(_raw_count_map(big), toy_features(), features_format="bed",
+                view_df=toy_regions(), flank=2_000_000, mindist=0,
+                clr_weight_name=None, device="cpu", timers=timers)
+    counts = {k: timers.counts.get(k, 0) for k in (
+        "tile_cast_native_regions", "tile_wire_exact_f16_regions",
+        "tile_wire_f32_regions")}
+    assert counts == {"tile_cast_native_regions": 1 if big else 2,
+                      "tile_wire_exact_f16_regions": 1 if big else 2,
+                      "tile_wire_f32_regions": 1 if big else 0}
+    assert len(calls) >= 2 and all(calls)
 
 
 def test_k9_and_stripe_wires_forced_on_the_cpu(toy, monkeypatch):

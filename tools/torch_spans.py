@@ -42,7 +42,8 @@ DETAILS = ("coords/sweep", "coords/frames", "ingest/fetch",
            "prepare/coverage")
 COUNTS = ("fetch_views", "fetch_dropped_pixels", "coverage_regions",
           "coverage_hist_regions", "coverage_scatter_regions",
-          "tile_wire_exact_f16_regions", "tile_wire_f32_regions")
+          "tile_wire_exact_f16_regions", "tile_wire_f32_regions",
+          "tile_cast_native_regions")
 
 
 def job_readings(timers, wall):
