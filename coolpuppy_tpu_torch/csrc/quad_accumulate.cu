@@ -1,4 +1,4 @@
-// Quad gather-accumulate for Hopper (sm_90a): two kernels, one function.
+// Quad gather-accumulate for Hopper (sm_90a): the staged kernel.
 //
 // Replaces the Pallas TPU kernel coolpuppy_tpu/ops/pallas_gather.py::
 // _make_pallas_call (kernel body :86-182, pl.pallas_call :209). For every
@@ -77,14 +77,7 @@
 //     result. The host cuts items at ITEM_MAX = kChunk = 1024 snips: 0.182
 //     ms at the headline against 0.204 at 512 and 0.189 at 2048.
 //
-// The direct kernel (quad_accumulate_kernel), the first design, kept as a
-// comparator and no longer routed: one block per single-group item (the
-// host's split_runs), windows read straight from global memory through
-// L1/L2 with the region select and address arithmetic per pixel, 8 loads
-// in flight, 256 threads striding the pixels (the headline: 0.547 ms
-// direct, 0.182 ms staged).
-//
-// num is int32 in both, so counts stay exact far past float32's 2^24.
+// num is int32, so counts stay exact far past float32's 2^24.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -94,8 +87,6 @@ namespace {
 
 constexpr int kTile = 128;
 constexpr int kTileElems = kTile * kTile;
-constexpr int kUnroll = 8;
-constexpr int kMaxThreads = 256;
 constexpr int kGroupMask = 0x1FFFF;
 // staged kernel: snips decoded per pass, and the bytes after the corner:
 // int32 offsets [kChunk], uint16 run starts [kChunk + 8], uint32 run-start
@@ -106,25 +97,6 @@ constexpr int kRunBytes = 2 * (kChunk + 8);
 constexpr int kMaskBytes = 4 * (kChunk / 32);
 constexpr int kTailBytes = kOffBytes + kRunBytes + kMaskBytes + 16;
 
-__device__ __forceinline__ float window_value(const float* __restrict__ t00,
-                                              const float* __restrict__ t01,
-                                              const float* __restrict__ t10,
-                                              const float* __restrict__ t11,
-                                              int w, int i, int j) {
-  const int r = (w >> 24) + i;
-  const int c = ((w >> 17) & 0x7F) + j;
-  const float* t =
-      r < kTile ? (c < kTile ? t00 : t01) : (c < kTile ? t10 : t11);
-  return __ldg(t + (r & (kTile - 1)) * kTile + (c & (kTile - 1)));
-}
-
-__device__ __forceinline__ void add_value(float v, float& s, int& n) {
-  if (v == v) {
-    s += v;
-    n += fabsf(v) != __int_as_float(0x7f800000);  // not +-inf
-  }
-}
-
 __device__ __forceinline__ void flush(float* __restrict__ sum,
                                       int32_t* __restrict__ num, int g, int C,
                                       int WW, int p, float s, int n) {
@@ -133,45 +105,6 @@ __device__ __forceinline__ void flush(float* __restrict__ sum,
   if (g < C && (n != 0 || s != 0.0f)) {
     atomicAdd(sum + (size_t)g * WW + p, s);
     atomicAdd(num + (size_t)g * WW + p, n);
-  }
-}
-
-__global__ void __launch_bounds__(kMaxThreads)
-quad_accumulate_kernel(const float* __restrict__ stiles,
-                       const int32_t* __restrict__ k,
-                       const int32_t* __restrict__ qstart,
-                       const int32_t* __restrict__ qcount,
-                       const int32_t* __restrict__ snips, int W, int C,
-                       float* __restrict__ sum, int32_t* __restrict__ num) {
-  const int q = blockIdx.x;
-  const int cnt = qcount[q];
-  if (cnt <= 0) return;
-  const int32_t* __restrict__ sn = snips + qstart[q];
-  const float* __restrict__ t00 = stiles + (size_t)k[4 * q + 0] * kTileElems;
-  const float* __restrict__ t01 = stiles + (size_t)k[4 * q + 1] * kTileElems;
-  const float* __restrict__ t10 = stiles + (size_t)k[4 * q + 2] * kTileElems;
-  const float* __restrict__ t11 = stiles + (size_t)k[4 * q + 3] * kTileElems;
-  const int WW = W * W;
-  const int g = __ldg(sn) & kGroupMask;  // one group per item
-
-  for (int p = threadIdx.x; p < WW; p += blockDim.x) {
-    const int i = p / W;
-    const int j = p - i * W;
-    float s = 0.0f;
-    int n = 0;
-    int e = 0;
-    for (; e + kUnroll <= cnt; e += kUnroll) {
-      // the 8 window loads are independent
-      float v[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        v[u] = window_value(t00, t01, t10, t11, __ldg(sn + e + u), i, j);
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) add_value(v[u], s, n);
-    }
-    for (; e < cnt; ++e)
-      add_value(window_value(t00, t01, t10, t11, __ldg(sn + e), i, j), s, n);
-    flush(sum, num, g, C, WW, p, s, n);
   }
 }
 
@@ -381,17 +314,6 @@ cudaError_t staged_launch(const void* stiles, const void* k,
   return cudaGetLastError();
 }
 
-template <int P>
-cudaError_t staged_occupancy(int* blocks, int W, int H, int threads,
-                             int smem_bytes) {
-  const auto kernel = staged_kernel<P>(W, H);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
-                                                       threads, smem_bytes);
-}
-
 // The thread's current device for one launcher call: set to `device` on
 // entry and put back to the caller's on every return path, so that a launch
 // on one card leaves what PyTorch reads as the current device (and every
@@ -411,36 +333,16 @@ struct DeviceGuard {
 
 extern "C" {
 
-// Launches the direct kernel over nq work items on `stream` (a
-// cudaStream_t) of device `device`. Every item's snips must share one group
-// (the group of its first word takes them all). All pointers are device
-// pointers; sum [C, W, W] float32 and num [C, W, W] int32 must be zeroed by
-// the caller. Returns the CUDA error code of the launch (0 on success);
-// nothing is synchronized.
-int quad_accumulate_launch(const void* stiles, const void* k,
-                           const void* qstart, const void* qcount,
-                           const void* snips, int nq, int W, int C, void* sum,
-                           void* num, void* stream, int device) {
-  DeviceGuard guard(device);
-  if (guard.err != cudaSuccess) return (int)guard.err;
-  if (nq <= 0) return (int)cudaSuccess;
-  const int ww = W * W;
-  int threads = ((ww + 31) / 32) * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  quad_accumulate_kernel<<<nq, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)stiles, (const int32_t*)k, (const int32_t*)qstart,
-      (const int32_t*)qcount, (const int32_t*)snips, W, C, (float*)sum,
-      (int32_t*)num);
-  return (int)cudaGetLastError();
-}
-
 // Launches the staged kernel over nq work items, ceil(W / H) blocks an item
 // (one a band of H window rows); an item may hold many groups, sorted. S is
 // the corner's row stride in floats, P the pixels a thread holds,
 // smem_bytes the dynamic shared memory the caller worked out: it must equal
 // this file's own layout, or the launch is refused with
-// cudaErrorInvalidValue, as is a P that does not fit the band. Otherwise as
-// quad_accumulate_launch.
+// cudaErrorInvalidValue, as is a P that does not fit the band. `stream` is a
+// cudaStream_t of device `device`. All pointers are device pointers; sum
+// [C, W, W] float32 and num [C, W, W] int32 must be zeroed by the caller.
+// Returns the CUDA error code of the launch (0 on success); nothing is
+// synchronized.
 int quad_accumulate_staged_launch(const void* stiles, const void* k,
                                   const void* qstart, const void* qcount,
                                   const void* snips, int nq, int W, int C,
@@ -475,38 +377,6 @@ int quad_accumulate_staged_launch(const void* stiles, const void* k,
                                     C, S, H, threads, smem_bytes, sum, num,
                                     st);
   }
-}
-
-// Resident blocks of the staged kernel on one SM for (W, S, H, P), as the
-// runtime's occupancy calculator gives them; a negative CUDA error code on
-// failure or on arguments the staged launch would refuse.
-int quad_accumulate_staged_occupancy(int W, int S, int H, int P,
-                                     int device) {
-  DeviceGuard guard(device);
-  if (guard.err != cudaSuccess) return -(int)guard.err;
-  cudaError_t err;
-  const int threads = staged_threads(W, H, P);
-  const int smem_bytes = staged_smem_bytes(W, S, H);
-  if (threads == 0 || smem_bytes == 0) return -(int)cudaErrorInvalidValue;
-  int blocks = 0;
-  switch (P) {
-    case 1:
-      err = staged_occupancy<1>(&blocks, W, H, threads, smem_bytes);
-      break;
-    case 2:
-      err = staged_occupancy<2>(&blocks, W, H, threads, smem_bytes);
-      break;
-    case 4:
-      err = staged_occupancy<4>(&blocks, W, H, threads, smem_bytes);
-      break;
-    case 8:
-      err = staged_occupancy<8>(&blocks, W, H, threads, smem_bytes);
-      break;
-    default:
-      err = staged_occupancy<16>(&blocks, W, H, threads, smem_bytes);
-      break;
-  }
-  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 const char* quad_accumulate_error_string(int err) {

@@ -126,15 +126,9 @@ def load_kernels():
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            f = lib.quad_accumulate_launch
-            f.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, ci]
-            f.restype = ci
             f = lib.quad_accumulate_staged_launch
             f.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp,
                           vp, vp, ci]
-            f.restype = ci
-            f = lib.quad_accumulate_staged_occupancy
-            f.argtypes = [ci, ci, ci, ci, ci]
             f.restype = ci
             f = lib.wide_accumulate_launch
             f.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp,

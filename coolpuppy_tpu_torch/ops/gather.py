@@ -26,8 +26,8 @@ GENERIC_PIXELS = 1 << 24  # window pixels per block of generic_accumulate
 # and the window pixels of one block (256 threads of 8 pixels: kBand there)
 ITEM_MAX = 1024
 WIDE_BAND = 2048
-# launches of the wide kernel in this process (chip_smoke.py resets and
-# reads it)
+# launches of the wide kernel in this process (the engine reads it to name
+# its route, the tests to count)
 LAUNCHES = 0
 
 

@@ -12,8 +12,7 @@ semantics on PyTorch tensors:
    (quad, group) with two passes of the native counting sort, so each quad's
    snips form one run per group. Work items
    are cut from that order: ``split_items`` cuts a quad into items of at
-   most ``ITEM_MAX`` snips whatever their groups (the staged kernel),
-   ``split_runs`` into one item per (quad, group) run (the direct kernel).
+   most ``ITEM_MAX`` snips whatever their groups.
 3. ``quad_accumulate`` adds every snip's W×W window into per-group
    accumulators: ``sum[g] += where(v==v, v, 0)`` and
    ``num[g] += (v==v) & (|v| != inf)``. On a CUDA tensor it launches the
@@ -21,10 +20,8 @@ semantics on PyTorch tensors:
    over all items in one launch: each item's block copies the corner of the
    quad that windows can reach into shared memory, or, where that corner
    does not fit a block (W > 110), each of its ``corner_layout(W).bands``
-   blocks copies the rows one band of window rows reaches. The direct
-   kernel (``quad_accumulate_direct``), which reads windows from global
-   memory, stays callable as a comparator. On a CPU tensor it runs the
-   plain PyTorch version ``quad_accumulate_plain``.
+   blocks copies the rows one band of window rows reaches. On a CPU tensor
+   it runs the plain PyTorch version ``quad_accumulate_plain``.
 
 ``QuadPileupSession.run_stripes`` gathers each snip's centre row and
 centre column (the stripe planes) from the same normalized stack as torch
@@ -46,7 +43,6 @@ from ..device import resolve_device
 B_TILE = 128  # tile size; the packed word's 7-bit offsets require it
 W_MAX = 120  # the reference kernel's limit (pallas_gather.py:76)
 C_MAX = 1 << 17  # the packed word's 17-bit group field
-RUN_MAX = 1024  # longest run of snips one direct-kernel block accumulates
 ITEM_MAX = 1024  # most snips in one staged-kernel work item
 PLAIN_CHUNK = 65536  # snips per gather in the plain version
 STRIPE_CHUNK = 131072  # snips per stripe gather (run_stripes)
@@ -63,11 +59,9 @@ _STAGE_TAIL = (4 * STAGE_CHUNK + 2 * (STAGE_CHUNK + 8)
 # at each
 _PIXELS_PER_THREAD = ((1, 1024), (2, 1024), (4, 1024), (8, 1024), (16, 768))
 
-# launches of the CUDA kernels in this process (each launcher adds one per
-# launch, to the total and to its variant; chip_smoke.py resets and reads
-# them)
+# launches of the staged kernel in this process (the launcher adds one per
+# launch; the engine reads it to name its route, the tests to count)
 LAUNCHES = 0
-VARIANT_LAUNCHES = {"staged": 0, "direct": 0}
 
 def _cdiv(a, b):
     return -(-a // b)
@@ -210,31 +204,6 @@ def sort_quads_plain(r1, r2, cid, tile_map, B):
     starts = np.concatenate([[0], np.flatnonzero(np.diff(qs)) + 1])
     counts = np.diff(np.concatenate([starts, [n]]))
     return (snips, *_quad_spans(qs[starts], counts, tile_map))
-
-
-def split_runs(snips, k, qstart, qcount, run_max=RUN_MAX):
-    """Cut each quad's snips into work items: one per (quad, group) run,
-    and runs longer than ``run_max`` into pieces. Returns ``(k, start,
-    count)`` per item. Every item then holds one group, so the kernel flushes
-    each pixel's sum once per item, and no block walks a whole heavy quad
-    alone."""
-    n = len(snips)
-    if n == 0:
-        return k, qstart, qcount
-    quad_of = np.repeat(np.arange(len(qstart)), qcount)
-    g = snips & 0x1FFFF
-    brk = np.ones(n, bool)
-    brk[1:] = (g[1:] != g[:-1]) | (quad_of[1:] != quad_of[:-1])
-    rs = np.flatnonzero(brk)
-    rc = np.diff(np.concatenate([rs, [n]]))
-    pieces = -(-rc // run_max)
-    run_of = np.repeat(np.arange(len(rs)), pieces)
-    first = np.repeat(np.cumsum(pieces) - pieces, pieces)
-    off = (np.arange(len(run_of)) - first) * run_max
-    start = rs[run_of] + off
-    count = np.minimum(rc[run_of] - off, run_max)
-    return (k[quad_of[rs[run_of]]], start.astype(np.int32),
-            count.astype(np.int32))
 
 
 def split_items(k, qstart, qcount, item_max=ITEM_MAX):
@@ -396,30 +365,36 @@ def _check_kernel_args(stiles, k, qstart, qcount, snips, W, C):
                              f"got {t.dtype}")
 
 
-def _launch(variant, entry, extra, stiles, k, qstart, qcount, snips, W, C):
-    """Zeroed float32 ``sum`` and int32 ``num`` [C, W, W] on the card and
-    one launch of the library's ``entry`` over them (``extra``: the
-    launcher's own integers, after C), on arguments ``_check_kernel_args``
-    passed; the launch's error code is raised, the launch counted."""
+def quad_accumulate_staged(stiles, k, qstart, qcount, snips, W, C):
+    """One launch of the staged kernel (the reachable corner of each item's
+    quad, or of each band of its window rows, copied into shared memory;
+    ``corner_layout(W).bands`` blocks an item, ``pixels_per_thread(W)``
+    pixels a thread) on CUDA tensors. An item may hold many groups, sorted
+    by group (``split_items``), and any number of snips. Zeroes float32
+    ``sum`` and int32 ``num`` [C, W, W] on the card, launches over them and
+    counts the launch; returns them, and raises where the launch fails."""
     global LAUNCHES
+    _check_kernel_args(stiles, k, qstart, qcount, snips, W, C)
     if stiles.device.type != "cuda":
         raise ValueError(
-            f"quad_accumulate_{variant}: no kernel for {stiles.device}"
+            f"quad_accumulate_staged: no kernel for {stiles.device}"
         )
     from ..kernels.build import load_kernels
 
     lib = load_kernels()
+    lay = corner_layout(W)
     out_sum = torch.zeros((C, W, W), dtype=torch.float32, device=stiles.device)
     out_num = torch.zeros((C, W, W), dtype=torch.int32, device=stiles.device)
     nq = int(qstart.shape[0])
     if nq:
-        # the launchers set the kernel's device and restore the caller's;
+        # the launcher sets the kernel's device and restores the caller's;
         # the guard keeps a launch on another card from changing PyTorch's
         # current device as well
         with torch.cuda.device(stiles.device):
-            err = getattr(lib, entry)(
+            err = lib.quad_accumulate_staged_launch(
                 stiles.data_ptr(), k.data_ptr(), qstart.data_ptr(),
-                qcount.data_ptr(), snips.data_ptr(), nq, W, C, *extra,
+                qcount.data_ptr(), snips.data_ptr(), nq, W, C, lay.stride,
+                lay.band_rows, pixels_per_thread(W)[0], lay.smem_bytes,
                 out_sum.data_ptr(), out_num.data_ptr(),
                 torch.cuda.current_stream(stiles.device).cuda_stream,
                 stiles.device.index,
@@ -427,57 +402,11 @@ def _launch(variant, entry, extra, stiles, k, qstart, qcount, snips, W, C):
         if err != 0:
             msg = lib.quad_accumulate_error_string(err).decode()
             raise RuntimeError(
-                f"quad_accumulate_{variant}: kernel launch failed, CUDA "
+                "quad_accumulate_staged: kernel launch failed, CUDA "
                 f"error {err} ({msg})"
             )
         LAUNCHES += 1
-        VARIANT_LAUNCHES[variant] += 1
     return out_sum, out_num
-
-
-def quad_accumulate_direct(stiles, k, qstart, qcount, snips, W, C):
-    """One launch of the direct kernel (windows read from global memory) on
-    CUDA tensors. Every item's snips must share one group, as ``split_runs``
-    makes them: the kernel adds a whole item to the group of its first word.
-    Returns float32 ``sum`` and int32 ``num`` [C, W, W]; raises where the
-    launch fails. Routed nowhere: a comparator of the staged kernel."""
-    _check_kernel_args(stiles, k, qstart, qcount, snips, W, C)
-    return _launch("direct", "quad_accumulate_launch", (), stiles, k, qstart,
-                   qcount, snips, W, C)
-
-
-def quad_accumulate_staged(stiles, k, qstart, qcount, snips, W, C,
-                           pixels=None):
-    """One launch of the staged kernel (the reachable corner of each item's
-    quad, or of each band of its window rows, copied into shared memory;
-    ``corner_layout(W).bands`` blocks an item) on CUDA tensors. An item may
-    hold many groups, sorted by group (``split_items``), and any number of
-    snips. ``pixels`` is the pixels a thread holds (1, 2, 4, 8 or 16;
-    default: the fewest that cover a band, ``pixels_per_thread``, which the
-    card showed fastest; another value only for timing it). Returns float32
-    ``sum`` and int32 ``num`` [C, W, W]; raises where the launch fails."""
-    _check_kernel_args(stiles, k, qstart, qcount, snips, W, C)
-    lay = corner_layout(W)
-    P = pixels_per_thread(W)[0] if pixels is None else int(pixels)
-    return _launch("staged", "quad_accumulate_staged_launch",
-                   (lay.stride, lay.band_rows, P, lay.smem_bytes), stiles, k,
-                   qstart, qcount, snips, W, C)
-
-
-def staged_occupancy(W, device):
-    """Blocks of the staged kernel that one SM of CUDA ``device`` holds at
-    once for W×W windows, from the runtime's occupancy calculator."""
-    from ..kernels.build import load_kernels
-
-    P = pixels_per_thread(W)[0]
-    lay = corner_layout(W)
-    blocks = load_kernels().quad_accumulate_staged_occupancy(
-        W, lay.stride, lay.band_rows, P, torch.device(device).index or 0)
-    if blocks < 0:
-        raise RuntimeError(
-            f"staged_occupancy: CUDA error {-blocks} for W={W}, P={P}"
-        )
-    return blocks
 
 
 def quad_accumulate(stiles, k, qstart, qcount, snips, W, C):

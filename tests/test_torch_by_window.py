@@ -5,13 +5,15 @@ histogram, duplicate intervals, and whole by-window runs against the JAX
 package's ``pileup()`` (counts exact, ``data`` rtol 1e-4 / atol 1e-7)."""
 
 import importlib
-import sys
 from functools import reduce
-from pathlib import Path
 
 import numpy as np
 import pandas as pd
 import pytest
+
+# the JAX package, which this module compares against, imports h5py; the
+# card's machine has none, and there the module skips
+pytest.importorskip("h5py")
 
 import coolpuppy_tpu as ref
 import coolpuppy_tpu_torch as port
@@ -21,13 +23,7 @@ from coolpuppy_tpu_torch.ops.gather import (
     coverage_scatter_sums,
 )
 from fixtures import make_toy_cooler, toy_features, toy_regions
-
-REPO = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(REPO))
-try:
-    from chip_smoke import compare_tables
-finally:
-    sys.path.remove(str(REPO))
+from torch_cases import compare_tables
 
 # the package's ``pileup`` function shadows the engine module's name
 engine = importlib.import_module("coolpuppy_tpu_torch.engine.pileup")

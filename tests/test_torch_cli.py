@@ -1,5 +1,5 @@
 """The port's three command line tools against the JAX package's, on the
-CPU, on the same files: ``coolpup`` over ``chip_smoke.py``'s CLI flag sets
+CPU, on the same files: ``coolpup`` over ``torch_cases``' CLI flag sets
 (the port with ``--device cpu``), each ``.clpy`` loaded by both packages'
 ``load_pileup_df``; the automatic output name; ``dividepups``; ``plotpup``'s
 PNG and sorted BEDPE; the three parsers' flags, aliases and defaults; and
@@ -13,8 +13,13 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
-from matplotlib.image import imread
 
+# matplotlib, and h5py that the JAX package imports, are missing on the
+# card's machine: there this module skips
+pytest.importorskip("matplotlib")
+pytest.importorskip("h5py")
+
+from matplotlib.image import imread
 from coolpuppy_tpu.cli import coolpup_cli as ref_coolpup
 from coolpuppy_tpu.cli import dividepups_cli as ref_dividepups
 from coolpuppy_tpu.cli import plotpup_cli as ref_plotpup
@@ -23,13 +28,9 @@ from coolpuppy_tpu_torch.cli import coolpup_cli, dividepups_cli, plotpup_cli
 from coolpuppy_tpu_torch.io import load_pileup_df
 
 from fixtures import make_toy_cooler
+import torch_cases
 
 REPO = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(REPO))
-try:
-    import chip_smoke
-finally:
-    sys.path.remove(str(REPO))
 
 # the port's own annotation columns: the device, the accumulate routes the
 # regions took, and the reference keywords it accepts and ignores
@@ -42,10 +43,10 @@ PILEUP_COLS = {"data", "num", "control_num", "n", "control_n",
 def inputs(tmp_path_factory):
     """The toy map written by the JAX package's ``write_cool``, and the
     features, BEDPE rows, TADs, view and expected table of
-    ``chip_smoke.CLI_FLAG_SETS`` beside it."""
+    ``torch_cases.CLI_FLAG_SETS`` beside it."""
     d = tmp_path_factory.mktemp("cli_inputs")
     clr, dense, weights = make_toy_cooler(str(d / "toy.cool"), seed=2)
-    paths = chip_smoke.write_cli_inputs(str(d), clr, dense, weights)
+    paths = torch_cases.write_cli_inputs(str(d), clr, dense, weights)
     assert paths["cool"] == str(d / "toy.cool")
     return paths
 
@@ -76,33 +77,33 @@ def assert_same_columns(got, want, cols, what):
 
 def assert_same_frames(port, ref, what):
     """A port table against the reference's: the port's own columns on the
-    port's side only, the pileup columns by ``chip_smoke.compare_tables``
+    port's side only, the pileup columns by ``torch_cases.compare_tables``
     (counts exact, ``data`` rtol 1e-5, stripes rtol 1e-5, coordinates
     equal), every other column equal."""
     assert set(port.columns) - set(ref.columns) <= PORT_ONLY, what
     assert set(ref.columns) <= set(port.columns), what
-    chip_smoke.compare_tables(port, ref, what=what,
-                              **chip_smoke.ENGINE_MODES_TOL)
+    torch_cases.compare_tables(port, ref, what=what,
+                               **torch_cases.ENGINE_MODES_TOL)
     assert_same_columns(port, ref, sorted(set(ref.columns) - PILEUP_COLS),
                         what)
 
 
-@pytest.mark.parametrize("name", list(chip_smoke.CLI_FLAG_SETS))
+@pytest.mark.parametrize("name", list(torch_cases.CLI_FLAG_SETS))
 def test_coolpup_matches_reference(name, inputs, tmp_path, monkeypatch):
     """Both packages' coolpup on one flag set, auto-named in two
     directories: the same output name, and each file loaded by both
     packages' ``load_pileup_df``: the loads of one file equal, and the
     port's file equal to the reference's on the shared columns."""
-    argv = chip_smoke.cli_argv(name, inputs)
+    argv = torch_cases.cli_argv(name, inputs)
     port_argv = argv + ["--device", "cpu"]
     (tmp_path / "ref").mkdir()
     (tmp_path / "port").mkdir()
-    if name in chip_smoke.CLI_REFUSED:
+    if name in torch_cases.CLI_REFUSED:
         for main, args in ((ref_coolpup.main, argv),
                            (coolpup_cli.main, port_argv)):
             with pytest.raises(ValueError) as e:
                 _main(main, args, str(tmp_path), inputs, monkeypatch)
-            assert str(e.value) == chip_smoke.CLI_REFUSED[name]
+            assert str(e.value) == torch_cases.CLI_REFUSED[name]
         return
     ref_out = _main(ref_coolpup.main, argv, str(tmp_path / "ref"), inputs,
                     monkeypatch)
@@ -141,7 +142,7 @@ def test_auto_name_matches_reference(inputs, tmp_path, monkeypatch):
 def _coolpup_outputs(main, inputs, tmp_path, monkeypatch, *runs):
     """``.clpy`` files written by ``main`` (a package's coolpup), one for
     each ``(flag set, extra flags, file name)`` of ``runs``."""
-    return [_main(main, chip_smoke.cli_argv(name, inputs) + list(extra)
+    return [_main(main, torch_cases.cli_argv(name, inputs) + list(extra)
                   + ["-o", str(tmp_path / out)], str(tmp_path), inputs,
                   monkeypatch)
             for name, extra, out in runs]

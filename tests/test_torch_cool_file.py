@@ -4,19 +4,21 @@ toy map of ``tests/fixtures.py`` and a two-resolution file read as
 ``path::/resolutions/N``. Metadata, extents and bins equal; ``fetch_slab``
 and ``matrix(...).fetch`` bit for bit; ``pileup()``, the expected tables and
 coverage through ``Cooler(uri)`` and ``Cooler.from_cool`` equal to the
-reference's. A recorder on the store (``chip_smoke.CountingStore``) shows
+reference's. A recorder on the store (``torch_cases.CountingStore``) shows
 that a fetch reads only its row span and that the object holds no array of
 the whole pixel table; four threads fetching at once give the one-thread
 results."""
 
 import sys
 from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 
-import h5py
 import numpy as np
 import pandas as pd
 import pytest
+
+# h5py, which this module and the JAX package it compares against import,
+# is missing on the card's machine: there the module skips
+h5py = pytest.importorskip("h5py")
 
 import coolpuppy_tpu_torch as port
 from coolpuppy_tpu import pileup as ref_pileup
@@ -29,13 +31,7 @@ from coolpuppy_tpu_torch.coverage import coverage
 from coolpuppy_tpu_torch.expected import expected_cis, expected_trans
 from coolpuppy_tpu_torch.io.cool import FileStore, parse_cooler_uri
 from fixtures import make_toy_cooler, toy_features, toy_regions
-
-REPO = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(REPO))
-try:
-    import chip_smoke
-finally:
-    sys.path.remove(str(REPO))
+import torch_cases
 
 REGIONS = [
     ("chr1", 100_000_000, 150_000_000),
@@ -208,7 +204,7 @@ def test_pileup_expected_coverage_match_reference(files, reader):
                   flank=2_000_000, **kw)
         got = port.pileup(clr, toy_features(), device="cpu", **kw)
         want = ref_pileup(ref, toy_features(), backend="xla", **kw)
-        chip_smoke.compare_tables(got, want, what=name, **TOL)
+        torch_cases.compare_tables(got, want, what=name, **TOL)
         assert got["cooler"].iloc[0] == want["cooler"].iloc[0] == "toy"
 
 
@@ -225,12 +221,12 @@ def test_cooler_column_matches_reference(files):
 
 def test_fetch_reads_only_its_span(files):
     clr = port.Cooler(files["res1M"])
-    clr.store = chip_smoke.CountingStore(clr.store)
-    with chip_smoke.fetch_log(clr) as log:
+    clr.store = torch_cases.CountingStore(clr.store)
+    with torch_cases.fetch_log(clr) as log:
         for r1, r2 in QUERIES.values():
             clr.fetch_slab(r1, r2)
             clr.fetch_coo(r1, r2, balance=False)
-    read = chip_smoke.fetch_spans(clr, log.fetches)
+    read = torch_cases.fetch_spans(clr, log.fetches)
     assert len(read) == 2 * len(QUERIES) and min(read) > 0
     # a rectangle across the two chromosomes reads both row spans, each
     # shorter than the table
@@ -252,16 +248,16 @@ def test_no_whole_pixel_table_is_held(files):
     clr = port.Cooler(files["plain"])
     n = clr.n_pixels
     assert not _pixel_arrays(clr, n)
-    clr.store = chip_smoke.CountingStore(clr.store)
+    clr.store = torch_cases.CountingStore(clr.store)
     kw = dict(features_format="bed", view_df=toy_regions(), mindist=0,
               flank=2_000_000, device="cpu")
-    with chip_smoke.fetch_log(clr) as log:
+    with torch_cases.fetch_log(clr) as log:
         port.pileup(clr, toy_features(), nshifts=1, seed=0, by_strand=True,
                     clr_weight_name=None, coverage_norm=True, **kw)
         port.pileup(clr, toy_features(), trans=True, **kw)
     assert not _pixel_arrays(clr, n)
     # two cis regions and one trans pair, each fetched once
-    assert len(chip_smoke.fetch_spans(clr, log.fetches)) == 3
+    assert len(torch_cases.fetch_spans(clr, log.fetches)) == 3
     spans = [b - a for *_, reads, _ in log.fetches for _, a, b in reads]
     assert spans and max(spans) < n
 

@@ -4,37 +4,32 @@ The same toy ``.cool`` file (``fixtures.make_toy_cooler``) goes through the
 reference ``coolpuppy_tpu.pileup`` and, read with
 ``coolpuppy_tpu_torch.Cooler.from_cool``, through the port's
 ``pileup(device="cpu")`` (the plain PyTorch version of the quad kernel), in
-every mode of the port (``chip_smoke.ENGINE_MODES``): group keys, ``n``,
+every mode of the port (``torch_cases.ENGINE_MODES``): group keys, ``n``,
 ``control_n``, ``num`` and ``control_num`` exact, ``data`` within rtol 1e-4 /
 atol 1e-7 with NaN positions equal (the reference's engine-level tolerance,
 tests/test_pallas_modes.py). Then the reference's own count vectors
 (tests/test_engine.py) on the port's PileUpper.
 """
 
-import sys
-from pathlib import Path
-
 import numpy as np
 import pandas as pd
 import pytest
 
+# the JAX package, which this module compares against, imports h5py; the
+# card's machine has none, and there the module skips
+pytest.importorskip("h5py")
+
 import coolpuppy_tpu as ref
 import coolpuppy_tpu_torch as port
 from fixtures import make_toy_cooler, toy_expected, toy_features, toy_regions
-
-REPO = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(REPO))
-try:
-    from chip_smoke import (
-        ENGINE_KW,
-        ENGINE_MODES,
-        compare_tables,
-        engine_snips,
-        engine_workload,
-        mode_kwargs,
-    )
-finally:
-    sys.path.remove(str(REPO))
+from torch_cases import (
+    ENGINE_KW,
+    ENGINE_MODES,
+    compare_tables,
+    engine_snips,
+    engine_workload,
+    mode_kwargs,
+)
 
 ENGINE_TOL = dict(rtol=1e-4, atol=1e-7)
 
@@ -63,7 +58,7 @@ def test_pileup_matches_reference(toy, mode):
 
 
 def test_engine_workload_matches_reference(tmp_path):
-    """chip_smoke.py's bench_engine workload cut to 4,000 bins, 400k
+    """``torch_cases``' bench_engine workload cut to 4,000 bins, 400k
     contacts and 1,500 sites (~194k snips, shifted controls crossing the
     chromosome ends): the port on its from_arrays cooler against the
     reference on the same pixels written to a .cool file."""

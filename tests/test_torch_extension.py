@@ -6,21 +6,24 @@ with ``coolpuppy_tpu_torch.Cooler.from_cool``, through the port's
 ``PileUpper(device="cpu")``, with the same hooks; each package gets its own
 ``accumulate_values`` and ``get_domain_score``. Group keys, ``n``, ``num``
 and ``control_n`` are exact, ``data`` within rtol 1e-4 / atol 1e-7 with NaN
-positions equal (``chip_smoke.compare_tables``); extras copied from frame
+positions equal (``torch_cases.compare_tables``); extras copied from frame
 columns are equal in the same order, extras a hook computed from pixels
-within rtol 1e-5 in the same order (``chip_smoke.compare_extras``).
+within rtol 1e-5 in the same order (``torch_cases.compare_extras``).
 ``stream_snips`` is held snip by snip: ``data`` within rtol 1e-6 with NaN
 and +inf positions equal.
 """
 
 import sys
 from functools import partial
-from pathlib import Path
 
 import numpy as np
 import pandas as pd
 import pytest
 import torch
+
+# the JAX package, which this module compares against, imports h5py; the
+# card's machine has none, and there the module skips
+pytest.importorskip("h5py")
 
 import coolpuppy_tpu as ref
 import coolpuppy_tpu_torch as port
@@ -30,13 +33,7 @@ from coolpuppy_tpu.lib import puputils as ref_pup
 from coolpuppy_tpu_torch.lib import numutils as port_num
 from coolpuppy_tpu_torch.lib import puputils as port_pup
 from fixtures import make_toy_cooler, toy_expected, toy_features, toy_regions
-
-REPO = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(REPO))
-try:
-    from chip_smoke import compare_extras, compare_tables
-finally:
-    sys.path.remove(str(REPO))
+from torch_cases import compare_extras, compare_tables
 
 BINSIZE = 1_000_000
 ENGINE_TOL = dict(rtol=1e-4, atol=1e-7)

@@ -1,5 +1,5 @@
 """Seeded fuzz search of the port against the JAX package, on the CPU: 16
-random flag sets (``chip_smoke.fuzz_case`` at its toy scale, seeds
+random flag sets (``torch_cases.fuzz_case`` at its toy scale, seeds
 1000-1015) through the port's ``pileup(device="cpu")`` on ``Cooler(uri)``
 and the JAX package's ``pileup(backend="xla")`` on its own reader of the
 same file. Seeds 1000-1007 start from tests/test_fuzz_parity.py's own
@@ -9,12 +9,13 @@ rows, trans, local rescaled TADs, a groupby over a BED column and
 keys, ``n``, ``control_n``, ``num`` and ``control_num`` exact, NaN positions
 equal, ``data`` and stripes within rtol 1e-4 / atol 1e-7."""
 
-import sys
-from pathlib import Path
-
 import numpy as np
 import pandas as pd
 import pytest
+
+# the JAX package, which this module compares against, imports h5py; the
+# card's machine has none, and there the module skips
+pytest.importorskip("h5py")
 
 import coolpuppy_tpu_torch as port
 from coolpuppy_tpu import pileup as ref_pileup
@@ -22,13 +23,7 @@ from coolpuppy_tpu.expected import expected_cis, expected_trans
 from coolpuppy_tpu.io import Cooler as RefCooler
 from fixtures import make_toy_cooler, toy_regions
 from test_fuzz_parity import random_case
-
-REPO = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(REPO))
-try:
-    import chip_smoke
-finally:
-    sys.path.remove(str(REPO))
+import torch_cases
 
 
 @pytest.fixture(scope="module")
@@ -42,29 +37,29 @@ def toy(tmp_path_factory):
     return path, ref_clr, exp
 
 
-@pytest.mark.parametrize("seed", chip_smoke.FUZZ_SEEDS[:8])
+@pytest.mark.parametrize("seed", torch_cases.FUZZ_SEEDS[:8])
 def test_first_draws_are_the_jax_tests(toy, seed):
     """``fuzz_base`` draws what tests/test_fuzz_parity.py's ``random_case``
     draws, and ``fuzz_case`` starts from it."""
     exp = toy[2]
-    feats, kw = chip_smoke.fuzz_base(np.random.default_rng(seed), exp["cis"])
+    feats, kw = torch_cases.fuzz_base(np.random.default_rng(seed), exp["cis"])
     want_feats, want_kw = random_case(np.random.default_rng(seed), exp["cis"])
     pd.testing.assert_frame_equal(feats, want_feats)
     assert kw.keys() == want_kw.keys()
     for k, v in want_kw.items():
         assert kw[k] is v if k == "expected_df" else kw[k] == v, k
-    case_feats, _ = chip_smoke.fuzz_case(np.random.default_rng(seed), exp)
+    case_feats, _ = torch_cases.fuzz_case(np.random.default_rng(seed), exp)
     if "chrom" in case_feats:
         pd.testing.assert_frame_equal(
             case_feats[["chrom", "start", "name", "score", "strand"]],
             want_feats[["chrom", "start", "name", "score", "strand"]])
 
 
-@pytest.mark.parametrize("seed", chip_smoke.FUZZ_SEEDS)
+@pytest.mark.parametrize("seed", torch_cases.FUZZ_SEEDS)
 def test_fuzz_port_matches_reference(toy, seed):
     path, _, exp = toy
-    feats, kw = chip_smoke.fuzz_case(np.random.default_rng(seed), exp)
-    what = f"seed {seed}: {chip_smoke.fuzz_flags(kw)}"
+    feats, kw = torch_cases.fuzz_case(np.random.default_rng(seed), exp)
+    what = f"seed {seed}: {torch_cases.fuzz_flags(kw)}"
     # fresh readers on both sides: a coverage column that one pileup
     # stores on its Cooler is reused by the next, whatever its min_diag
     # (in both packages)
@@ -73,16 +68,16 @@ def test_fuzz_port_matches_reference(toy, seed):
     want = ref_pileup(RefCooler(path), feats.copy(), view_df=toy_regions(),
                       backend="xla", **kw)
     assert len(want) > 0, what
-    chip_smoke.compare_tables(got, want, what=what,
-                              stripe_tol=chip_smoke.FUZZ_TOL,
-                              **chip_smoke.FUZZ_TOL)
+    torch_cases.compare_tables(got, want, what=what,
+                               stripe_tol=torch_cases.FUZZ_TOL,
+                               **torch_cases.FUZZ_TOL)
 
 
 def test_cases_cover_the_widened_space(toy):
     """The 16 cases draw every kind, a groupby, an ignored group order and
     ``min_diag``."""
-    cases = [chip_smoke.fuzz_case(np.random.default_rng(s), toy[2])[1]
-             for s in chip_smoke.FUZZ_SEEDS]
+    cases = [torch_cases.fuzz_case(np.random.default_rng(s), toy[2])[1]
+             for s in torch_cases.FUZZ_SEEDS]
     assert any(kw.get("by_window") for kw in cases)
     assert any(kw["features_format"] == "bedpe" for kw in cases)
     assert any(kw.get("trans") for kw in cases)

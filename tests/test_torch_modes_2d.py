@@ -9,16 +9,17 @@ every non-rescale row of tests/test_combo_matrix.py and for trans
 observed-over-expected: group keys (by-window rows on chrom/start/end),
 ``n``, ``control_n``, ``num`` and ``control_num`` exact, ``data`` within
 rtol 1e-4 / atol 1e-7, stripe planes within rtol 1e-5 with NaN positions
-equal, stripe coordinates exact (``chip_smoke.compare_tables``). Then the
+equal, stripe coordinates exact (``torch_cases.compare_tables``). Then the
 BEDPE and trans coordinate paths on their own.
 """
-
-import sys
-from pathlib import Path
 
 import numpy as np
 import pandas as pd
 import pytest
+
+# the JAX package, which this module compares against, imports h5py; the
+# card's machine has none, and there the module skips
+pytest.importorskip("h5py")
 
 import coolpuppy_tpu as ref
 import coolpuppy_tpu_torch as port
@@ -26,13 +27,7 @@ from coolpuppy_tpu.coords import CoordCreator as RefCoordCreator
 from coolpuppy_tpu.expected import expected_cis, expected_trans
 from fixtures import make_toy_cooler, toy_features, toy_regions
 from test_combo_matrix import BASE, COMBOS, bedpe_feats
-
-REPO = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(REPO))
-try:
-    from chip_smoke import compare_tables, toy_bedpe, toy_trans_expected
-finally:
-    sys.path.remove(str(REPO))
+from torch_cases import compare_tables, toy_bedpe, toy_trans_expected
 
 ENGINE_TOL = dict(rtol=1e-4, atol=1e-7)
 
@@ -83,7 +78,7 @@ def test_mode_matches_reference(toy, name, kw):
 
 
 def test_trans_expected_table_matches_reference(toy):
-    """chip_smoke.py's toy trans expected (no jax) equals expected_trans
+    """``torch_cases``' toy trans expected (no jax) equals expected_trans
     on whole chromosomes."""
     ref_clr, _, dense, weights = toy
     view = pd.DataFrame({"chrom": ["chr1", "chr2"], "start": [0, 0],

@@ -4,7 +4,8 @@ of its own, take their round-robin share of region pairs
 (``parallel.distributed.local_region_pairs``) and exchange the per-region
 outputs (``allreduce_region_maps``) before the reduce. Rank 0's table is
 held against the JAX package's single-process table: group keys and ``n``
-exact, ``data`` rtol 1e-5.
+exact, ``data`` rtol 1e-5. Then the genome cell on two ranks, on the CPU
+and on the card, against the port's own one-process run.
 
 This file is also the worker: ``python tests/test_torch_multihost.py RANK
 PORT COOL OUT MODE`` runs one rank. Every process group has a timeout and
@@ -20,6 +21,8 @@ import sys
 
 import numpy as np
 import pytest
+
+import torch_cases as cases
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
@@ -133,6 +136,64 @@ def test_two_ranks_equal_one_process(tmp_path, mode):
     assert list(got["groups"]) == list(want["groups"])
     np.testing.assert_array_equal(got["n"], want["n"])
     np.testing.assert_allclose(got["data"], want["data"], rtol=1e-5,
+                               atol=1e-8, equal_nan=True)
+
+
+@pytest.mark.parametrize("device", cases.DEVICES)
+def test_two_ranks_genome_cell(tmp_path, device):
+    """The genome cell (``genome_workload``; card: 4 chromosomes of 13,500
+    bins and 7,400 sites, ``RANK_WORKLOAD``; CPU: 2 chromosomes of 1,200
+    bins and 240 sites) on two gloo ranks on the device, each a process
+    that builds the map from seed 0 (hashes equal across ranks) and runs
+    its share of region pairs on a loci mesh of its own
+    (``torch_cases.rank_main``); rank 0's table against this process's
+    one-process run: group keys, ``n`` and ``control_n`` exact, ``data``
+    rtol 1e-5."""
+    dev = cases.device(device)
+    workload = (dict(cases.RANK_WORKLOAD) if dev.type == "cuda" else
+                dict(n_chroms=2, bins_per=1_200, contacts_per=50_000,
+                     n_sites=240))
+    out_path = str(tmp_path / "rank0.npz")
+    port = _free_port()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX", "XLA"))}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO, HERE]
+        + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-c",
+             f"import torch_cases; torch_cases.rank_main({rank}, {port}, "
+             f"{out_path!r}, {dev.type!r}, {workload!r})"],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        for rank in range(2)
+    ]
+    try:
+        clr, feats = cases.genome_workload(**workload)
+        want = cases.genome_run(clr, feats, dev)[1]
+        outs = [p.communicate(timeout=cases.RANK_SECONDS)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    lines = []
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+        mine = [ln for ln in out.splitlines() if ln.startswith("rank ")]
+        assert len(mine) == 1, out[-3000:]
+        lines.append(mine[0])
+    if dev.type == "cpu":
+        assert "region pairs [('chr1', 'chr1')] (1)" in lines[0]
+        assert "region pairs [('chr2', 'chr2')] (1)" in lines[1]
+    got = np.load(out_path)
+    assert list(got["groups"]) == [str(g) for g in want["group"]]
+    for col in ("n", "control_n"):
+        np.testing.assert_array_equal(got[col], want[col].to_numpy(float),
+                                      err_msg=col)
+    data = np.stack([np.asarray(d, float) for d in want["data"]])
+    np.testing.assert_allclose(got["data"], data, rtol=cases.RANK_RTOL,
                                atol=1e-8, equal_nan=True)
 
 

@@ -4,33 +4,30 @@ colour-bar mode, grid wrapping and scale. The figures must hold the same
 axes, the same image arrays (NaN positions equal), the same norms and the
 same labels and texts."""
 
-import sys
 from contextlib import nullcontext
-from pathlib import Path
 
-import matplotlib.pyplot as plt
 import numpy as np
 import pytest
 
+# matplotlib, and h5py that the JAX package imports, are missing on the
+# card's machine: there this module skips
+pytest.importorskip("matplotlib")
+pytest.importorskip("h5py")
+
+import matplotlib.pyplot as plt
 import coolpuppy_tpu.plotting as ref_plotting
 import coolpuppy_tpu_torch.plotting as port_plotting
 from coolpuppy_tpu_torch import pileup
-
-REPO = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(REPO))
-try:
-    import chip_smoke
-finally:
-    sys.path.remove(str(REPO))
+import torch_cases
 
 
 @pytest.fixture(scope="module")
 def pups():
     """The port's pileups of the toy map by strand, one control, with
     stripes: five rows, 5 x 5 windows."""
-    clr = chip_smoke.toy_cooler()[0]
-    return pileup(clr, chip_smoke.toy_features(),
-                  view_df=chip_smoke.toy_regions(), mindist=0,
+    clr = torch_cases.toy_cooler()[0]
+    return pileup(clr, torch_cases.toy_features(),
+                  view_df=torch_cases.toy_regions(), mindist=0,
                   flank=2_000_000, nshifts=1, seed=0, by_strand=True,
                   store_stripes=True, device="cpu")
 

@@ -8,14 +8,11 @@
   stripes on and off, Hmax 64, 128 and 256, cis and trans: ``num`` counts
   exact, planes within rtol 1e-5.
 - ``pileup(rescale=True)`` against the reference's on the toy map in every
-  rescale mode of ``chip_smoke.py`` phase 7a and the rescale rows of
+  rescale mode of ``torch_cases.RESCALE_MODES`` and the rescale rows of
   tests/test_combo_matrix.py (counts exact, ``data`` rtol 1e-4), and
-  against host oracles: tests/oracle.py's, and ``chip_smoke``'s host loop
+  against host oracles: tests/oracle.py's, and ``torch_cases``' host loop
   on TADs whose windows span more than two 128-bin tiles.
 """
-
-import sys
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +20,10 @@ import numpy as np
 import pytest
 import torch
 from scipy import sparse as sp
+
+# the JAX package, which this module compares against, imports h5py; the
+# card's machine has none, and there the module skips
+pytest.importorskip("h5py")
 
 import coolpuppy_tpu as ref
 import coolpuppy_tpu_torch as port
@@ -34,14 +35,8 @@ from coolpuppy_tpu_torch.ops.tiles import normalized_stack
 from fixtures import make_toy_cooler, toy_features, toy_regions
 from oracle import oracle_rescale
 from test_combo_matrix import BASE, COMBOS
-
-REPO = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(REPO))
-try:
-    import chip_smoke
-    from chip_smoke import compare_tables
-finally:
-    sys.path.remove(str(REPO))
+import torch_cases
+from torch_cases import compare_tables
 
 STEP_TOL = dict(rtol=1e-5, atol=1e-6)
 ENGINE_TOL = dict(rtol=1e-4, atol=1e-7)
@@ -200,9 +195,10 @@ def toy(tmp_path_factory):
     return ref_clr, port.Cooler.from_cool(path), dense, weights
 
 
-# every rescale mode of chip_smoke.py phase 7a, and the rescale rows of
-# tests/test_combo_matrix.py (toy_features() widened by 3 Mb, as there)
-ENGINE_CASES = [("7a_" + n, None) for n in chip_smoke.RESCALE_MODES] + [
+# every rescale mode of torch_cases.RESCALE_MODES (ids "7a_<mode>"), and
+# the rescale rows of tests/test_combo_matrix.py (toy_features() widened by
+# 3 Mb, as there)
+ENGINE_CASES = [("7a_" + n, None) for n in torch_cases.RESCALE_MODES] + [
     (n, kw) for n, kw in COMBOS if "rescale" in n
 ]
 
@@ -212,10 +208,10 @@ ENGINE_CASES = [("7a_" + n, None) for n in chip_smoke.RESCALE_MODES] + [
 def test_rescale_pileup_matches_reference(toy, name, kw):
     ref_clr, clr, dense, weights = toy
     if kw is None:
-        feats, view, kw = chip_smoke.phase7_inputs("rescale", name[3:], clr,
-                                                   dense, weights)
+        feats, view, kw = torch_cases.rescale_wide_inputs(
+            "rescale", name[3:], clr, dense, weights)
     else:
-        feats, view = chip_smoke.toy_tads(), toy_regions()
+        feats, view = torch_cases.toy_tads(), toy_regions()
         kw = dict(BASE, **kw)
     want = ref.pileup(ref_clr, feats, view_df=view, **kw)
     got = port.pileup(clr, feats, view_df=view, device="cpu", **kw)
@@ -230,9 +226,9 @@ def test_rescale_ooe_matches_reference_with_its_expected(toy):
     (BASELINE's rescale config, cut to the toy map)."""
     ref_clr, clr, _, _ = toy
     exp = expected_cis(ref_clr, view_df=toy_regions())
-    kw = dict(chip_smoke.RESCALE_KW, local=True, expected_df=exp,
+    kw = dict(torch_cases.RESCALE_KW, local=True, expected_df=exp,
               rescale_size=99)
-    feats = chip_smoke.toy_tads()
+    feats = torch_cases.toy_tads()
     want = ref.pileup(ref_clr, feats, view_df=toy_regions(), **kw)
     got = port.pileup(clr, feats, view_df=toy_regions(), device="cpu", **kw)
     compare_tables(got, want, what="rescale ooe", **ENGINE_TOL)
@@ -308,18 +304,18 @@ def test_local_rescale_vs_oracle(oracle_toy):
 def test_wide_extents_vs_host_loop(expected):
     """TADs 20-200 bins wide at 10 kb (extents 60-600 bins, windows over up
     to six 128-bin tiles per axis, buckets 128-1024): the port against
-    ``chip_smoke``'s host loop (counts and means within rtol 1e-4), with
+    ``torch_cases``' host loop (counts and means within rtol 1e-4), with
     and without the map's expected table."""
     from coolpuppy_tpu_torch.expected import expected_cis as port_expected
 
-    clr, feats = chip_smoke.rescale_workload(n_tads=30, n_bins=1_500,
-                                             n_contacts=300_000)
+    clr, feats = torch_cases.rescale_workload(n_tads=30, n_bins=1_500,
+                                              n_contacts=300_000)
     extent = 3 * (feats["end"] - feats["start"]) // clr.binsize
     assert extent.max() > 256
-    kw = dict(chip_smoke.RESCALE_CELL_KW, rescale_size=33)
+    kw = dict(torch_cases.RESCALE_CELL_KW, rescale_size=33)
     exp = port_expected(clr) if expected else None
     if expected:
         kw["expected_df"] = exp
     got = port.pileup(clr, feats, device="cpu", **kw)
-    want = chip_smoke.rescale_host_oracle(clr, feats, 33, expected=exp)
-    chip_smoke.check_oracle(got, want, "wide extents")
+    want = torch_cases.rescale_host_oracle(clr, feats, 33, expected=exp)
+    torch_cases.check_oracle(got, want, "wide extents")

@@ -16,10 +16,8 @@ On a machine with a card:
 
 import importlib
 import json
-import sys
 import threading
 import time
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -34,13 +32,7 @@ from coolpuppy_tpu_torch.observability import (
     span_seconds,
     union_seconds,
 )
-
-REPO = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(REPO))
-try:
-    from chip_smoke import GENOME_KW, genome_workload
-finally:
-    sys.path.remove(str(REPO))
+from torch_cases import GENOME_KW, genome_workload
 
 engine = importlib.import_module("coolpuppy_tpu_torch.engine.pileup")
 DETAILS = {"coords/sweep", "coords/frames", "ingest/fetch"}

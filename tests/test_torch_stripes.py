@@ -5,11 +5,13 @@ windows that straddle tile edges, ``build_tile_stack_slab`` against the
 reference's numpy branch, and stripes pileups against the reference's."""
 
 import importlib
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
+
+# the JAX package, which this module compares against, imports h5py; the
+# card's machine has none, and there the module skips
+pytest.importorskip("h5py")
 
 import coolpuppy_tpu as ref
 import coolpuppy_tpu_torch as port
@@ -18,13 +20,7 @@ from coolpuppy_tpu_torch.ops.quad_gather import QuadPileupSession, stripes_host
 from coolpuppy_tpu_torch.ops.tiles import build_tile_stack_slab
 from fixtures import make_toy_cooler, toy_features, toy_regions
 from test_torch_native import one_thread
-
-REPO = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(REPO))
-try:
-    from chip_smoke import compare_tables
-finally:
-    sys.path.remove(str(REPO))
+from torch_cases import compare_tables
 
 B = 128
 

@@ -7,18 +7,19 @@
   ``num`` and ``poison`` exact, ``sum`` and the side sums within rtol 1e-5,
   stripes within rtol 1e-5 with NaN positions equal.
 - ``pileup()`` at W = 123 against the reference's in every wide mode of
-  ``chip_smoke.py`` phase 7a (counts exact, ``data`` rtol 1e-4), and the
+  ``torch_cases.WIDE_MODES`` (counts exact, ``data`` rtol 1e-4), and the
   route choice at the W = 120 / 121 boundary.
 """
-
-import sys
-from pathlib import Path
 
 import jax
 import numpy as np
 import pytest
 import torch
 from scipy import sparse as sp
+
+# the JAX package, which this module compares against, imports h5py; the
+# card's machine has none, and there the module skips
+pytest.importorskip("h5py")
 
 import coolpuppy_tpu as ref
 import coolpuppy_tpu_torch as port
@@ -31,14 +32,8 @@ from coolpuppy_tpu_torch.ops.gather import (
 )
 from coolpuppy_tpu_torch.ops.tiles import normalized_stack
 from fixtures import make_toy_cooler, toy_features, toy_regions
-
-REPO = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(REPO))
-try:
-    import chip_smoke
-    from chip_smoke import compare_tables
-finally:
-    sys.path.remove(str(REPO))
+import torch_cases
+from torch_cases import compare_tables
 
 STEP_TOL = dict(rtol=1e-5, atol=1e-6)
 ENGINE_TOL = dict(rtol=1e-4, atol=1e-7)
@@ -128,17 +123,17 @@ def toy(tmp_path_factory):
     return ref_clr, port.Cooler.from_cool(path), dense, weights
 
 
-@pytest.mark.parametrize("name", list(chip_smoke.WIDE_MODES))
+@pytest.mark.parametrize("name", list(torch_cases.WIDE_MODES))
 def test_wide_pileup_matches_reference(toy, name):
     ref_clr, clr, dense, weights = toy
-    feats, view, kw = chip_smoke.phase7_inputs("wide", name, clr, dense,
-                                               weights)
+    feats, view, kw = torch_cases.rescale_wide_inputs("wide", name, clr,
+                                                      dense, weights)
     want = ref.pileup(ref_clr, feats, view_df=view, **kw)
     got = port.pileup(clr, feats, view_df=view, device="cpu", **kw)
     compare_tables(got, want, what=name, **ENGINE_TOL)
     assert got["accumulate"].iloc[0] == "generic_torch"
     assert np.asarray(got["data"].iloc[0]).shape == (123, 123)
-    assert int(chip_smoke.all_row(got)["n"]) > 0
+    assert int(torch_cases.all_row(got)["n"]) > 0
 
 
 @pytest.mark.parametrize("flank,route,by_window", [
@@ -151,7 +146,7 @@ def test_route_at_the_kernel_limit(toy, flank, route, by_window):
     wider ones take the generic path, as the reference's ``_use_pallas``
     routes them (:993). All match the reference, by window too."""
     ref_clr, clr, _, _ = toy
-    view = chip_smoke.toy_chrom_view(clr)
+    view = torch_cases.toy_chrom_view(clr)
     kw = dict(features_format="bed", mindist=0, flank=flank, nshifts=1,
               seed=2)
     if by_window:
