@@ -3,7 +3,9 @@ copied as pandas/numpy).
 
 ``CoordCreator`` yields *batches* of snip coordinates — DataFrames built by
 vectorized numpy/pandas ops — which the engine lowers to integer index
-arrays. BED pairs are enumerated by the k-th-superdiagonal sweep of the
+arrays, or, where no hook reads a frame, *blocks* (``CoordBlock``): the
+same snips as integer arrays with group codes taken once per feature table
+(``blocks``). BED pairs are enumerated by the k-th-superdiagonal sweep of the
 reference with early termination once a diagonal's smallest pair distance
 exceeds ``maxdist``: up to ``LAZY_PAIR_THRESHOLD`` pairs of sorted centers
 by the native C++ sweep (``native.enumerate_pairs``) in one go, larger or
@@ -22,6 +24,7 @@ center (rescaled pileups) in place of the fixed ``flank``.
 from __future__ import annotations
 
 import contextlib
+import math
 import warnings
 import zlib
 
@@ -142,12 +145,89 @@ def swap_paired_columns_for_flipped(intervals, exclude_bases=()):
     return intervals
 
 
+def _codes(col):
+    """(codes, uniques) of a frame column. Categorical codes are used
+    directly; columns with NaN go through factorize(use_na_sentinel=False)
+    so NaN stays a real category (the -1 sentinel would alias another
+    code)."""
+    if isinstance(col.dtype, pd.CategoricalDtype):
+        codes = col.cat.codes.to_numpy()
+        if not (codes < 0).any():
+            return codes, col.cat.categories
+    return pd.factorize(col, use_na_sentinel=False)
+
+
+# a block's kind codes name these kinds
+KINDS = ("ROI", "control")
+# columns that control copies shift: groups over them keep the frames
+_SHIFTED_BASES = frozenset(
+    ("exp_start", "exp_end", "center", "stBin", "endBin"))
+
+
+class GroupTable:
+    """Group code -> group: ``"all"`` without groupby columns, else the
+    tuple of the columns' values, each from the column's uniques in the
+    raveled code (``np.ravel_multi_index`` over ``sizes``)."""
+
+    def __init__(self, uniques):
+        self.uniques = list(uniques)
+        self.sizes = [len(u) for u in self.uniques]
+
+    def __len__(self):
+        return math.prod(self.sizes)
+
+    def __getitem__(self, code):
+        if not self.uniques:
+            return "all"
+        at = np.unravel_index(int(code), self.sizes)
+        return tuple(u[i] for u, i in zip(self.uniques, at))
+
+
+class CoordBlock:
+    """One chunk of snips as integer arrays: the bins of both sides, the
+    kind code (0 ROI, 1 control; ``KINDS``), the group code and its
+    ``groups`` table (anything with ``len`` and ``[code]``), and ``flip``
+    (bool, or None for no flipped snip). ``CoordCreator.blocks`` puts a
+    chunk's ROI snips first and their control copies after, as
+    ``control_regions`` does."""
+
+    __slots__ = ("stBin1", "endBin1", "stBin2", "endBin2", "kind", "group",
+                 "groups", "flip")
+
+    def __init__(self, stBin1, endBin1, stBin2, endBin2, kind, group,
+                 groups, flip=None):
+        self.stBin1, self.endBin1 = stBin1, endBin1
+        self.stBin2, self.endBin2 = stBin2, endBin2
+        self.kind, self.group, self.groups = kind, group, groups
+        self.flip = flip
+
+    @classmethod
+    def from_frame(cls, frame):
+        """The block of a coordinate frame, its groups the frame's own."""
+        kind, group, groups = frame_codes(frame)
+        flip = frame["flip"].to_numpy().astype(bool) if (
+            "flip" in frame.columns) else None
+        return cls(*(frame[c].to_numpy() for c in ("stBin1", "endBin1",
+                                                   "stBin2", "endBin2")),
+                   kind, group, groups, flip)
+
+
+def frame_codes(frame):
+    """(kind codes as in ``KINDS``, group codes, group uniques) of a
+    frame's 'kind' and 'group' columns."""
+    kcode, kuniq = _codes(frame["kind"])
+    kmap = np.array([KINDS.index(k) for k in kuniq], np.int8)
+    gcode, guniq = _codes(frame["group"])
+    return kmap[kcode], gcode, guniq
+
+
 class CoordCreator:
     """Same constructor surface as the reference CoordCreator
     (reference coolpup.py:151–257), plus ``timers``: the job's
     ``PhaseTimers``, whose span log then holds the detail spans
     ``coords/sweep`` (the cis pair enumeration) and ``coords/frames``
-    (``_finalize``: controls, the modify function, groups)."""
+    (``_finalize``: controls, the modify function, groups; on blocks, the
+    control copies and group codes)."""
 
     def __init__(
         self,
@@ -204,6 +284,8 @@ class CoordCreator:
     # -- preprocessing (reference coolpup.py:259–385) ----------------------
 
     def process(self):
+        # group codes of the feature table, per groupby (``_group_codes``)
+        self._group_cache = {}
         if self.features_format in (None, "auto"):
             cols = set(self.intervals.columns)
             if {"chrom1", "start1", "end1", "chrom2", "start2",
@@ -443,6 +525,21 @@ class CoordCreator:
         ]
         return np.random.default_rng(np.random.SeedSequence(entropy))
 
+    def _draw_shifts(self, n_ctrl, rng):
+        """Signed bp shifts of ``n_ctrl`` control copies: side 1's, and
+        side 2's (its own draw under trans, else side 1's). Frames and
+        blocks draw them in these calls, in this order, per chunk."""
+        shift = rng.integers(self.minshift, self.maxshift, n_ctrl) * rng.choice(
+            [-1, 1], n_ctrl
+        )
+        if self.trans:
+            shift2 = rng.integers(
+                self.minshift, self.maxshift, n_ctrl
+            ) * rng.choice([-1, 1], n_ctrl)
+        else:
+            shift2 = shift
+        return shift, shift2
+
     def control_regions(self, intervals2d, nshifts=0, rng=None):
         """Tag ROI rows; append nshifts shifted control copies. Cis controls
         shift both anchors by one signed bp amount; trans controls draw a
@@ -465,15 +562,7 @@ class CoordCreator:
         n = len(intervals2d)
         n_ctrl = n * nshifts
         reps = np.concatenate([np.arange(n), np.tile(np.arange(n), nshifts)])
-        shift = rng.integers(self.minshift, self.maxshift, n_ctrl) * rng.choice(
-            [-1, 1], n_ctrl
-        )
-        if self.trans:
-            shift2 = rng.integers(
-                self.minshift, self.maxshift, n_ctrl
-            ) * rng.choice([-1, 1], n_ctrl)
-        else:
-            shift2 = shift
+        shift, shift2 = self._draw_shifts(n_ctrl, rng)
         pad = np.zeros(n)
         sh1 = np.concatenate([pad, shift])
         sh2 = np.concatenate([pad, shift2])
@@ -506,49 +595,44 @@ class CoordCreator:
 
     # -- region filtering (reference coolpup.py:529–596) -------------------
 
-    def filter_bed_region(self, region):
+    def _bed_rows(self, region):
         chrom, start, end = region
         iv = self.intervals
-        return iv[
+        return np.flatnonzero(
             (iv["chrom"] == chrom) & (iv["start"] >= start) & (iv["end"] < end)
-        ].reset_index(drop=True)
+        )
 
-    def filter_bedpe_region(self, region):
-        chrom, start, end = region
+    def _bedpe_rows(self, region1, region2):
+        """Rows with side 1 in ``region1`` and side 2 in ``region2``."""
+        (chrom1, start1, end1), (chrom2, start2, end2) = region1, region2
         iv = self.intervals
-        return iv[
-            (iv["chrom1"] == chrom)
-            & (iv["chrom2"] == chrom)
-            & (iv["start1"] >= start)
-            & (iv["end1"] < end)
-            & (iv["start2"] >= start)
-            & (iv["end2"] < end)
-        ].reset_index(drop=True)
-
-    def filter_bedpe_trans_pairs(self, region1, region2):
-        """Rows joining ``region1`` and ``region2`` either way round;
-        reversed rows have their paired columns swapped so side 1 always
-        lies in region 1 (the reference concatenates them unswapped,
-        coolpup.py:565–587; the JAX package swaps, and so does the port)."""
-        chrom1, start1, end1 = region1
-        chrom2, start2, end2 = region2
-        iv = self.intervals
-        fwd = iv[
+        return np.flatnonzero(
             (iv["chrom1"] == chrom1)
             & (iv["chrom2"] == chrom2)
             & (iv["start1"] >= start1)
             & (iv["end1"] < end1)
             & (iv["start2"] >= start2)
             & (iv["end2"] < end2)
-        ].reset_index(drop=True)
-        rev = iv[
-            (iv["chrom2"] == chrom1)
-            & (iv["chrom1"] == chrom2)
-            & (iv["start2"] >= start1)
-            & (iv["end2"] < end1)
-            & (iv["start1"] >= start2)
-            & (iv["end1"] < end2)
-        ].reset_index(drop=True)
+        )
+
+    def filter_bed_region(self, region):
+        return self.intervals.take(self._bed_rows(region)).reset_index(
+            drop=True)
+
+    def filter_bedpe_region(self, region):
+        return self.intervals.take(
+            self._bedpe_rows(region, region)).reset_index(drop=True)
+
+    def filter_bedpe_trans_pairs(self, region1, region2):
+        """Rows joining ``region1`` and ``region2`` either way round;
+        reversed rows have their paired columns swapped so side 1 always
+        lies in region 1 (the reference concatenates them unswapped,
+        coolpup.py:565–587; the JAX package swaps, and so does the port)."""
+        iv = self.intervals
+        fwd = iv.take(self._bedpe_rows(region1, region2)).reset_index(
+            drop=True)
+        rev = iv.take(self._bedpe_rows(region2, region1)).reset_index(
+            drop=True)
         if len(rev):
             cols = set(rev.columns)
             mapping = {}
@@ -820,3 +904,175 @@ class CoordCreator:
             data["distance"] = centers[rs] - centers[ls]
             combo = pd.DataFrame(data)
             yield self._finalize(combo, control, groupby, modify_func, rng)
+
+    # -- integer blocks: the frames' snips with no DataFrame a chunk -------
+
+    def block_groups(self, groupby=None):
+        """The ``GroupTable`` that ``blocks`` codes ``groupby`` with, or
+        None where a column is not one a block can code: one the control
+        copies shift or that is no feature column (the frames keep such
+        runs)."""
+        got = self._group_codes(tuple(groupby or ()))
+        return None if got is None else got[0]
+
+    def _factorized(self, *cols):
+        """(codes, uniques) of feature columns factorized together over the
+        feature table, NaN a category of its own; a pair's codes share one
+        space (side 1's rows first)."""
+        iv = self.intervals
+        col = (iv[cols[0]] if len(cols) == 1 else
+               pd.concat([iv[c] for c in cols], ignore_index=True))
+        codes, uniques = pd.factorize(col, use_na_sentinel=False)
+        return codes.astype(np.int64).reshape(len(cols), len(iv)), uniques
+
+    def _group_codes(self, groupby):
+        """``(table, side1, side2)`` for ``groupby``, once per feature table:
+        per feature row, side 1's and side 2's terms of the raveled group
+        code. BED: a column ``<base>1``/``<base>2`` takes the base column of
+        the side's feature, and a snip's code is ``side1[i1] + side2[i2]``.
+        BEDPE: the row's columns; ``side1`` codes a row as it stands,
+        ``side2`` a reversed trans row, whose paired columns are swapped.
+        None where a column cannot be coded (``block_groups``)."""
+        if groupby in self._group_cache:
+            return self._group_cache[groupby]
+        iv = self.intervals
+        n = len(iv)
+        terms = []  # ((side1's codes, side2's codes), uniques); None: no term
+        for c in groupby:
+            base = c[:-1]
+            if self.kind == "bed":
+                if (c[-1:] not in ("1", "2") or base not in iv.columns
+                        or base in _SHIFTED_BASES):
+                    terms = None
+                    break
+                codes, uniques = self._factorized(base)
+                sides = (codes[0], None) if c[-1] == "1" else (None, codes[0])
+                terms.append((sides, uniques))
+                continue
+            if (c not in iv.columns or base in _SHIFTED_BASES
+                    or c in ("kind", "group", "flip")):
+                terms = None
+                break
+            partner = {"1": base + "2", "2": base + "1"}.get(c[-1:])
+            if self.trans and partner in iv.columns:
+                codes, uniques = self._factorized(c, partner)
+                terms.append(((codes[0], codes[1]), uniques))
+            else:
+                codes, uniques = self._factorized(c)
+                terms.append(((codes[0], codes[0]), uniques))
+        got = None
+        if terms is not None:
+            table = GroupTable(u for _, u in terms)
+            if math.prod(table.sizes) <= 2**62:
+                strides = [math.prod(table.sizes[d + 1:])
+                           for d in range(len(terms))]
+                side1 = np.zeros(n, np.int64)
+                side2 = np.zeros(n, np.int64)
+                for ((a, b), _), stride in zip(terms, strides):
+                    if a is not None:
+                        side1 += a * stride
+                    if b is not None:
+                        side2 += b * stride
+                got = table, side1, side2
+        self._group_cache[groupby] = got
+        return got
+
+    def blocks(self, region1, region2=None, control=False, groupby=None):
+        """Yield ``CoordBlock``s of a region (pair): the snips of
+        ``batches`` without a modify function, chunk for chunk, with the
+        same control shifts (``_draw_shifts``, in the same calls per
+        chunk), group codes taken from the feature table
+        (``_group_codes``). Raises where ``block_groups(groupby)`` is
+        None."""
+        if self.empty:
+            return
+        got = self._group_codes(tuple(groupby or ()))
+        if got is None:
+            raise ValueError(f"groupby {groupby!r} needs the frames "
+                             "(CoordCreator.batches)")
+        table, side1, side2 = got
+        nshifts = self.nshifts if control else 0
+        iv = self.intervals
+        if self.kind == "bedpe":
+            if (self.trans and region2 is not None
+                    and region1[0] != region2[0]):
+                fwd = self._bedpe_rows(region1, region2)
+                rev = self._bedpe_rows(region2, region1)
+                rows = np.concatenate([fwd, rev])
+                swap = np.arange(len(rows)) >= len(fwd)
+            else:
+                rows = self._bedpe_rows(region1, region1)
+                swap = np.zeros(len(rows), bool)
+            cols = [iv[c].to_numpy() for c in ("stBin1", "endBin1", "stBin2",
+                                               "endBin2")]
+            rng = self._rng((region1, region2))
+            for lo in range(0, len(rows), self.chunk_size):
+                r = rows[lo : lo + self.chunk_size]
+                sw = swap[lo : lo + self.chunk_size]
+                s1, e1, s2, e2 = (c[r] for c in cols)
+                g = side1[r]
+                if sw.any():
+                    s1, s2 = np.where(sw, s2, s1), np.where(sw, s1, s2)
+                    e1, e2 = np.where(sw, e2, e1), np.where(sw, e1, e2)
+                    g = np.where(sw, side2[r], g)
+                yield self._block(s1, e1, s2, e2, g, nshifts, rng, table)
+            return
+        st, en = iv["stBin"].to_numpy(), iv["endBin"].to_numpy()
+        rows = self._bed_rows(region1)
+        if self.local:
+            rng = self._rng((region1, None))
+            for lo in range(0, len(rows), self.chunk_size):
+                r = rows[lo : lo + self.chunk_size]
+                yield self._block(st[r], en[r], st[r], en[r],
+                                  side1[r] + side2[r], nshifts, rng, table)
+            return
+        if self.trans:
+            right = self._bed_rows(region2)
+            if len(rows) == 0 or len(right) == 0:
+                return
+            rng = self._rng((region1, region2))
+            nr = len(right)
+            rows_per_chunk = max(1, self.chunk_size // nr)
+            for lo in range(0, len(rows), rows_per_chunk):
+                i1 = np.repeat(rows[lo : lo + rows_per_chunk], nr)
+                i2 = np.tile(right, len(i1) // nr)
+                yield self._block(st[i1], en[i1], st[i2], en[i2],
+                                  side1[i1] + side2[i2], nshifts, rng, table)
+            return
+        if len(rows) < 2:
+            return
+        rng = self._rng((region1, None))
+        pairs = self._iter_cis_pair_chunks(iv["center"].to_numpy()[rows])
+        while True:
+            with self._detail("coords/sweep"):
+                got = next(pairs, None)
+            if got is None:
+                return
+            i1, i2 = rows[got[0]], rows[got[1]]
+            yield self._block(st[i1], en[i1], st[i2], en[i2],
+                              side1[i1] + side2[i2], nshifts, rng, table)
+
+    def _block(self, s1, e1, s2, e2, group, nshifts, rng, table):
+        """The block of a chunk's ROI snips and, with ``nshifts``, their
+        control copies after them: copy k of snip i at ``k * n + i``,
+        shifted by ``round(shift / resolution)`` bins."""
+        with self._detail("coords/frames"):
+            n = len(s1)
+            if nshifts <= 0:
+                return CoordBlock(s1, e1, s2, e2, np.zeros(n, np.int8),
+                                  group, table)
+            shift, shift2 = self._draw_shifts(n * nshifts, rng)
+            b1 = np.round(shift / self.resolution).astype(np.int64)
+            b2 = (b1 if shift2 is shift else
+                  np.round(shift2 / self.resolution).astype(np.int64))
+
+            def copies(a, b):
+                out = np.tile(a, nshifts + 1)
+                out[n:] += b
+                return out
+
+            kind = np.ones(n * (nshifts + 1), np.int8)
+            kind[:n] = 0
+            return CoordBlock(copies(s1, b1), copies(e1, b1),
+                              copies(s2, b2), copies(e2, b2), kind,
+                              np.tile(group, nshifts + 1), table)

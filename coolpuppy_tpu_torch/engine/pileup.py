@@ -90,6 +90,8 @@ import torch
 
 from .. import coverage as coverage_mod
 from ..coords import (
+    KINDS,
+    CoordBlock,
     CoordCreator,
     bin_distance_intervals,
     flip_mark_intervals,
@@ -532,6 +534,37 @@ def _group_key(group):
     return tuple(group)
 
 
+def _block_cids(kind, group, groups, ensure_cid, lut=None):
+    """Cids of a chunk's (kind, group code) pairs, ``ensure_cid`` called
+    once per new pair in first-appearance order (the order of ``cid_of``
+    is the group order downstream). A code space no larger than the chunk
+    goes through a dense table, ``lut``, kept across the chunks of one
+    ``groups`` (None: a new one); a larger one through ``np.unique``.
+    Returns ``(cids as int32, lut)``."""
+    ng = max(len(groups), 1)
+    pair = kind.astype(np.int64) * ng + group
+    n = len(pair)
+    if 2 * ng > n:
+        upair, first, inv = np.unique(pair, return_index=True,
+                                      return_inverse=True)
+        ucid = np.empty(len(upair), np.int32)
+        for i in np.argsort(first):
+            ucid[i] = ensure_cid(KINDS[upair[i] // ng], groups[upair[i] % ng])
+        return ucid[inv], None
+    if lut is None:
+        lut = np.full(2 * ng, -1, np.int32)
+    cids = lut[pair]
+    new = np.flatnonzero(cids < 0)
+    if len(new):
+        first = np.full(2 * ng, n, np.int64)
+        np.minimum.at(first, pair[new], new)
+        seen = np.flatnonzero(first < n)
+        for p in seen[np.argsort(first[seen])]:
+            lut[p] = ensure_cid(KINDS[p // ng], groups[p % ng])
+        cids = lut[pair]
+    return cids, lut
+
+
 def _orientation_labels(pups):
     """'strand1strand2' labels with the all-group collapsed to 'all'."""
     labels = pups["strand1"].astype(str) + pups["strand2"].astype(str)
@@ -546,18 +579,6 @@ def _separation_label(band):
     if len(band) < 2:
         return f"{lo}Mb+"
     return f"{lo}Mb-\n{band[1] / 1_000_000}Mb"
-
-
-def _codes(col):
-    """(codes, uniques) of a frame column. Categorical codes are used
-    directly; columns with NaN go through factorize(use_na_sentinel=False)
-    so NaN stays a real category (the -1 sentinel would alias another
-    code)."""
-    if isinstance(col.dtype, pd.CategoricalDtype):
-        codes = col.cat.codes.to_numpy()
-        if not (codes < 0).any():
-            return codes, col.cat.categories
-    return pd.factorize(col, use_na_sentinel=False)
 
 
 class PileUpper:
@@ -1043,6 +1064,20 @@ class PileUpper:
         groupby = groupby or []
         if region2 is None:
             region2 = region1
+        # without a hook that reads or rewrites a frame, the coordinates
+        # come as integer blocks (CoordCreator.blocks)
+        block_route = (
+            modify_2Dintervals_func is None
+            and postprocess_frame_func is None
+            and postprocess_snip_func is None
+            and postprocess_batch_func is None
+            and not extra_sum_funcs
+            and not dual_anchor
+            and not self.store_stripes
+            and self.CC.block_groups(groupby) is not None
+        )
+        self._count("coord_block_regions" if block_route
+                    else "coord_frame_regions")
 
         if postprocess_batch_func is not None:
             if postprocess_snip_func is not None:
@@ -1155,14 +1190,19 @@ class PileUpper:
                                 "roi")}
         coord_blocks = []
         dual_lut = None
+        cid_lut = (None, None)  # (the group table it codes, the table)
         extra_cols = (
             {k: [] for k in extra_frame_keys} if extra_frame_keys else None
         )
         fell_back = False
-        with self._phase("coords"):
-            for chunk in self.CC.batches(
+        region2_arg = region2_coords if region2 != region1 else None
+        if block_route:
+            chunks = self.CC.blocks(region1_coords, region2_arg,
+                                    control=self.control, groupby=groupby)
+        else:
+            chunks = self.CC.batches(
                 region1_coords,
-                region2_coords if region2 != region1 else None,
+                region2_arg,
                 control=self.control,
                 groupby=groupby,
                 modify_2Dintervals_func=modify_2Dintervals_func,
@@ -1171,63 +1211,51 @@ class PileUpper:
                     if column_hint is not None
                     else None
                 ),
-            ):
-                if postprocess_frame_func is not None:
-                    chunk = postprocess_frame_func(chunk)
-                if len(chunk) == 0:
-                    continue
-                if extra_frame_keys is not None:
-                    missing = [c for c in extra_frame_keys.values()
-                               if c not in chunk.columns]
-                    if missing:
-                        # the value exists per snip only. This fires on the
-                        # FIRST non-empty chunk, before anything was
-                        # collected
-                        assert not any(len(a) for a in cols["r1"]), missing
-                        logger.warning(
-                            "extra_sum_funcs keys %s are not feature-frame "
-                            "columns; falling back to the host snip stream",
-                            missing,
-                        )
-                        fell_back = True
-                        break
-                st1 = chunk["stBin1"].values - dev["min1"]
-                st2 = chunk["stBin2"].values - dev["min2"]
-                inb = (
-                    (st1 >= 0)
-                    & (chunk["endBin1"].values - dev["min1"] <= dev["n1"])
-                    & (st2 >= 0)
-                    & (chunk["endBin2"].values - dev["min2"] <= dev["n2"])
-                )
-                chunk = chunk.loc[inb]
-                if len(chunk) == 0:
-                    continue
-                h1 = (chunk["endBin1"].values
-                      - chunk["stBin1"].values).astype(np.int32)
-                w2 = (chunk["endBin2"].values
-                      - chunk["stBin2"].values).astype(np.int32)
-                if not self.rescale and not ((h1 == W).all()
-                                             and (w2 == W).all()):
-                    raise ValueError(
-                        "inconsistent window size; flank must be a multiple "
-                        "of the resolution"
-                    )
-                r1c = (chunk["stBin1"].values - dev["min1"]).astype(np.int32)
-                r2c = (chunk["stBin2"].values - dev["min2"]).astype(np.int32)
-                dd0c = (
-                    chunk["stBin1"].values - chunk["stBin2"].values
-                ).astype(np.int32)
-                if "flip" in chunk.columns:
-                    flipc = chunk["flip"].values.astype(bool)
+            )
+        with self._phase("coords"):
+            for chunk in chunks:
+                if block_route:
+                    blk = chunk
                 else:
-                    flipc = np.zeros(len(chunk), bool)
+                    if postprocess_frame_func is not None:
+                        chunk = postprocess_frame_func(chunk)
+                    if len(chunk) == 0:
+                        continue
+                    if extra_frame_keys is not None:
+                        missing = [c for c in extra_frame_keys.values()
+                                   if c not in chunk.columns]
+                        if missing:
+                            # the value exists per snip only. This fires on
+                            # the FIRST non-empty chunk, before anything was
+                            # collected
+                            assert not any(len(a) for a in cols["r1"]), missing
+                            logger.warning(
+                                "extra_sum_funcs keys %s are not "
+                                "feature-frame columns; falling back to the "
+                                "host snip stream",
+                                missing,
+                            )
+                            fell_back = True
+                            break
+                    blk = CoordBlock.from_frame(chunk)
+                low = self._lower_block(blk, dev, W)
+                if low is None:
+                    continue
+                inb, r1c, r2c, h1, w2, dd0c, kindc, groupc, flipc = low
+                if not block_route and inb is not None:
+                    chunk = chunk.loc[inb]
                 if dual_anchor:
                     cid_parts = self._dual_anchor_cids(
                         chunk, ensure_cid, dual_lut
                     )
                     dual_lut = cid_parts.pop()
                 else:
-                    cid_parts = [self._group_cids(chunk, ensure_cid, cid_of)]
+                    if cid_lut[0] is not blk.groups:
+                        cid_lut = (blk.groups, None)
+                    cidc, lut = _block_cids(kindc, groupc, blk.groups,
+                                            ensure_cid, cid_lut[1])
+                    cid_lut = (blk.groups, lut)
+                    cid_parts = [cidc]
                     # (the dual-anchor path collects no extras, as in the
                     # reference)
                     if extra_cols is not None:
@@ -1236,8 +1264,9 @@ class PileUpper:
                 if self.store_stripes:
                     # planes and coordinates exist for ROI snips only;
                     # the coordinate strings are cast once per region
-                    roic = chunk["kind"].to_numpy() == "ROI"
-                    blk = tuple(chunk[c].to_numpy()[roic] for c in _COORD_COLS)
+                    roic = kindc == 0
+                    roi_coords = tuple(chunk[c].to_numpy()[roic]
+                                       for c in _COORD_COLS)
                 if stream is not None and (
                     not stream.covers(r1c, r2c) or len(cid_of) > stream.half
                 ):
@@ -1251,11 +1280,14 @@ class PileUpper:
                     with self._phase("device"):
                         stream.feed(
                             r1c, r2c,
+                            cid_parts[0] if flipc is None else
                             (cid_parts[0] + stream.half * flipc).astype(
                                 np.int32),
                             *((r1c[roic], r2c[roic]) if self.store_stripes
                               else ()),
                         )
+                if flipc is None:
+                    flipc = np.zeros(len(r1c), bool)
                 for cidc in cid_parts:
                     cols["r1"].append(r1c)
                     cols["r2"].append(r2c)
@@ -1266,7 +1298,7 @@ class PileUpper:
                     cols["cidl"].append(cidc)
                     if self.store_stripes:
                         cols["roi"].append(roic)
-                        coord_blocks.append(blk)
+                        coord_blocks.append(roi_coords)
 
         if stream is not None and (fell_back or not cols["r1"]):
             stream.discard()
@@ -1396,25 +1428,40 @@ class PileUpper:
             logger.info(f"{region1, region2}: {outdict['ROI']['all']['n']}")
         return outdict
 
-    @staticmethod
-    def _group_cids(chunk, ensure_cid, cid_of):
-        """Vectorized (kind, group) -> cid of one frame: python only per
-        UNIQUE pair, cids in first-appearance order (``cid_of``'s
-        insertion order is the group order downstream)."""
-        kcode, kuniq = _codes(chunk["kind"])
-        gcode, guniq = _codes(chunk["group"])
-        ng = max(len(guniq), 1)
-        pair = kcode.astype(np.int64) * ng + gcode
-        upair, first_idx, inv = np.unique(
-            pair, return_index=True, return_inverse=True
-        )
-        for p in upair[np.argsort(first_idx)]:
-            ensure_cid(kuniq[p // ng], guniq[p % ng])
-        ucid = np.array(
-            [cid_of[(kuniq[p // ng], guniq[p % ng])] for p in upair],
-            dtype=np.int32,
-        )
-        return ucid[inv]
+    def _lower_block(self, blk, dev, W):
+        """A block's snips inside the region's bins, lowered to the index
+        arrays of the accumulate routes: ``(inb, r1, r2, h1, w2, dd0, kind,
+        group, flip)``, int32 but for the codes; ``inb`` the mask of the
+        snips kept, None where every snip is; None where none is. Raises
+        on a window of another size than ``W`` outside rescale."""
+        min1, min2 = dev["min1"], dev["min2"]
+        s1, e1, s2, e2 = blk.stBin1, blk.endBin1, blk.stBin2, blk.endBin2
+        kind, group, flip = blk.kind, blk.group, blk.flip
+        inb = s1 >= min1
+        inb &= e1 <= min1 + dev["n1"]
+        inb &= s2 >= min2
+        inb &= e2 <= min2 + dev["n2"]
+        if inb.all():
+            inb = None
+        elif not inb.any():
+            return None
+        else:
+            s1, e1, s2, e2 = s1[inb], e1[inb], s2[inb], e2[inb]
+            kind, group = kind[inb], group[inb]
+            if flip is not None:
+                flip = flip[inb]
+
+        def diff32(a, b):  # a - b, cast as it is stored
+            return np.subtract(a, b, out=np.empty(len(a), np.int32))
+
+        h1, w2 = diff32(e1, s1), diff32(e2, s2)
+        if not self.rescale and ((h1 != W).any() or (w2 != W).any()):
+            raise ValueError(
+                "inconsistent window size; flank must be a multiple "
+                "of the resolution"
+            )
+        return (inb, diff32(s1, min1), diff32(s2, min2), h1, w2,
+                diff32(s1, s2), kind, group, flip)
 
     def _dual_anchor_cids(self, chunk, ensure_cid, lut):
         """By-window cids of one frame: each snip belongs to the groups of

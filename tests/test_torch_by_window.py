@@ -317,8 +317,10 @@ def test_frame_hook_grouping_equals_dual_anchor(toy, mode):
 
 
 def test_group_cids_take_tuple_groups():
-    """``_group_cids`` on a frame ``group_by_region_frame`` doubled: tuple
-    groups get cids in first-appearance order, per kind."""
+    """The cids of a frame ``group_by_region_frame`` doubled
+    (``frame_codes``, ``_block_cids``): tuple groups get cids in
+    first-appearance order, per kind."""
+    from coolpuppy_tpu_torch.coords import frame_codes
     from coolpuppy_tpu_torch.lib.puputils import group_by_region_frame
 
     frame = pd.DataFrame({
@@ -333,7 +335,8 @@ def test_group_cids_take_tuple_groups():
     def ensure_cid(kind, group):
         return cid_of.setdefault((kind, group), len(cid_of))
 
-    cids = port.PileUpper._group_cids(doubled, ensure_cid, cid_of)
+    engine = importlib.import_module("coolpuppy_tpu_torch.engine.pileup")
+    cids, _ = engine._block_cids(*frame_codes(doubled), ensure_cid)
     a, b, c = ("chr1", 10, 15), ("chr1", 30, 35), ("chr1", 50, 55)
     # side-1 groups of the four rows, then their side-2 groups
     assert list(cid_of) == [("ROI", a), ("ROI", b), ("control", a),
