@@ -55,14 +55,17 @@ def base_features(feat_cfg, map_cfg, rng):
     res = int(map_cfg["binsize"])
     lo, hi = int(feat_cfg["first_bin"]), n - int(feat_cfg["last_margin_bins"])
     kind = importlib.import_module(f"pupbench.gen.kinds.{feat_cfg['kind']}")
-    frames = []
-    for k, per in enumerate(counts(feat_cfg, int(map_cfg["chromosomes"]))):
-        start = np.sort(rng.choice(np.arange(lo, hi), per,
+    per = counts(feat_cfg, int(map_cfg["chromosomes"]))
+    cols = {"start": [], "end": []}
+    for n_k in per:
+        start = np.sort(rng.choice(np.arange(lo, hi), n_k,
                                    replace=False)) * res
         end, extra = kind.draw(feat_cfg, start, res, rng)
-        frames.append(pd.DataFrame({"chrom": f"chr{k + 1}", "start": start,
-                                    "end": end, **extra}))
-    return pd.concat(frames, ignore_index=True)
+        for name, col in {"start": start, "end": end, **extra}.items():
+            cols.setdefault(name, []).append(np.broadcast_to(col, n_k))
+    chrom = np.repeat([f"chr{k + 1}" for k in range(len(per))], per)
+    return pd.DataFrame({"chrom": chrom, **{
+        name: np.concatenate(parts) for name, parts in cols.items()}})
 
 
 def cell_form(frame, form, binsize):
@@ -83,7 +86,13 @@ class Pool:
 
     def __init__(self, config, cell, seed, size):
         self.config, self.cell, self.seed = config, cell, int(seed)
-        self.sets = [job_features(config, cell, seed, j) for j in range(size)]
+        self.sets = []
+        self.draw(size)
+
+    def draw(self, size):
+        """Draw the sets of the jobs up to ``size`` that are not drawn."""
+        self.sets += [job_features(self.config, self.cell, self.seed, j)
+                      for j in range(len(self.sets), size)]
 
     def __getitem__(self, job):
         if job < len(self.sets):

@@ -6,7 +6,8 @@ map is made once in set-up; the window runs whole
 ``coolpuppy_tpu_torch.pileup`` jobs back to back until ``--seconds`` have
 passed and finishes the job in progress. Job ``j`` takes feature set ``j``
 of a pool drawn in set-up from (``--seed``, ``j``) (``gen/features.py``).
-One operation is one job.
+One operation is one job. The window keeps the tables of the jobs that the
+comparison checks and no others (``Reservoir``).
 """
 
 from __future__ import annotations
@@ -57,6 +58,78 @@ class RssSampler:
         self._stop.set()
         self._thread.join()
         self._sample()
+
+
+class Reservoir:
+    """A uniform choice of ``k`` of the jobs offered to it, made as they
+    come (Algorithm R) from ``SeedSequence([seed, CHECK_STREAM])``: it
+    holds the tables of at most ``k`` jobs at any time."""
+
+    def __init__(self, k, seed):
+        self.k, self.offered, self.slots = int(k), 0, []
+        self.rng = np.random.default_rng(np.random.SeedSequence(
+            [int(seed), CHECK_STREAM]))
+
+    def offer(self, job, table):
+        if len(self.slots) < self.k:
+            self.slots.append((job, table))
+        else:
+            r = int(self.rng.integers(self.offered + 1))
+            if r < self.k:
+                self.slots[r] = (job, table)
+        self.offered += 1
+
+    def jobs(self):
+        return sorted(j for j, _ in self.slots)
+
+
+class Window:
+    """What the measured window did: ``jobs`` run, ``snips`` counted,
+    ``failed`` jobs, each job's seconds and CPU seconds, each job's phases
+    (traced runs), the feature sets ``drawn`` past the pool with the clock
+    stopped, ``seconds`` on the window's clock, and the tables ``kept`` for
+    the comparison."""
+
+    def __init__(self, check_jobs, seed):
+        self.jobs = self.snips = self.failed = self.drawn = 0
+        self.job_s, self.job_cpu, self.phases = [], [], []
+        self.seconds = self.drawn_s = 0.0
+        self.kept = Reservoir(check_jobs, seed)
+
+
+def measure(c, seed, seconds, probe=None):
+    """Run whole jobs from job 0 until ``seconds`` have passed on the
+    window's clock, and finish the job in progress. A job's table counts
+    its snips and is dropped unless ``Window.kept`` takes it. A job's
+    feature set comes from the pool drawn in set-up; past it, the set is
+    drawn with the window's clock stopped, and counted."""
+    w = Window(c.cell["check_jobs"], seed)
+    w0 = time.perf_counter()
+    while True:
+        if w.jobs >= len(c.pool.sets):
+            d0 = time.perf_counter()
+            c.pool.draw(w.jobs + 1)
+            w.drawn_s += time.perf_counter() - d0
+            w.drawn += 1
+        j0 = time.perf_counter()
+        h_job = hostload.Snapshot()
+        try:
+            table = c.run(c.pool.sets[w.jobs],
+                          features.job_seed(seed, w.jobs))
+            w.snips += c.parts.table.snips(table)
+            w.kept.offer(w.jobs, table)
+        except Exception:  # a job that raises is a failed operation
+            traceback.print_exc()
+            w.failed += 1
+        table = None
+        w.job_s.append(time.perf_counter() - j0)
+        w.job_cpu.append(hostload.between(h_job, hostload.Snapshot()))
+        if probe is not None:
+            w.phases.append(probe.seconds())
+        w.jobs += 1
+        w.seconds = time.perf_counter() - w0 - w.drawn_s
+        if w.seconds >= seconds:
+            return w
 
 
 def forbidden_modules():
@@ -146,6 +219,7 @@ def run(name, seed, seconds, trace, device, t0, config=None, cell=None):
     bench = spec.benchmark()
     on_card = device != "cpu"
     h_setup = hostload.Snapshot()
+    started = time.perf_counter() - t0
     c = Cell(name, seed, device, config, cell)
     t = time.perf_counter()
     c.run(c.pool.warmup(), features.warmup_seed(seed))
@@ -158,40 +232,21 @@ def run(name, seed, seconds, trace, device, t0, config=None, cell=None):
         probe = PhaseProbe().__enter__()
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
-    tables, snips, phases, failed, job_s, job_cpu = {}, 0, [], 0, [], []
-    job = 0
     h_window = hostload.Snapshot()
     with RssSampler() as rss:
-        w0 = time.perf_counter()
-        while True:
-            j0 = time.perf_counter()
-            h_job = hostload.Snapshot()
-            try:
-                table = c.run(c.pool[job], features.job_seed(seed, job))
-                tables[job] = table
-                snips += c.parts.table.snips(table)
-            except Exception:  # a job that raises is a failed operation
-                traceback.print_exc()
-                failed += 1
-            job_s.append(time.perf_counter() - j0)
-            job_cpu.append(hostload.between(h_job, hostload.Snapshot()))
-            if probe is not None:
-                phases.append(probe.seconds())
-            job += 1
-            if time.perf_counter() - w0 >= seconds:
-                break
-        window_s = time.perf_counter() - w0
+        w = measure(c, seed, seconds, probe)
     host = {"setup": hostload.between(h_setup, h_window),
             "window": hostload.between(h_window, hostload.Snapshot())}
     peak = torch.cuda.max_memory_allocated(device) if on_card else 0
     if probe is not None:
         probe.__exit__(None, None, None)
 
-    ctx = Context(phases=phases)
+    ctx = Context(phases=w.phases)
     t_prof = time.perf_counter()
     if trace:
         from .trace import profiled
-        prof_jobs = range(job, job + int(c.cell.get("profile_jobs", 1)))
+        prof_jobs = range(w.jobs,
+                          w.jobs + int(c.cell.get("profile_jobs", 1)))
         with profiled(c.sync) as holder:
             for j in prof_jobs:
                 c.run(c.pool[j], features.job_seed(seed, j))
@@ -200,7 +255,7 @@ def run(name, seed, seconds, trace, device, t0, config=None, cell=None):
         ctx.device = device
 
     e2e = {
-        "snips_per_s": snips / window_s,
+        "snips_per_s": w.snips / w.seconds,
         "device_peak_mib": peak / 2**20,
         "host_rss_peak_mib": rss.peak / 2**20,
         "setup_s": setup_s,
@@ -219,13 +274,9 @@ def run(name, seed, seconds, trace, device, t0, config=None, cell=None):
 
     # the comparison, once the program's state is freed
     t_ref = time.perf_counter()
-    done = sorted(tables)
-    rng = np.random.default_rng(np.random.SeedSequence([int(seed),
-                                                        CHECK_STREAM]))
-    k = min(int(c.cell["check_jobs"]), len(done))
-    sample = sorted(rng.choice(done, k, replace=False)) if k else []
-    kept = {j: compare.program_rows(tables[j], c.parts) for j in sample}
-    del tables
+    sample = w.kept.jobs()
+    kept = {j: compare.program_rows(t, c.parts) for j, t in w.kept.slots}
+    w.kept = None
     c.free_program()
     from .reference.pileup import reference_pileup
     readings = []
@@ -240,29 +291,34 @@ def run(name, seed, seconds, trace, device, t0, config=None, cell=None):
         correct, checks = False, [[k, None, c.cell["limits"][k]]
                                   for k in compare.NUMBERS
                                   if k in c.cell["limits"]]
-    steps = ", ".join(f"{k} {v:.3f}" for k, v in c.steps.items())
+    steps = ", ".join(f"{k} {v:.3f}" for k, v in
+                      {"start": started, **c.steps}.items())
     print(f"pupbench: setup {setup_s:.3f} s ({steps}), window "
-          f"{window_s:.3f} s ({job} jobs, {snips} snips), profiled "
+          f"{w.seconds:.3f} s ({w.jobs} jobs, {w.snips} snips), profiled "
           f"{t_ref - t_prof:.3f} s, "
           f"reference {time.perf_counter() - t_ref:.3f} s; jobs "
-          + " ".join(f"{x:.3f}" for x in job_s), file=sys.stderr)
+          + " ".join(f"{x:.3f}" for x in w.job_s), file=sys.stderr)
+    print(f"pupbench: pool {len(c.pool.sets)} sets; {w.drawn} drawn past it "
+          f"in the window, its clock stopped {w.drawn_s:.3f} s",
+          file=sys.stderr)
     for phase, h in host.items():
         print(f"pupbench: host in {phase}: " + ", ".join(
             f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
             for k, v in h.items()), file=sys.stderr)
-    print("pupbench: jobs' CPU s (process, main thread) " + " ".join(
-        f"{h['process_cpu_s']:.2f}/{h['main_thread_cpu_s']:.2f}"
-        for h in job_cpu), file=sys.stderr)
+    print("pupbench: jobs' CPU s (process, main thread, kernel) " + " ".join(
+        f"{h['process_cpu_s']:.2f}/{h['main_thread_cpu_s']:.2f}/"
+        f"{h['process_sys_s']:.2f}" for h in w.job_cpu), file=sys.stderr)
     result = {
         "correct": correct,
-        "attempted": job,
-        "failed": failed,
+        "attempted": w.jobs,
+        "failed": w.failed,
         "metrics": metrics,
         "device": device_block(device, peak, ctx, trace),
     }
     if trace and ctx.trace is not None:
         result["breakdown"] = ctx.trace.breakdown()
     result["checked_jobs"] = [int(j) for j in sample]
+    result["drawn_past_pool"] = w.drawn
     result["host"] = host
     result["checks"] = {n: {"value": v, "limit": lim} for n, v, lim in checks}
     bad = forbidden_modules()

@@ -2,8 +2,11 @@
 CPU seconds over all threads, the CPUs that makes on average, and its
 threads at the end. A phase that takes longer with the same CPU seconds
 had less of the host; one that takes more CPU seconds did more work or
-waited in it. Printed beside the result, never a metric. (The card's
-machine is a sandbox whose ``/proc/stat`` and load average read nothing.)"""
+waited in it. Of those, the kernel's seconds say how much of it was the
+kernel's, such as mapping fresh memory. Printed beside the result, never
+a metric. (The card's machine is a sandbox whose ``/proc/stat`` and load
+average read nothing, and that counts no context switches or page
+faults.)"""
 
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ class Snapshot:
     def __init__(self):
         self.t = time.perf_counter()
         ru = resource.getrusage(resource.RUSAGE_SELF)
-        self.cpu = ru.ru_utime + ru.ru_stime
+        self.cpu, self.sys = ru.ru_utime + ru.ru_stime, ru.ru_stime
         self.main_cpu = time.thread_time()
 
 
@@ -40,4 +43,5 @@ def between(a, b):
         "process_cpus": (b.cpu - a.cpu) / wall if wall > 0 else None,
         "main_thread_cpu_s": b.main_cpu - a.main_cpu,
         "process_threads": threads(),
+        "process_sys_s": b.sys - a.sys,
     }

@@ -8,6 +8,7 @@ import shutil
 import subprocess
 import sys
 import time
+import weakref
 
 import numpy as np
 import pytest
@@ -15,6 +16,7 @@ import pytest
 import coolpuppy_tpu_torch as cpt
 from conftest import BIG_SEED, CELLS, ROOT, tiny
 from pupbench import compare, control, harness, spec
+from pupbench.gen import features
 
 TOP_KEYS = ["correct", "attempted", "failed", "metrics", "device"]
 
@@ -137,6 +139,151 @@ def test_control_fails_on_the_card(name, card):
     assert not compare.judge(ctrl, cell["limits"])[0]
     for k in ("data_gap", "data_mean_gap"):
         assert ctrl[k] >= 3 * prog[k]
+
+
+class FakeTable:
+    """A job's table of a known size: ``snips`` snips, 1 MiB of payload."""
+
+    def __init__(self, snips):
+        self.snips, self.payload = snips, np.zeros(2**20, np.uint8)
+
+
+class FakeCell:
+    """What ``harness.measure`` drives, with jobs that return a
+    ``FakeTable`` after ``job_s`` seconds, or raise where ``raises(j)``.
+    It logs each job's start and the pool's draws (``events``), and at
+    each job's start the window's tables that are still alive."""
+
+    def __init__(self, check_jobs, pool_jobs, job_s=0.002,
+                 raises=lambda j: False):
+        cfg, cell = tiny("tads_10kb.corners_expected")
+        self.cell = dict(cell, check_jobs=check_jobs)
+        self.job_s, self.raises = job_s, raises
+        self.events, self.refs, self.alive = [], [], []
+        self.parts = type("Parts", (), {})()
+        self.parts.table = type("Table", (), {
+            "snips": staticmethod(lambda t: t.snips)})()
+        self.pool = features.Pool(cfg, self.cell, BIG_SEED, pool_jobs)
+        self.seed_job = {features.job_seed(BIG_SEED, j): j
+                         for j in range(10_000)}
+
+    def run(self, feats, job_seed):
+        job = self.seed_job[job_seed]
+        self.events.append(("run", job))
+        self.alive.append(sum(r() is not None for r in self.refs))
+        time.sleep(self.job_s)
+        if self.raises(job):
+            raise RuntimeError(f"job {job} fails")
+        table = FakeTable(len(feats))
+        self.refs.append(weakref.ref(table))
+        return table
+
+
+def logging_draws(monkeypatch, log):
+    real = features.job_features
+
+    def draw(config, cell, seed, job, stream=features.FEATURES):
+        log.append(("draw", job))
+        return real(config, cell, seed, job, stream)
+
+    monkeypatch.setattr(features, "job_features", draw)
+
+
+@pytest.mark.parametrize("check_jobs", [1, 2, 3])
+def test_window_holds_only_the_checked_tables(check_jobs):
+    """At each job's start at most ``check_jobs`` window tables are
+    alive, so with the job in flight at most ``check_jobs + 1``; the kept
+    ones are the checked jobs'."""
+    c = FakeCell(check_jobs, pool_jobs=200)
+    w = harness.measure(c, BIG_SEED, 0.3)
+    assert w.jobs > 3 * check_jobs and w.failed == 0
+    assert max(c.alive) <= check_jobs
+    assert len(w.kept.slots) == check_jobs
+    assert w.snips == sum(len(c.pool.sets[j]) for j in range(w.jobs))
+    alive = [r() for r in c.refs if r() is not None]
+    assert sorted(id(t) for t in alive) == sorted(
+        id(t) for _, t in w.kept.slots)
+
+
+@pytest.mark.parametrize("k,n", [(1, 7), (2, 10), (3, 40)])
+def test_checked_jobs_follow_the_seed(k, n):
+    """The choice is the same for one seed and one job count, differs
+    across seeds, and is uniform over the jobs offered."""
+    def chosen(seed):
+        r = harness.Reservoir(k, seed)
+        for j in range(n):
+            r.offer(j, None)
+        return r.jobs()
+
+    assert chosen(BIG_SEED) == chosen(BIG_SEED)
+    picks = [chosen(BIG_SEED + s) for s in range(3000)]
+    assert len({tuple(p) for p in picks}) > 1
+    assert all(len(set(p)) == k and set(p) <= set(range(n)) for p in picks)
+    hits = np.bincount(np.concatenate(picks), minlength=n)
+    expect = 3000 * k / n
+    assert np.all(np.abs(hits - expect) < 5 * np.sqrt(expect))
+
+
+def test_a_job_that_raises_is_never_checked():
+    c = FakeCell(2, pool_jobs=200, raises=lambda j: j % 2 == 1)
+    w = harness.measure(c, BIG_SEED, 0.2)
+    assert w.failed == w.jobs // 2 and w.jobs >= 6
+    assert w.kept.jobs() and all(j % 2 == 0 for j in w.kept.jobs())
+    assert w.snips == sum(len(c.pool.sets[j]) for j in range(0, w.jobs, 2))
+
+
+def test_no_draw_inside_the_window(monkeypatch):
+    """A pool that covers the window: no set is drawn between the first
+    job and the last. One that does not: each set past it is drawn with
+    the window's clock stopped, and counted."""
+    log = []
+    logging_draws(monkeypatch, log)
+    c = FakeCell(1, pool_jobs=200)
+    c.events = log
+    w = harness.measure(c, BIG_SEED, 0.2)
+    runs = [i for i, e in enumerate(log) if e[0] == "run"]
+    assert w.drawn == 0 and w.jobs == len(runs)
+    assert not any(e[0] == "draw" for e in log[runs[0]:])
+
+    log.clear()
+    c = FakeCell(1, pool_jobs=2, job_s=0.001)
+    c.events = log
+    real = features.job_features
+
+    def slow(*a, **k):
+        time.sleep(0.02)
+        return real(*a, **k)
+
+    monkeypatch.setattr(features, "job_features", slow)
+    t = time.perf_counter()
+    w = harness.measure(c, BIG_SEED, 0.1)
+    wall = time.perf_counter() - t
+    assert w.drawn == w.jobs - 2 and w.drawn >= 10
+    assert w.seconds < 0.1 + 0.05 and w.drawn_s >= 0.02 * w.drawn
+    assert wall >= w.seconds + w.drawn_s - 1e-3
+    assert [e[1] for e in log if e[0] == "run"] == list(range(w.jobs))
+
+
+def test_a_run_holds_only_the_checked_tables(monkeypatch):
+    """A whole run on the CPU: the program's tables that stay alive
+    through the window are the checked jobs' alone."""
+    refs, alive = [], []
+    real = harness.Cell.run
+
+    def run(self, feats, job_seed):
+        alive.append(sum(r() is not None for r in refs))
+        table = real(self, feats, job_seed)
+        refs.append(weakref.ref(table))
+        return table
+
+    monkeypatch.setattr(harness.Cell, "run", run)
+    cfg, cell = tiny("tads_10kb.corners_expected")
+    cell["pool_jobs"] = 40
+    r = harness.run("tads_10kb.corners_expected", BIG_SEED, 1.0, False,
+                    "cpu", time.perf_counter(), config=cfg, cell=cell)
+    assert r["correct"] is True and r["attempted"] >= 3
+    assert r["drawn_past_pool"] == 0
+    assert max(alive[1:]) <= cell["check_jobs"]
 
 
 def test_a_jax_import_stops_the_run(monkeypatch):
